@@ -1,0 +1,197 @@
+"""Batched stencil / separable filters on [N, H, W] tensors (PyTorch).
+
+Counterpart of ``mdx/ops/filters.py``.  Boundary conventions:
+  * ``symmetric`` pad == SciPy ndimage ``mode="reflect"`` (edge repeated)
+  * ``edge`` pad == SciPy ``mode="nearest"`` (skimage gaussian default)
+
+Every stencil is a shift-add on slices with the JAX package's accumulation
+order (tap-ascending, one 1/size scale per axis), never ``F.conv2d``.
+``unsharp_mask`` launches the hand-written CUDA kernel on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mdx_torch import kernels
+
+
+def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int,
+             mode: str) -> torch.Tensor:
+    """``jnp.pad`` along one axis by gathering source indices.
+
+    ``mode``: "symmetric" (edge repeated), "reflect" (edge not repeated),
+    "edge" (clamp) or "constant" (zeros).  torch's own pad has no
+    symmetric mode, so every mode goes through one index rule here."""
+    if mode == "constant":
+        shape = list(x.shape)
+        parts = []
+        if lo:
+            shape[axis] = lo
+            parts.append(x.new_zeros(shape))
+        parts.append(x)
+        if hi:
+            shape[axis] = hi
+            parts.append(x.new_zeros(shape))
+        return torch.cat(parts, dim=axis)
+    n = x.shape[axis]
+    i = torch.arange(-lo, n + hi, device=x.device)
+    if mode == "symmetric":
+        i = torch.remainder(i, 2 * n)
+        i = torch.where(i >= n, 2 * n - 1 - i, i)
+    elif mode == "reflect" and n == 1:
+        i = torch.zeros_like(i)
+    elif mode == "reflect":
+        i = torch.remainder(i, 2 * n - 2)
+        i = torch.where(i >= n, 2 * n - 2 - i, i)
+    elif mode == "edge":
+        i = i.clamp(0, n - 1)
+    else:
+        raise ValueError(f"unknown pad mode {mode!r}")
+    return x.index_select(axis, i)
+
+
+def pad2(x: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
+    """Pad both spatial axes of [N, H, W] by (lo, hi)."""
+    return pad_axis(pad_axis(x, 1, lo, hi, mode), 2, lo, hi, mode)
+
+
+def laplace(x: torch.Tensor) -> torch.Tensor:
+    """3×3 cross Laplacian, symmetric boundary (ref pipeline/metrics.py:48)."""
+    xp = pad2(x, 1, 1, "symmetric")
+    return (4.0 * xp[:, 1:-1, 1:-1] - xp[:, :-2, 1:-1] - xp[:, 2:, 1:-1]
+            - xp[:, 1:-1, :-2] - xp[:, 1:-1, 2:])
+
+
+def _smooth3(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """[1,2,1]/2 correlation along ``axis`` (symmetric boundary)."""
+    n = x.shape[axis]
+    xp = pad_axis(x, axis, 1, 1, "symmetric")
+    return (0.5 * xp.narrow(axis, 0, n) + xp.narrow(axis, 1, n)
+            + 0.5 * xp.narrow(axis, 2, n))
+
+
+def _diff3(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """[-1,0,1]/2 correlation along ``axis`` (symmetric boundary)."""
+    n = x.shape[axis]
+    xp = pad_axis(x, axis, 1, 1, "symmetric")
+    return 0.5 * (xp.narrow(axis, 2, n) - xp.narrow(axis, 0, n))
+
+
+def sobel_h(x: torch.Tensor) -> torch.Tensor:
+    """Smoothed horizontal-edge Sobel, /4 (ref pipeline/metrics.py:62)."""
+    return _smooth3(_diff3(x, 1), 2)
+
+
+def sobel_v(x: torch.Tensor) -> torch.Tensor:
+    return _smooth3(_diff3(x, 2), 1)
+
+
+def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
+    return torch.hypot(sobel_h(x), sobel_v(x))
+
+
+def box_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Mean filter, SciPy ``uniform_filter`` semantics (left-heavy window
+    for even sizes, reflect boundary).  Row sums, ×1/size, column sums,
+    ×1/size — the order of ``mdx.ops.filters.box_filter``."""
+    lo = size // 2
+    hi = size - lo - 1
+    _, h, w = x.shape
+    xp = pad_axis(x, 1, lo, hi, "symmetric")
+    acc = xp[:, 0:h, :]
+    for i in range(1, size):
+        acc = acc + xp[:, i:i + h, :]
+    acc = acc * (1.0 / size)
+    xp = pad_axis(acc, 2, lo, hi, "symmetric")
+    out = xp[:, :, 0:w]
+    for i in range(1, size):
+        out = out + xp[:, :, i:i + w]
+    return out * (1.0 / size)
+
+
+def local_variance(x: torch.Tensor, size: int) -> torch.Tensor:
+    """max(E[x²] − E[x]², 0) over a size×size window."""
+    m = box_filter(x, size)
+    m2 = box_filter(x * x, size)
+    return torch.clamp_min(m2 - m * m, 0.0)
+
+
+# Max unsharp radius is 3.0 (PARAM_BOUNDS) → kernel radius ≤ int(4·3+0.5)=12.
+_GAUSS_MAX_RADIUS = 12
+
+
+def _gauss_taps(sigma: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Fixed-support Gaussian taps for sigma (scalar or [N]) → [2r+1] or
+    [N, 2r+1]; zero beyond ``int(4σ+0.5)``, normalised to sum 1."""
+    r = _GAUSS_MAX_RADIUS
+    sigma = torch.as_tensor(sigma, dtype=dtype)
+    taps = torch.arange(-r, r + 1, dtype=dtype, device=sigma.device)
+    if sigma.ndim == 1:
+        taps = taps[None, :]
+        sigma = sigma[:, None]
+    radius_eff = torch.floor(4.0 * sigma + 0.5)
+    w = torch.exp(-0.5 * torch.square(taps / torch.clamp_min(sigma, 1e-6)))
+    w = torch.where(taps.abs() <= radius_eff, w, 0.0)
+    return w / w.sum(dim=-1, keepdim=True)
+
+
+def shift_macs_rows(xp: torch.Tensor, w: torch.Tensor, h: int) -> torch.Tensor:
+    """Σₖ w[:,k]·xp[:,k:k+h,:] in tap-ascending order."""
+    acc = None
+    for k in range(w.shape[1]):
+        t = w[:, k][:, None, None] * xp[:, k:k + h, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def shift_macs_cols(xp: torch.Tensor, w: torch.Tensor, wd: int) -> torch.Tensor:
+    """Σₖ w[:,k]·xp[:,:,k:k+wd] in tap-ascending order."""
+    acc = None
+    for k in range(w.shape[1]):
+        t = w[:, k][:, None, None] * xp[:, :, k:k + wd]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def as_n(v, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Scalar or [N] parameter → [N] tensor on ``x``'s device."""
+    v = torch.as_tensor(v, dtype=dtype, device=x.device).reshape(-1)
+    return v.expand(x.shape[0]).contiguous()
+
+
+def gaussian_blur(x: torch.Tensor, sigma) -> torch.Tensor:
+    """Separable Gaussian on a fixed ±12 support, edge boundary: along H
+    first, then along W on the intermediate (skimage ``gaussian(
+    mode='nearest', truncate=4)``; the shift-MAC branch of
+    ``mdx.ops.filters.gaussian_blur``)."""
+    r = _GAUSS_MAX_RADIUS
+    _, h, wd = x.shape
+    w = _gauss_taps(as_n(sigma, x, x.dtype), x.dtype)
+    acc = shift_macs_rows(pad_axis(x, 1, r, r, "edge"), w, h)
+    return shift_macs_cols(pad_axis(acc, 2, r, r, "edge"), w, wd)
+
+
+def unsharp_mask_plain(x: torch.Tensor, radius, amount) -> torch.Tensor:
+    """clip(x + (x − gaussian(x, radius))·amount, 0, 1) — the plain
+    PyTorch version of the unsharp kernel."""
+    amount = as_n(amount, x, x.dtype)[:, None, None]
+    return torch.clamp(x + (x - gaussian_blur(x, radius)) * amount, 0.0, 1.0)
+
+
+def unsharp_mask(x: torch.Tensor, radius, amount) -> torch.Tensor:
+    """Unsharp mask with per-image (or scalar) ``radius`` and ``amount``
+    (ref pipeline/enhancement.py:202).  CUDA tensor → the unsharp kernel;
+    CPU tensor → :func:`unsharp_mask_plain`."""
+    if kernels.use_kernel(x):
+        return kernels.unsharp(x.contiguous(), as_n(radius, x),
+                               as_n(amount, x))
+    return unsharp_mask_plain(x, radius, amount)
+
+
+def adjust_gamma(x: torch.Tensor, gamma) -> torch.Tensor:
+    """Power-law on [0,1] (ref pipeline/enhancement.py:194); per-image ok."""
+    gamma = torch.as_tensor(gamma, dtype=x.dtype, device=x.device)
+    if gamma.ndim == 1:
+        gamma = gamma[:, None, None]
+    return torch.pow(torch.clamp_min(x, 0.0), gamma)

@@ -11,8 +11,9 @@ easy to find:
   built with ``nvcc`` on first use and bound with ``ctypes``.
 
 Every function takes its device from the input tensor.  On a CUDA tensor
-the four kernel-backed ops (box statistics, unsharp, CLAHE, TV) launch
-their kernel; on a CPU tensor they run their plain PyTorch version.
+the five kernel-backed ops (box statistics, unsharp, CLAHE, TV,
+bilateral) launch their kernel, at every image size; on a CPU tensor they
+run their plain PyTorch version.
 Importing this package builds nothing and needs no card.
 """
 

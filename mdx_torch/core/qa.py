@@ -9,9 +9,12 @@ Counterpart of ``mdx/core/qa.py``, with the same return tuples:
   iteration.
 * :func:`enhance_only` — plan-driven enhancement without validation.
 
-The JAX package splits batches into ≤32-image groups only because XLA's
-fusion on the TPU degrades past that (``mdx.core.batching``, the identity
-by its own docstring); these functions run the whole batch.
+``detect``, ``qa_deterministic`` and ``qa_plan`` run through
+:func:`mdx_torch.core.batching.map_subbatches`, as their JAX counterparts
+do: a batch larger than the group limit for its image size (the knee
+measured on the card) runs as equal row groups, one after another, with
+the same results as whole.  ``groups`` pins the candidate group sizes
+(tests and sweeps).  ``enhance_only`` runs whole, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,20 +23,22 @@ import torch
 
 from mdx_torch.core import enhance as E
 from mdx_torch.core import metrics as M
+from mdx_torch.core.batching import map_subbatches
 from mdx_torch.core.score import objective_score
 from mdx_torch.core.validate import validate as _validate
 
 
-def detect(x: torch.Tensor):
-    """[N,H,W] → (stats dict incl. 16 metrics, issue masks)."""
+def _detect_body(x: torch.Tensor):
     stats = M.image_stats(x)
     return stats, M.detect_issues(stats)
 
 
-def qa_deterministic(x: torch.Tensor):
-    """Full deterministic QA.
+def detect(x: torch.Tensor, groups=None):
+    """[N,H,W] → (stats dict incl. 16 metrics, issue masks)."""
+    return map_subbatches(_detect_body, x, groups=groups)
 
-    Returns (enhanced, stats_before, issues, flags, validation, score)."""
+
+def _qa_deterministic_body(x: torch.Tensor):
     stats = M.image_stats(x)
     issues = M.detect_issues(stats)
     enhanced, flags = E.apply_issue_driven(x, issues)
@@ -45,10 +50,14 @@ def qa_deterministic(x: torch.Tensor):
     return enhanced, stats, issues, flags, validation, score
 
 
-def qa_plan(x: torch.Tensor, static: E.PlanStatic, dyn: E.PlanDynamic):
-    """One plan-driven tuning iteration.
+def qa_deterministic(x: torch.Tensor, groups=None):
+    """Full deterministic QA.
 
-    Returns (enhanced, guard flags, validation, score)."""
+    Returns (enhanced, stats_before, issues, flags, validation, score)."""
+    return map_subbatches(_qa_deterministic_body, x, groups=groups)
+
+
+def _qa_plan_body(x: torch.Tensor, dyn: E.PlanDynamic, static: E.PlanStatic):
     # one metric pass on x, shared by the over-processing guard and the
     # validation before-stats
     stats = M.image_stats(x)
@@ -56,6 +65,14 @@ def qa_plan(x: torch.Tensor, static: E.PlanStatic, dyn: E.PlanDynamic):
     validation = _validate(x, enhanced, stats_before=stats)
     score, _ = objective_score(validation)
     return enhanced, flags, validation, score
+
+
+def qa_plan(x: torch.Tensor, static: E.PlanStatic, dyn: E.PlanDynamic,
+            groups=None):
+    """One plan-driven tuning iteration.
+
+    Returns (enhanced, guard flags, validation, score)."""
+    return map_subbatches(_qa_plan_body, x, dyn, static, groups=groups)
 
 
 def enhance_only(x: torch.Tensor, static: E.PlanStatic, dyn: E.PlanDynamic):

@@ -10,20 +10,26 @@
 //      the 7-window reads it at offset 5).  Row sums, x1/size, column
 //      sums, x1/size: the order of mdx.ops.filters.box_filter.  Writes the
 //      sqrt(lv7) and lv16 maps.
-//   2. box_reduce_kernel: one block per image, two-pass (centred) mean and
-//      population std of both maps, per-thread partials summed in a fixed
-//      tree (no float atomics: the result is the same on every run).
+//   2. the two-pass (centred) mean and population std of both maps, in
+//      float64, each pass in two stages: box_partial_kernel, one block per
+//      (image, chunk of the maps), sums its chunk in a fixed tree;
+//      box_finalize_kernel, one block per image, sums the image's chunk
+//      sums in a fixed tree.  No float atomics, and the chunks depend only
+//      on the image size, so the result is the same on every run.  (One
+//      block per image would put a group of 4 images at 2048^2 on 4 of
+//      the 132 SMs.)
 // Bound: memory.  Pass 1 reads the image once (halo re-reads hit L2) and
 // writes two maps; pass 2 reads the maps twice.  About 5 full-image f32
-// passes of device memory traffic per image; fusing pass 2's first sweep
-// into pass 1 is the next step.
+// passes of device memory traffic per image, against the one read of the
+// image the function needs; fusing pass 2's first sweep into pass 1 is
+// the next step.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BT = 32;          // output tile edge
 constexpr int SP = BT + 15;     // padded tile edge: 8 before, 7 after
-constexpr int RED_T = 1024;     // threads of the reduction block
+constexpr int RED_T = 256;      // threads of a reduction block
 
 __global__ void __launch_bounds__(256)
 box_maps_kernel(const float* __restrict__ x, float* __restrict__ lv7s,
@@ -104,47 +110,87 @@ box_maps_kernel(const float* __restrict__ x, float* __restrict__ lv7s,
     }
 }
 
+// Pass 0: the sums of both maps over one chunk; pass 1: the sums of their
+// squared deviations from the means.  partials: [n, nchunk, 2].
 __global__ void __launch_bounds__(RED_T)
-box_reduce_kernel(const float* __restrict__ lv7s,
-                  const float* __restrict__ lv16, float* __restrict__ out,
-                  int hw) {
+box_partial_kernel(const float* __restrict__ lv7s,
+                   const float* __restrict__ lv16,
+                   const float* __restrict__ means,
+                   double* __restrict__ partials, int hw, int nchunk,
+                   int pass) {
     __shared__ double sh[RED_T];
-    const int img = blockIdx.x;
+    const int img = blockIdx.y, chunk = blockIdx.x;
     const float* a = lv7s + (size_t)img * hw;
     const float* b = lv16 + (size_t)img * hw;
-    const int tid = threadIdx.x;
-
+    const int len = (hw + nchunk - 1) / nchunk;
+    const int lo = chunk * len;
+    const int hi = min(lo + len, hw);
     double sa = 0.0, sb = 0.0;
-    for (int k = tid; k < hw; k += RED_T) {
-        sa += a[k];
-        sb += b[k];
+    if (pass == 0) {
+        for (int k = lo + threadIdx.x; k < hi; k += RED_T) {
+            sa += a[k];
+            sb += b[k];
+        }
+    } else {
+        const float mean7 = means[2 * img], mean16 = means[2 * img + 1];
+        for (int k = lo + threadIdx.x; k < hi; k += RED_T) {
+            const float da = a[k] - mean7;
+            const float db = b[k] - mean16;
+            sa += (double)(da * da);
+            sb += (double)(db * db);
+        }
     }
-    const float mean7 = (float)(mdx::block_sum<double, RED_T>(sa, sh) / hw);
-    const float mean16 = (float)(mdx::block_sum<double, RED_T>(sb, sh) / hw);
+    sa = mdx::block_sum<double, RED_T>(sa, sh);
+    sb = mdx::block_sum<double, RED_T>(sb, sh);
+    if (threadIdx.x == 0) {
+        const size_t o = ((size_t)img * nchunk + chunk) * 2;
+        partials[o] = sa;
+        partials[o + 1] = sb;
+    }
+}
 
-    double qa = 0.0, qb = 0.0;
-    for (int k = tid; k < hw; k += RED_T) {
-        const float da = a[k] - mean7;
-        const float db = b[k] - mean16;
-        qa += (double)(da * da);
-        qb += (double)(db * db);
+// Pass 0: means [n, 2] (lv7s, lv16); pass 1: out [n, 3].
+__global__ void __launch_bounds__(RED_T)
+box_finalize_kernel(const double* __restrict__ partials,
+                    float* __restrict__ means, float* __restrict__ out,
+                    int hw, int nchunk, int pass) {
+    __shared__ double sh[RED_T];
+    const int img = blockIdx.x;
+    const double* p = partials + (size_t)img * nchunk * 2;
+    double sa = 0.0, sb = 0.0;
+    for (int k = threadIdx.x; k < nchunk; k += RED_T) {
+        sa += p[2 * k];
+        sb += p[2 * k + 1];
     }
-    const double va = mdx::block_sum<double, RED_T>(qa, sh) / hw;
-    const double vb = mdx::block_sum<double, RED_T>(qb, sh) / hw;
-    if (tid == 0) {
-        out[img * 3 + 0] = (float)sqrt(va);
-        out[img * 3 + 1] = mean16;
-        out[img * 3 + 2] = (float)sqrt(vb);
+    sa = mdx::block_sum<double, RED_T>(sa, sh);
+    sb = mdx::block_sum<double, RED_T>(sb, sh);
+    if (threadIdx.x != 0) return;
+    if (pass == 0) {
+        means[2 * img] = (float)(sa / hw);
+        means[2 * img + 1] = (float)(sb / hw);
+    } else {
+        out[img * 3 + 0] = (float)sqrt(sa / hw);
+        out[img * 3 + 1] = means[2 * img + 1];
+        out[img * 3 + 2] = (float)sqrt(sb / hw);
     }
 }
 
 }  // namespace
 
+// lv7s, lv16: [n, h, w] scratch maps; partials: [n, nchunk, 2] float64 and
+// means: [n, 2] float32 scratch; out: [n, 3].  All allocated by the caller.
 extern "C" int mdx_box_stats(const float* x, float* lv7s, float* lv16,
-                             float* out, int n, int h, int w, void* stream) {
+                             double* partials, float* means, float* out,
+                             int n, int h, int w, int nchunk, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((w + BT - 1) / BT, (h + BT - 1) / BT, n);
     box_maps_kernel<<<grid, dim3(32, 8), 0, st>>>(x, lv7s, lv16, h, w);
-    box_reduce_kernel<<<n, RED_T, 0, st>>>(lv7s, lv16, out, h * w);
+    const int hw = h * w;
+    for (int pass = 0; pass < 2; ++pass) {
+        box_partial_kernel<<<dim3(nchunk, n), RED_T, 0, st>>>(
+            lv7s, lv16, means, partials, hw, nchunk, pass);
+        box_finalize_kernel<<<n, RED_T, 0, st>>>(partials, means, out, hw,
+                                                 nchunk, pass);
+    }
     return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
-                            "tv_chambolle": 0}
+                            "tv_chambolle": 0, "bilateral": 0}
 
 _lib = None
 
@@ -80,18 +80,27 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# pixels of each map per block of box stats' reduction passes
+_BOX_CHUNK = 4096
+
+
 def box_stats(x: torch.Tensor):
     """(std(sqrt(lv7)), mean(lv16), std(lv16)) per image of [N,H,W] —
     see ``csrc/box_stats.cu``; plain version
     ``mdx_torch.core.metrics._lv_box_stats_plain``."""
     n, h, w = _image(x)
+    nchunk = -(-h * w // _BOX_CHUNK)
     lib = library()
     with torch.cuda.device(x.device):
         lv7s = torch.empty_like(x)
         lv16 = torch.empty_like(x)
+        partials = torch.empty((n, nchunk, 2), dtype=torch.float64,
+                               device=x.device)
+        means = torch.empty((n, 2), dtype=torch.float32, device=x.device)
         out = torch.empty((n, 3), dtype=torch.float32, device=x.device)
         _ok(lib.mdx_box_stats(x.data_ptr(), lv7s.data_ptr(), lv16.data_ptr(),
-                              out.data_ptr(), n, h, w, _stream()),
+                              partials.data_ptr(), means.data_ptr(),
+                              out.data_ptr(), n, h, w, nchunk, _stream()),
             "box_stats")
     LAUNCHES["box_stats"] += 1
     return out[:, 0], out[:, 1], out[:, 2]
@@ -181,3 +190,25 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
             p_cur, p_next = p_next, p_cur
     LAUNCHES["tv_chambolle"] += 1
     return out, iters
+
+
+def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,
+              sigma_space: torch.Tensor) -> torch.Tensor:
+    """d x d bilateral of [N,H,W] on a reflect pad with per-image
+    ``sigma_color`` and ``sigma_space`` [N]; ``d`` odd, 1 to 9 — see
+    ``csrc/bilateral.cu``; plain version
+    ``mdx_torch.ops.bilateral.bilateral_plain``."""
+    n, h, w = _image(x)
+    _check(sigma_color, "sigma_color", (n,), device=x.device)
+    _check(sigma_space, "sigma_space", (n,), device=x.device)
+    d = int(d)
+    if d < 1 or d > 9 or d % 2 == 0:
+        raise ValueError(f"bilateral kernel: d must be odd, 1 to 9, got {d}")
+    lib = library()
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        _ok(lib.mdx_bilateral(x.data_ptr(), sigma_color.data_ptr(),
+                              sigma_space.data_ptr(), out.data_ptr(), n, h, w,
+                              d, _stream()), "bilateral")
+    LAUNCHES["bilateral"] += 1
+    return out

@@ -1,10 +1,12 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All ``mdx_torch/csrc/*.cu`` sources compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes).  The library lands in ``build/mdx_torch_kernels/`` at the root of
-the checkout, named by a hash of the sources and the flags, so an edit to
-any source builds a new library and an unchanged tree reuses the old one.
+Each ``mdx_torch/csrc/*.cu`` source compiles to an object in its own
+``nvcc`` process, all started together, and the objects link into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes).  The library lands in
+``build/mdx_torch_kernels/`` at the root of the checkout, named by a hash
+of the sources and the flags, so an edit to any source builds a new
+library and an unchanged tree reuses the old one.
 Nothing is built at import: the first kernel call builds.
 """
 
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "mdx_torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -33,11 +35,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of every C entry point (all return cudaGetLastError())
 SIGNATURES = {
-    "mdx_box_stats": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mdx_box_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_unsharp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mdx_clahe": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_tv_iteration": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P),
+    "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -68,27 +71,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
     path.  nvcc's output (ptxas register and shared-memory counts) is kept
-    beside it as ``<library>.log``.  Raises if nvcc fails."""
+    beside it as ``<library>.log``.  Raises if any nvcc fails."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    nvcc = _nvcc()
+    cu = [src for src in _sources() if src.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(cu, objs)]
+        outs = [(src.name, p.communicate()[0], p.returncode)
+                for src, p in zip(cu, procs)]
+        so = Path(tmp) / "lib.so"
+        if all(rc == 0 for _, _, rc in outs):
+            link = subprocess.run(
+                [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(so),
+                 *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            outs.append(("link", link.stdout, link.returncode))
         secs = time.perf_counter() - t0
-        log = f"# nvcc {secs:.1f} s, rc {proc.returncode}\n{proc.stdout}{proc.stderr}"
+        log = (f"# nvcc {secs:.1f} s, {len(cu)} sources in parallel\n"
+               + "".join(f"# {name}: rc {rc}\n{out}"
+                         for name, out, rc in outs))
         lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if any(rc != 0 for _, _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(so, lib)
     return lib
 
 

@@ -1,16 +1,19 @@
 """Batched bilateral filter (PyTorch) — ref pipeline/enhancement.py:102-143.
 
-Counterpart of the XLA lowering of ``mdx/ops/bilateral.py``: the d² window
-offsets are unrolled as shifted multiply-accumulates in window-ascending
-order (dy, then dx) on a reflect pad.  At ≤1024² the JAX package lowers
-this op with XLA, not its Pallas kernel, so it stays plain PyTorch here.
+Counterpart of ``mdx/ops/bilateral.py`` and of both TPU bilateral kernels
+(``bilateral_tpu`` and ``bilateral_banded_tpu``): the d² window offsets
+as shifted multiply-accumulates in window-ascending order (dy, then dx) on
+a reflect pad.  On a CUDA tensor :func:`bilateral` launches the bilateral
+kernel (``csrc/bilateral.cu``) at every size; on a CPU tensor it runs
+:func:`bilateral_plain`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mdx_torch.ops.filters import pad2
+from mdx_torch import kernels
+from mdx_torch.ops.filters import as_n, pad2
 
 
 def _norm_d(d: int) -> int:
@@ -21,10 +24,10 @@ def _norm_d(d: int) -> int:
     return d
 
 
-def bilateral(x: torch.Tensor, d: int = 5, sigma_color=0.05,
-              sigma_space=0.05) -> torch.Tensor:
-    """Edge-preserving smoothing of [N,H,W]: spatial × intensity Gaussian,
-    per-image (or scalar) sigmas."""
+def bilateral_plain(x: torch.Tensor, d: int = 5, sigma_color=0.05,
+                    sigma_space=0.05) -> torch.Tensor:
+    """The plain PyTorch version of the bilateral kernel; ``d`` is
+    normalised by :func:`_norm_d`, and d ≤ 0 returns ``x``."""
     if d <= 0:
         return x
     d = _norm_d(d)
@@ -51,3 +54,16 @@ def bilateral(x: torch.Tensor, d: int = 5, sigma_color=0.05,
             num = num + wgt * shifted
             den = den + wgt
     return num / (den + 1e-10)
+
+
+def bilateral(x: torch.Tensor, d: int = 5, sigma_color=0.05,
+              sigma_space=0.05) -> torch.Tensor:
+    """Edge-preserving smoothing of [N,H,W]: spatial × intensity Gaussian,
+    per-image (or scalar) sigmas.  CUDA tensor → the bilateral kernel; CPU
+    tensor → :func:`bilateral_plain`."""
+    if d <= 0:
+        return x
+    if kernels.use_kernel(x):
+        return kernels.bilateral(x.contiguous(), _norm_d(d),
+                                 as_n(sigma_color, x), as_n(sigma_space, x))
+    return bilateral_plain(x, d, sigma_color, sigma_space)

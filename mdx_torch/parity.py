@@ -190,9 +190,10 @@ def max_abs(got: dict[str, np.ndarray], want: dict[str, np.ndarray],
 
 # A CUDA kernel against its plain PyTorch version, on the same card and the
 # same inputs: {name: (rtol, atol)}, every element within
-# atol + rtol * |plain|.  Unsharp, CLAHE and TV take the ``tol`` of
-# PARITY_SWEEP_r05.json for the TPU kernel each replaces (1e-5, 2e-5, 1e-5;
-# measured on an H100 at [4,512,512]: 0.0, 4.7e-6, 0.0).  The sweep's box
+# atol + rtol * |plain|.  Unsharp, CLAHE, TV and bilateral take the ``tol``
+# of PARITY_SWEEP_r05.json for the TPU kernel each replaces (1e-5, 2e-5,
+# 1e-5, 1e-5; measured on an H100 at [4,512,512] for the first three: 0.0,
+# 4.7e-6, 0.0).  The sweep's box
 # stats tol (1e-4) is about 30 % of mean(lv16) on bench data (3.4e-3) and
 # would pass a wrong window or pad; the kernel builds the local-variance
 # maps in the plain version's float32 order and differs only in how it sums
@@ -203,6 +204,7 @@ KERNEL_TOL = {
     "unsharp": (0.0, 1e-5),
     "clahe": (0.0, 2e-5),
     "tv_chambolle": (0.0, 1e-5),
+    "bilateral": (0.0, 1e-5),
 }
 
 

@@ -2,10 +2,10 @@
 
     python -m mdx_torch.tools.op_diff
 
-Run from the root of a checkout on a machine with a CUDA card.  On
-bench.py's batch at 2x512^2, the size of chip_smoke's slice check, for each
-op of the bench plan's chain, in order, it prints the difference of the
-card's result from the CPU's:
+Run from the root of a checkout on a machine with a CUDA card.  On the
+bench batch at 2x512^2 (``mdx_torch.tools.make_batch``), the size of
+chip_smoke's slice check, for each op of the bench plan's chain, in order,
+it prints the difference of the card's result from the CPU's:
 
 * ``op <name> (same input)``: both devices run the op on the CPU chain's
   input, so the line shows what the op alone adds;
@@ -20,7 +20,6 @@ evidence behind the pixel tolerances of ``mdx_torch.parity``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 N, SIZE = 2, 512
@@ -37,19 +36,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("op_diff needs a CUDA card")
 
-    from bench import _make_batch
-
     from mdx_torch.core import enhance as E
     from mdx_torch.core import qa
     from mdx_torch.ops import tv as T
-    from mdx_torch.tools import all_ops_masks, bench_plan, card_line
+    from mdx_torch.tools import (all_ops_masks, bench_plan, card_line,
+                                 make_batch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}")
-    x_np = _make_batch(N, SIZE)
-    x_cpu = torch.from_numpy(np.array(x_np))
+    x_cpu = torch.from_numpy(make_batch(N, SIZE))
     plans = {"cpu": bench_plan("cpu"), "card": bench_plan(dev)}
     masks = {"cpu": all_ops_masks(N, "cpu"), "card": all_ops_masks(N, dev)}
     static = plans["cpu"][0]

@@ -2,8 +2,9 @@
 
     python -m mdx_torch.tools.profile_pass [--trace PATH]
 
-Run from the root of a checkout: bench.py gives the batch (32x512^2, the
-TPU headline's) and the plan.  It prints:
+Run from the root of a checkout.  The batch (32x512^2, the TPU
+headline's) and the plan are ``mdx_torch.tools.make_batch`` and
+``bench_plan``.  It prints:
 
 1. ms per phase, each the median of ``REPS`` synchronised calls on the
    host clock: the whole ``qa_plan`` pass; ``image_stats`` and three of its
@@ -26,7 +27,6 @@ import statistics
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -148,15 +148,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_pass needs a CUDA card")
 
-    from bench import _make_batch
-
-    from mdx_torch.tools import bench_plan, card_line
+    from mdx_torch.tools import bench_plan, card_line, make_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}")
-    x = torch.from_numpy(np.array(_make_batch(N, SIZE))).to(dev)
+    x = torch.from_numpy(make_batch(N, SIZE)).to(dev)
     static, dyn = bench_plan(dev)
     print(f"ms per phase, [{N},{SIZE},{SIZE}], median of {REPS} "
           f"synchronised calls:")

@@ -18,6 +18,7 @@ import torch
 from mdx_torch import kernels, parity
 from mdx_torch.core import metrics as M
 from mdx_torch.core import qa
+from mdx_torch.ops import bilateral as B
 from mdx_torch.ops import clahe as C
 from mdx_torch.ops import filters as F
 from mdx_torch.ops import tv as T
@@ -49,7 +50,7 @@ def _assert_kernel_parity(name, got, want):
 
 
 @pytest.mark.parametrize("shape", [(3, 64, 96), (2, 33, 129), (2, 5, 7),
-                                   (1, 512, 512)])
+                                   (1, 512, 512), (2, 1024, 1100)])
 def test_box_stats_kernel(dev, shape):
     x = _batch(1, *shape, dev)
     _assert_kernel_parity("box_stats", kernels.box_stats(x),
@@ -98,6 +99,42 @@ def test_tv_kernel_iteration_cap(dev):
         _assert_kernel_parity("tv_chambolle", got, want)
 
 
+@pytest.mark.parametrize("shape", [(2, 256, 256), (3, 129, 77)])
+@pytest.mark.parametrize("d", [3, 5, 9])
+def test_bilateral_kernel(dev, shape, d):
+    x = _batch(10, *shape, dev)
+    n = shape[0]
+    sc = torch.linspace(0.03, 0.2, n, device=dev)
+    ss = torch.linspace(0.05, 0.5, n, device=dev)
+    _assert_kernel_parity("bilateral", kernels.bilateral(x, d, sc, ss),
+                          B.bilateral_plain(x, d, sc, ss))
+    kernels.reset_launches()
+    _assert_kernel_parity("bilateral", B.bilateral(x, d, sc, ss),
+                          B.bilateral_plain(x, d, sc, ss))
+    assert kernels.LAUNCHES["bilateral"] == 1
+
+
+@pytest.mark.parametrize("d", [0, -3])
+def test_bilateral_d_off_returns_input(dev, d):
+    x = _batch(11, 2, 32, 32, dev)
+    kernels.reset_launches()
+    assert B.bilateral(x, d, 0.05, 0.05) is x
+    assert kernels.LAUNCHES["bilateral"] == 0
+
+
+def test_bilateral_wrapper_refuses(dev):
+    x = _batch(12, 2, 32, 32, dev)
+    one = torch.full((2,), 0.05, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bilateral(x.cpu(), 5, one.cpu(), one.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.bilateral(x.transpose(1, 2), 5, one, one)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.bilateral(x.double(), 5, one, one)
+    with pytest.raises(ValueError, match="odd"):
+        kernels.bilateral(x, 4, one, one)
+
+
 def test_wrappers_check_their_inputs(dev):
     x = _batch(7, 2, 32, 32, dev)
     one = torch.ones(2, device=dev)
@@ -121,6 +158,7 @@ def test_launch_counters_count_wrapper_launches(dev):
     kernels.unsharp(x, one, one)
     kernels.clahe(x, one * 0.02, 16)
     kernels.tv_chambolle(x, one * 0.05)
+    kernels.bilateral(x, 5, one * 0.05, one * 0.05)
     assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
     F.unsharp_mask_plain(x, one, one)
     assert kernels.LAUNCHES["unsharp"] == 1

@@ -1,5 +1,5 @@
-"""The plain versions of the four CUDA kernels (box stats, unsharp, CLAHE,
-TV) and bilateral, against the JAX package on the CPU.
+"""The plain versions of the five CUDA kernels (box stats, unsharp, CLAHE,
+TV, bilateral), against the JAX package on the CPU.
 
 Each plain version is held against both JAX forms the TPU path has: the
 XLA lowering and the Pallas kernel in ``interpret=True`` mode, at small
@@ -133,7 +133,7 @@ def test_tv_iteration_cap(max_iter):
            1e-6)
 
 
-# ------------------------------------------------------ bilateral (plain)
+# ------------------------------------------------------------ bilateral
 
 @pytest.mark.parametrize("d", [3, 5, 8])
 def test_bilateral_vs_xla_and_pallas(d):
@@ -146,6 +146,21 @@ def test_bilateral_vs_xla_and_pallas(d):
     dn = TB._norm_d(d)
     _close(got, PK.bilateral_tpu(jnp.asarray(x), dn, jnp.asarray(sc),
                                  jnp.asarray(ss), interpret=True), 1e-5)
+
+
+@pytest.mark.parametrize("d", [0, -1, 2, 12])
+def test_bilateral_cpu_runs_the_plain_version(d):
+    # CPU tensor → bilateral_plain (no launch); d ≤ 0 returns the input,
+    # even d rounds up to odd, d > 9 clamps to 9
+    x = _t(_batch(9, 2, 24, 20))
+    kernels.reset_launches()
+    got = TB.bilateral(x, d, 0.07, 0.1)
+    assert kernels.LAUNCHES["bilateral"] == 0
+    if d <= 0:
+        assert got is x
+    else:
+        assert torch.equal(got, TB.bilateral_plain(x, TB._norm_d(d), 0.07,
+                                                   0.1))
 
 
 # ------------------------------------------------- dispatch and wrappers
@@ -166,6 +181,7 @@ def test_cpu_path_launches_and_builds_nothing():
     lambda x: kernels.unsharp(x, torch.ones(2), torch.ones(2)),
     lambda x: kernels.clahe(x, torch.ones(2), 16),
     lambda x: kernels.tv_chambolle(x, torch.ones(2)),
+    lambda x: kernels.bilateral(x, 5, torch.ones(2), torch.ones(2)),
 ])
 def test_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -185,7 +201,11 @@ def test_build_flags_and_library_name():
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path() == _build.library_path()
     assert {s.name for s in _build._sources()} >= {
-        "box_stats.cu", "unsharp.cu", "clahe.cu", "tv.cu", "common.cuh"}
+        "box_stats.cu", "unsharp.cu", "clahe.cu", "tv.cu", "bilateral.cu",
+        "common.cuh"}
+    assert set(_build.SIGNATURES) == {
+        "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_iteration",
+        "mdx_bilateral"}
 
 
 def test_jax_stays_on_cpu():

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of mdx_torch's fused QA pass on one NVIDIA GPU.
+"""Smoke run of mdx_torch's fused QA pass, tuning sweep and raw ingest on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
 
 1. device  — the card's name and power limit; TF32 off.
 2. build   — nvcc builds the kernels from ``mdx_torch/csrc``.
-3. kernels — each CUDA kernel (box stats, unsharp, CLAHE, TV, bilateral)
-   against its plain PyTorch version on the card at [4,512,512], held to
-   ``mdx_torch.parity.KERNEL_TOL``; TV's per-image iteration counts must be
-   equal.
+3. kernels — each CUDA kernel (box stats, unsharp, CLAHE, TV, bilateral,
+   wavelet denoise) against its plain PyTorch version on the card at
+   [4,512,512], held to ``mdx_torch.parity.KERNEL_TOL``; TV's per-image
+   iteration counts must be equal; the wavelet denoise soft, hard, with a
+   mixed soft mask and with ``sigma=None`` through ``denoise_wavelet``.
 4. slice   — ``qa_plan`` with the bench plan and ``qa_deterministic`` on
    [2,512,512], on the card (kernels) against the CPU (plain versions),
    within the tolerances of ``mdx_torch.parity``.
@@ -23,24 +25,44 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    times: img/s (median of synchronised reps) and each kernel against its
    plain version at 32x512^2, whose outputs are compared too.
 6. 2048^2  — BASELINE config 2 and the large-slice path:
-   1. each kernel against its plain version at [1,2048,2048];
+   1. each kernel against its plain version at [1,2048,2048] (the wavelet
+      cases of phase 3 at [2,2048,2048]);
    2. config 2 (``mdx_torch.tools.bench_config2``: denoise, CLAHE, unsharp
       and the guards, in groups of ``group_limit``) on 64x2048^2, counters
-      reset first: box stats, CLAHE and unsharp must launch, the output
+      reset first: box stats, CLAHE, unsharp and the wavelet denoise must
+      launch, the output
       must be finite; the kernel calls of the first group are recorded and
       replayed against the plain versions;
    3. ``qa_plan`` with the bench plan at 16x2048^2 (one group; the batch
-      cut from 64 so that TV and bilateral run at 2048^2): all five kernels
+      cut from 64 so that TV and bilateral run at 2048^2): every kernel
       must launch, outputs finite, every kernel call replayed;
    4. config 2's ``apply_plan`` at [1,2048,2048] on the card against the
       CPU, within ``parity.breaches``;
    5. times: config 2 at 64x2048^2 (ms per batch, img/s, peak memory) and
       each kernel against its plain version at 16x2048^2, the group the
       2048^2 path hands each kernel.
+7. tuning  — ``mdx_torch.core.tuning`` at full size:
+   1. ``autotune`` on one 512^2 frame with issues noise and blur (27
+      lanes), on one 2048^2 frame (27 lanes in 3 groups of 9) and
+      ``autotune_batch`` on 4x512^2 frames (108 lanes), counters reset
+      before each: box stats, CLAHE, unsharp and the wavelet denoise must
+      launch, outputs finite, one chosen record per sweep; the 512^2
+      sweep's kernel calls replayed against the plain versions;
+   2. the 512^2 sweep on the card against the CPU: scores within
+      ``TUNE_SCORE_ATOL``, the same best candidate (or, where a last-ulp
+      tie picks another, the two candidates' scores within it on both
+      sides), the picked image within ``parity.breaches``;
+   3. ms per sweep of each of the three (median of synchronised reps).
+8. ingest  — 64 frames of 512^2 stored as 12-bit uint16 with a CT-like
+   rescale (slope 1, intercept -1024): upload, ``normalize_ingest`` and
+   ``qa_deterministic``, per-frame min-max and stack-global bounds; finite
+   on 64 frames, the card against the CPU on 2 within ``parity.breaches``,
+   img/s timed with the upload.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; ``bound_ms`` from
-this run's shapes, and for TV its iteration counts); the last line is
+this run's shapes, and for TV its iteration counts; launches per path of
+phases 5-8); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -59,16 +81,27 @@ SOURCE = {"box_stats": "mdx_torch/csrc/box_stats.cu",
           "unsharp": "mdx_torch/csrc/unsharp.cu",
           "clahe": "mdx_torch/csrc/clahe.cu",
           "tv_chambolle": "mdx_torch/csrc/tv.cu",
-          "bilateral": "mdx_torch/csrc/bilateral.cu"}
+          "bilateral": "mdx_torch/csrc/bilateral.cu",
+          "wavelet_denoise": "mdx_torch/csrc/wavelet.cu"}
 _PK = "mdx/ops/pallas_kernels.py"
 REPLACES = {"box_stats": [f"{_PK}:792"],
             "unsharp": [f"{_PK}:1126", f"{_PK}:1388"],
             "clahe": [f"{_PK}:371", f"{_PK}:654"],
             "tv_chambolle": [f"{_PK}:511", f"{_PK}:906"],
-            "bilateral": [f"{_PK}:1229", f"{_PK}:1301"]}
+            "bilateral": [f"{_PK}:1229", f"{_PK}:1301"],
+            "wavelet_denoise": [f"{_PK}:1549"]}
 SIZE_N = 32
 BIG, CONFIG2_N, QA_BIG_N = 2048, 64, 16
 REPS = 7
+TUNE_ISSUES = ["noise", "blur"]
+TUNE_BATCH_N, INGEST_N = 4, 64
+# the tuning sweep's scores, card against CPU.  Each is a weighted sum of
+# validation fields whose float32 sums over the 512^2 pixels run in another
+# order on the card than on the CPU; that moves a score of about -10 by
+# 1.3e-5 to 3.1e-5 (the qa_plan and qa_deterministic slice of phase 4 and
+# this sweep, measured on an H100), 20 to 30 float32 ulp.  1e-4 bounds that
+# and stays 10x inside parity.SCORE_ATOL, the slice's score tolerance.
+TUNE_SCORE_ATOL = 1e-4
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory bytes/s and float32 operations/s outside the tensor cores.
@@ -79,9 +112,13 @@ F32_OPS_PER_S = 67e12
 # the exp counted as one, plus 2): box stats 7x7 and 16x16 sums of x and
 # x^2 both ways, scales, variances, sqrt, and the two reduction passes;
 # unsharp 25-tap rows and columns and the combine; CLAHE the bin index,
-# the clipped LUT per bin (256 bins per 16x16 tile) and the 4-LUT blend.
+# the clipped LUT per bin (256 bins per 16x16 tile) and the 4-LUT blend;
+# wavelet denoise, over all levels (each level works on a quarter of the
+# pixels of the one before, 4/3 in all): analysis 6 per pixel (24 per 2x2
+# quad) -> 8, the bands' squares and sums 1.5 -> 2, the soft shrink 3 -> 4
+# and synthesis 6 -> 8.
 OPS_PER_PIXEL = {"box_stats": 130, "unsharp": 103, "clahe": 47,
-                 "tv_chambolle": 23}
+                 "tv_chambolle": 23, "wavelet_denoise": 22}
 
 
 class SmokeFailure(Exception):
@@ -132,12 +169,18 @@ def _plain_versions():
     from mdx_torch.ops import clahe as C
     from mdx_torch.ops import filters as F
     from mdx_torch.ops import tv as T
+    from mdx_torch.ops import wavelet as W
+
+    def wavelet_plain(x, sigma, soft, levels):
+        return W.denoise_wavelet_plain(x, sigma, wavelet_levels=levels,
+                                       soft_mask=soft)
 
     return {"box_stats": M._lv_box_stats_plain,
             "unsharp": F.unsharp_mask_plain,
             "clahe": C.clahe_plain,
             "tv_chambolle": T.tv_chambolle_plain,
-            "bilateral": B.bilateral_plain}
+            "bilateral": B.bilateral_plain,
+            "wavelet_denoise": wavelet_plain}
 
 
 def _bound(torch, name: str, args, result) -> tuple[float, str]:
@@ -235,7 +278,10 @@ class KernelCheck:
 
 
 def _args_for(torch, x, params):
-    """Each kernel's arguments at the bench plan's parameters."""
+    """Each kernel's arguments at the bench plan's parameters (the wavelet
+    denoise: sigma from the plain MAD estimate, soft on every image)."""
+    from mdx_torch.ops import wavelet as W
+
     full = lambda v: torch.full((x.shape[0],), float(v), device=x.device)  # noqa: E731
     return {
         "box_stats": (x,),
@@ -247,7 +293,39 @@ def _args_for(torch, x, params):
         "bilateral": (x, params["bilateral_d"],
                       full(params["bilateral_sigma_color"]),
                       full(params["bilateral_sigma_space"])),
+        "wavelet_denoise": (x, _mad_sigma(x),
+                            torch.ones(x.shape[0], dtype=torch.bool,
+                                       device=x.device),
+                            W.default_levels(x.shape[-2:])),
     }
+
+
+def _mad_sigma(x):
+    """The plain version's per-image MAD sigma of ``x`` (finest db1 HH)."""
+    from mdx_torch.ops import wavelet as W
+
+    return W.mad_sigma_from_hh(W.dwt2(x, "db1")[1][2]).contiguous()
+
+
+def _wavelet_cases(torch, check, x, label: str) -> None:
+    """The wavelet kernel against its plain version on ``x``: soft, hard and
+    a mixed soft mask with sigma given, and ``sigma=None`` (the MAD sigma
+    from the kernel's own finest HH) through ``denoise_wavelet``."""
+    from mdx_torch.ops import wavelet as W
+
+    n = x.shape[0]
+    levels = W.default_levels(x.shape[-2:])
+    sigma = _mad_sigma(x)
+    masks = {"soft": torch.ones(n, dtype=torch.bool, device=x.device),
+             "hard": torch.zeros(n, dtype=torch.bool, device=x.device),
+             "mixed": torch.arange(n, device=x.device) % 2 == 0}
+    for mname, mask in masks.items():
+        check.run(f"{label} {mname}", "wavelet_denoise",
+                  (x, sigma, mask, levels))
+    check.compare(f"{label} mixed sigma=None via denoise_wavelet",
+                  "wavelet_denoise",
+                  W.denoise_wavelet(x, soft_mask=masks["mixed"]),
+                  W.denoise_wavelet_plain(x, soft_mask=masks["mixed"]))
 
 
 def _require_finite(label: str, flat: dict, n: int, hw: int) -> None:
@@ -310,6 +388,194 @@ def _run_path(torch, kernels, label: str, fn):
     return res, launches
 
 
+@contextlib.contextmanager
+def _tune_scores(tuning, seen: list):
+    """Appends the raw scores each ``tuning.autotune`` call hands to
+    ``plan_records`` (its records round them to 4 places) to ``seen``."""
+    inner = tuning.plan_records
+
+    def rec(cands, ops, tile, scores, *a, **kw):
+        seen.append(scores.copy())
+        return inner(cands, ops, tile, scores, *a, **kw)
+
+    tuning.plan_records = rec
+    try:
+        yield
+    finally:
+        tuning.plan_records = inner
+
+
+def _check_sweep(label: str, enhanced, scores, chosen: int, shape) -> None:
+    """A sweep's outputs: the enhanced pick(s) of ``shape`` and finite, the
+    scores finite, ``chosen`` records marked chosen per frame."""
+    import numpy as np
+
+    _require(tuple(enhanced.shape) == tuple(shape),
+             f"{label}: enhanced shape {tuple(enhanced.shape)}")
+    _require(bool(np.isfinite(enhanced).all()), f"{label}: non-finite image")
+    _require(bool(np.isfinite(scores).all()), f"{label}: non-finite scores")
+    _require(chosen == (1 if len(shape) == 2 else shape[0]),
+             f"{label}: {chosen} chosen records")
+    print(f"{label}: finite, best score(s) "
+          f"{np.max(np.reshape(scores, (-1, scores.shape[-1])), 1).tolist()}")
+
+
+def _phase_tuning(torch, kernels, parity, check, paths: dict, card: str,
+                  dev) -> None:
+    """Phase 7: the tuning sweep at full size (module doc)."""
+    import numpy as np
+
+    from mdx_torch.core import tuning
+    from mdx_torch.tools import make_batch
+
+    t7 = time.perf_counter()
+    img512 = make_batch(1)[0]
+    img2048 = make_batch(1, BIG, seed=1)[0]
+    frames = make_batch(TUNE_BATCH_N, seed=2)
+    tuned = ("box_stats", "clahe", "unsharp", "wavelet_denoise")
+
+    # 7.1 the three sweeps, counters reset before each
+    calls: list = []
+    seen: list = []
+    with _recording(torch, kernels, calls), _tune_scores(tuning, seen):
+        (plan, best_img, recs), paths["autotune_512"] = _run_path(
+            torch, kernels, "autotune [1,512,512] (27 lanes)",
+            lambda: tuning.autotune(img512, TUNE_ISSUES, device=dev))
+    card_scores = seen[-1]
+    _check_sweep("autotune 512^2", best_img, card_scores,
+                 sum(r.chosen for r in recs), img512.shape)
+    (_, big_img, big_recs), paths["autotune_2048"] = _run_path(
+        torch, kernels, f"autotune [1,{BIG},{BIG}] (27 lanes)",
+        lambda: tuning.autotune(img2048, TUNE_ISSUES, device=dev))
+    _check_sweep(f"autotune {BIG}^2", big_img,
+                 np.array([r.score for r in big_recs]),
+                 sum(r.chosen for r in big_recs), img2048.shape)
+    issues_per = [TUNE_ISSUES] * TUNE_BATCH_N
+    (b_plans, b_imgs, b_scores), paths["autotune_batch_4x512"] = _run_path(
+        torch, kernels, f"autotune_batch [{TUNE_BATCH_N},512,512] "
+        f"({TUNE_BATCH_N * 27} lanes)",
+        lambda: tuning.autotune_batch(frames, issues_per, device=dev))
+    _check_sweep("autotune_batch 4x512^2", b_imgs, b_scores, len(b_plans),
+                 frames.shape)
+    for p in ("autotune_512", "autotune_2048", "autotune_batch_4x512"):
+        for k in tuned:
+            _require(paths[p][k] > 0, f"kernel {k} was not launched by {p}")
+    check.replay("autotune 512^2", calls)
+    del calls
+    check.require_ok()
+
+    # 7.2 the 512^2 sweep, card against CPU
+    t0 = time.perf_counter()
+    with _tune_scores(tuning, seen):
+        c_plan, c_img, c_recs = tuning.autotune(img512, TUNE_ISSUES,
+                                                device="cpu")
+    cpu_scores = seen[-1]
+    d_scores = float(np.abs(card_scores.astype(np.float64)
+                            - cpu_scores).max())
+    i_card, i_cpu = int(np.argmax(card_scores)), int(np.argmax(cpu_scores))
+    print(f"autotune 512^2 card vs cpu: max|d score| {d_scores!r}, best "
+          f"card {i_card} cpu {i_cpu} ({time.perf_counter() - t0:.1f} s)")
+    _require(d_scores <= TUNE_SCORE_ATOL,
+             f"autotune scores card vs cpu {d_scores!r}")
+    if i_card != i_cpu:
+        # a tie decided by a last-ulp difference: the two candidates' scores
+        # must be within the tolerance of each other on both sides
+        for side, sc in (("card", card_scores), ("cpu", cpu_scores)):
+            gap = abs(float(sc[i_card]) - float(sc[i_cpu]))
+            print(f"  tie on the {side}: scores {float(sc[i_card])!r} and "
+                  f"{float(sc[i_cpu])!r}, gap {gap!r}")
+            _require(gap <= TUNE_SCORE_ATOL,
+                     f"autotune best differs card {i_card} cpu {i_cpu}")
+    else:
+        _require(plan.params == c_plan.params, "autotune plans differ")
+        bad = parity.breaches({"enhanced": best_img[None]},
+                              {"enhanced": c_img[None]}, tv_ran=False)
+        print(f"autotune 512^2 picked image card vs cpu: max|d| "
+              f"{float(np.abs(best_img - c_img).max())!r}, breaches "
+              f"{len(bad)}")
+        for line in bad:
+            print("  " + line)
+        _require(not bad, "autotune picked image: card and CPU disagree")
+
+    # 7.3 times
+    for label, fn, reps in (
+            ("autotune [1,512,512]",
+             lambda: tuning.autotune(img512, TUNE_ISSUES, device=dev), REPS),
+            (f"autotune [1,{BIG},{BIG}]",
+             lambda: tuning.autotune(img2048, TUNE_ISSUES, device=dev), 5),
+            (f"autotune_batch [{TUNE_BATCH_N},512,512]",
+             lambda: tuning.autotune_batch(frames, issues_per, device=dev),
+             REPS)):
+        med, times = _median_ms(torch, fn, reps)
+        print(f"{label} on {card}: median {med!r} ms per sweep of {reps} "
+              f"reps (min {min(times)!r}, max {max(times)!r})")
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
+
+
+def _ingest_stack():
+    """64 frames of 512^2 as stored 12-bit uint16 with a CT-like rescale
+    (slope 1, intercept -1024), and the per-frame float32 scalars of
+    ``normalize_ingest`` as the JAX package's batch runner builds them for
+    a stack without a stored window: (raw, scalars)."""
+    import numpy as np
+
+    from mdx_torch.tools import make_batch
+
+    raw = np.rint(make_batch(INGEST_N, seed=3) * 4095.0).astype(np.uint16)
+    n = raw.shape[0]
+    gmin, gmax = float(raw.min()) - 1024.0, float(raw.max()) - 1024.0
+    full = lambda v: np.full(n, v, np.float32)  # noqa: E731
+    # slope, intercept, mono1, gmax, use_window, wlo, wden, nlo, nhi
+    return raw, (full(1.0), full(-1024.0), full(0.0), full(gmax), full(0.0),
+                 full(0.0), full(1.0), full(gmin), full(gmax))
+
+
+def _phase_ingest(torch, kernels, parity, paths: dict, card: str,
+                  dev) -> None:
+    """Phase 8: raw-integer ingest into ``qa_deterministic`` (module doc)."""
+    from mdx_torch.core import qa
+    from mdx_torch.ops.ingest import normalize_ingest
+
+    t8 = time.perf_counter()
+    raw, scalars = _ingest_stack()
+    on_dev = [torch.from_numpy(v).to(dev) for v in scalars]
+
+    def program(raw_np, device, pfm, sc):
+        x = normalize_ingest(torch.from_numpy(raw_np).to(device), *sc,
+                             per_frame_minmax=pfm)
+        return qa.qa_deterministic(x)
+
+    for pfm in (True, False):
+        mode = "frame_minmax" if pfm else "stack_bounds"
+        res, paths[f"ingest_{INGEST_N}x512_{mode}"] = _run_path(
+            torch, kernels, f"ingest + qa_deterministic [{INGEST_N},512,512] "
+            f"{mode}", lambda: program(raw, dev, pfm, on_dev))
+        _require_finite(f"ingest {mode}", parity.flatten_result(
+            res, parity.QA_DETERMINISTIC_FIELDS), INGEST_N, 512)
+        del res
+        on_card = parity.flatten_result(
+            program(raw[:2], dev, pfm, [v[:2] for v in on_dev]),
+            parity.QA_DETERMINISTIC_FIELDS)
+        on_cpu = parity.flatten_result(
+            program(raw[:2], "cpu", pfm,
+                    [torch.from_numpy(v[:2]) for v in scalars]),
+            parity.QA_DETERMINISTIC_FIELDS)
+        bad = parity.breaches(on_card, on_cpu)
+        print(f"ingest {mode} [2,512,512] card vs cpu: {len(on_cpu)} fields, "
+              f"enhanced max|d| {parity.max_abs(on_card, on_cpu, 'enhanced')!r}"
+              f", breaches {len(bad)}")
+        for line in bad:
+            print("  " + line)
+        _require(not bad, f"ingest {mode}: card and CPU disagree")
+        med, times = _median_ms(
+            torch, lambda: program(raw, dev, pfm, on_dev), REPS)
+        print(f"ingest {mode} [{INGEST_N},512,512] uint16 upload + "
+              f"normalize + qa_deterministic on {card}: median {med!r} ms "
+              f"of {REPS} reps (min {min(times)!r}, max {max(times)!r}), "
+              f"{INGEST_N / med * 1e3!r} img/s")
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -354,6 +620,7 @@ def main() -> int:
     x4 = torch.from_numpy(make_batch(4)).to(dev)
     for k, args in _args_for(torch, x4, PLAN_PARAMS).items():
         check.run("[4,512,512]", k, args)
+    _wavelet_cases(torch, check, x4, "[4,512,512]")
     check.require_ok()
     del x4
 
@@ -425,6 +692,7 @@ def main() -> int:
     # 6.1 each kernel against its plain version at [1,2048,2048]
     for k, args in _args_for(torch, x1, PLAN_PARAMS).items():
         check.run(f"[1,{BIG},{BIG}]", k, args)
+    _wavelet_cases(torch, check, x64[:2], f"[2,{BIG},{BIG}]")
     check.require_ok()
 
     # 6.2 config 2 at 64x2048^2; the first group's kernel calls recorded
@@ -443,7 +711,7 @@ def main() -> int:
             torch, kernels, f"config 2 at [{CONFIG2_N},{BIG},{BIG}] in "
             f"groups of {group}",
             lambda: map_subbatches(counted_step, x64, dyn2, groups=(group,)))
-    for k in ("box_stats", "clahe", "unsharp"):
+    for k in ("box_stats", "clahe", "unsharp", "wavelet_denoise"):
         _require(paths["config2_2048"][k] > 0,
                  f"kernel {k} was not launched by config 2")
     _require(tuple(out2.shape) == tuple(x64.shape),
@@ -502,8 +770,13 @@ def main() -> int:
           f"memory {peak!r} GiB")
     times_big = _time_kernels(torch, kernels, check, x16, PLAN_PARAMS, card)
     del x64, x1, x16
-    print(f"phase 6: {time.perf_counter() - t6:.1f} s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 7. the tuning sweep; 8. raw ingest -------------------------------
+    _phase_tuning(torch, kernels, parity, check, paths, card, dev)
+    _phase_ingest(torch, kernels, parity, paths, card, dev)
+    print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     shape_512 = f"{SIZE_N}x512x512"

@@ -68,7 +68,7 @@ class PlanDynamic(NamedTuple):
 
 
 def plan_from_numpy(static_fields: dict, dyn_fields: dict,
-                    device: torch.device | str = "cpu"
+                    device: torch.device | str = "cuda"
                     ) -> tuple[PlanStatic, PlanDynamic]:
     """Build the port's plan from the JAX plan's fields.
 
@@ -76,7 +76,8 @@ def plan_from_numpy(static_fields: dict, dyn_fields: dict,
     of ``mdx.core.enhance.PlanStatic``).  ``dyn_fields``: ``PlanDynamic``
     fields as numpy arrays or Python scalars (e.g. ``{k: np.asarray(v)
     for k, v in dyn._asdict().items()}``).  Dynamic fields become tensors
-    on ``device``; ``denoise_soft`` becomes bool, the rest float32."""
+    on ``device`` (the card unless the caller passes ``"cpu"``);
+    ``denoise_soft`` becomes bool, the rest float32."""
     plan_order = static_fields.get("plan_order")
     static = PlanStatic(
         ops=tuple(static_fields.get("ops", OP_ORDER)),

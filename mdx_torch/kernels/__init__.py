@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
-                            "tv_chambolle": 0, "bilateral": 0}
+                            "tv_chambolle": 0, "bilateral": 0,
+                            "wavelet_denoise": 0}
 
 _lib = None
 
@@ -212,3 +213,77 @@ def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,
                               d, _stream()), "bilateral")
     LAUNCHES["bilateral"] += 1
     return out
+
+
+# levels a block of the wavelet kernel runs on its tile (a 2^5 = 32 x 32
+# tile); the levels past it run as further stages on the tiles' LL image
+_WAVELET_TILE_LEVELS = 5
+
+
+def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
+                    soft: torch.Tensor, levels: int) -> torch.Tensor:
+    """db1 BayesShrink denoise of [N,H,W] with ``levels`` levels, per-image
+    noise ``sigma`` [N] (None: the MAD estimate from the finest HH, which
+    the first analysis launch writes out) and ``soft`` [N] bool (soft or
+    hard shrink); H and W divisible by ``2**levels`` — see
+    ``csrc/wavelet.cu``; plain version
+    ``mdx_torch.ops.wavelet.denoise_wavelet_plain``.
+
+    Per stage of at most ``_WAVELET_TILE_LEVELS`` levels: an analysis
+    launch on 2^m x 2^m tiles (its output, the tiles' LL image, is the next
+    stage's input), then, from the coarsest stage down, a threshold launch
+    and a synthesis launch that puts the stage above's denoised LL back."""
+    n, h, w = _image(x)
+    _check(soft, "soft", (n,), dtype=torch.bool, device=x.device)
+    if sigma is not None:
+        _check(sigma, "sigma", (n,), device=x.device)
+    levels = int(levels)
+    if levels < 1:
+        raise ValueError(f"wavelet kernel: levels must be ≥ 1, got {levels}")
+    if h % (1 << levels) or w % (1 << levels):
+        raise ValueError(f"wavelet kernel: extents {h}x{w} not divisible "
+                         f"by 2^{levels}")
+    lib = library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        stream = _stream()
+        stages = []
+        cur, left = x, levels
+        hh = (torch.empty((n, h // 2, w // 2), dtype=torch.float32,
+                          device=dev) if sigma is None else None)
+        while left:
+            m = min(left, _WAVELET_TILE_LEVELS)
+            ch, cw = cur.shape[1], cur.shape[2]
+            t = 1 << m
+            nblk = (ch // t) * (cw // t)
+            ll = torch.empty((n, ch // t, cw // t), dtype=torch.float32,
+                             device=dev)
+            partials = torch.empty((n, nblk, 3 * m), dtype=torch.float64,
+                                   device=dev)
+            first = hh is not None and not stages
+            _ok(lib.mdx_wavelet_analysis(
+                cur.data_ptr(), ll.data_ptr(), partials.data_ptr(),
+                hh.data_ptr() if first else None, n, ch, cw, m, stream),
+                "wavelet_denoise")
+            stages.append((cur, m, partials, nblk))
+            cur, left = ll, left - m
+        if sigma is None:
+            from mdx_torch.ops.wavelet import mad_sigma_from_hh
+
+            sigma = mad_sigma_from_hh(hh).contiguous()
+        denoised = None             # the stage above's denoised LL
+        for cur, m, partials, nblk in reversed(stages):
+            ch, cw = cur.shape[1], cur.shape[2]
+            thr = torch.empty((n, 3 * m), dtype=torch.float32, device=dev)
+            _ok(lib.mdx_wavelet_thresholds(
+                partials.data_ptr(), sigma.data_ptr(), thr.data_ptr(), n,
+                nblk, m, ch, cw, stream), "wavelet_denoise")
+            out = torch.empty_like(cur)
+            _ok(lib.mdx_wavelet_synthesis(
+                cur.data_ptr(),
+                denoised.data_ptr() if denoised is not None else None,
+                thr.data_ptr(), soft.data_ptr(), out.data_ptr(), n, ch, cw,
+                m, stream), "wavelet_denoise")
+            denoised = out
+    LAUNCHES["wavelet_denoise"] += 1
+    return denoised

@@ -41,6 +41,9 @@ SIGNATURES = {
     "mdx_tv_iteration": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P),
     "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_wavelet_analysis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_wavelet_thresholds": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mdx_wavelet_synthesis": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

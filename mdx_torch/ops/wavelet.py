@@ -6,7 +6,9 @@ reconstruction, strided shift-MAC analysis and polyphase synthesis in the
 same accumulation order.
 
 * ``estimate_sigma`` — ref pipeline/metrics.py:47 (db2 HH MAD / Φ⁻¹(0.75))
-* ``denoise_wavelet`` — ref pipeline/enhancement.py:169-174 (db1 BayesShrink)
+* ``denoise_wavelet`` — ref pipeline/enhancement.py:169-174 (db1 BayesShrink);
+  the CUDA kernel ``csrc/wavelet.cu`` on the card, ``denoise_wavelet_plain``
+  on the CPU
 
 The filter constants below are the PyWavelets ones that
 ``mdx.refimpl.wavelet_np`` defines; they are restated here so that the
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mdx_torch import kernels
 from mdx_torch.ops.filters import pad_axis
 from mdx_torch.ops.quantile import median_rows
 
@@ -170,7 +173,43 @@ def denoise_wavelet(
 
     ``sigma``: None (estimated per image from the finest HH subband), a
     scalar or an [N] tensor.  ``soft_mask`` ([N] bool) selects soft/hard
-    thresholding per image and overrides ``mode``."""
+    thresholding per image and overrides ``mode``.
+
+    A CUDA tensor with ``wavelet == "db1"`` and H, W divisible by
+    ``2**levels`` (the JAX package's gate for its fused kernel, without the
+    TPU's VMEM size limit) launches the CUDA kernel
+    (:func:`mdx_torch.kernels.wavelet_denoise`); anything else runs
+    :func:`denoise_wavelet_plain`."""
+    n, h, w = x.shape
+    if wavelet_levels is None:
+        wavelet_levels = default_levels(x.shape[-2:], wavelet)
+    div = 1 << wavelet_levels
+    if (kernels.use_kernel(x) and wavelet == "db1" and h % div == 0
+            and w % div == 0):
+        if sigma is not None:
+            sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device
+                                    ).reshape(-1).expand(n).contiguous()
+        soft = (soft_mask.to(torch.bool).contiguous() if soft_mask is not None
+                else torch.full((n,), mode == "soft", dtype=torch.bool,
+                                device=x.device))
+        return kernels.wavelet_denoise(x.contiguous(), sigma, soft,
+                                       wavelet_levels)
+    return denoise_wavelet_plain(x, sigma, mode, wavelet, wavelet_levels,
+                                 soft_mask)
+
+
+def denoise_wavelet_plain(
+    x: torch.Tensor,
+    sigma=None,
+    mode: str = "soft",
+    wavelet: str = "db1",
+    wavelet_levels: int | None = None,
+    soft_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of :func:`denoise_wavelet` (same
+    arguments): strided slices per level.  Each band's mean of squares is
+    summed in float64 and rounded once to float32, as the kernel does, so
+    both derive the same thresholds."""
     n = x.shape[0]
     if wavelet_levels is None:
         wavelet_levels = default_levels(x.shape[-2:], wavelet)
@@ -183,7 +222,8 @@ def denoise_wavelet(
     eps = float(np.finfo(np.float32).eps)
 
     def _shrink(band):
-        dvar = (band.reshape(n, -1) ** 2).mean(dim=-1)
+        sq = (band.reshape(n, -1) ** 2).to(torch.float64)
+        dvar = (sq.sum(dim=-1) / sq.shape[-1]).to(x.dtype)
         t = (noise_var / torch.sqrt(torch.clamp_min(dvar - noise_var, eps)))
         t = t[:, None, None]
         if soft_mask is not None:

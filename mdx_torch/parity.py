@@ -198,13 +198,20 @@ def max_abs(got: dict[str, np.ndarray], want: dict[str, np.ndarray],
 # would pass a wrong window or pad; the kernel builds the local-variance
 # maps in the plain version's float32 order and differs only in how it sums
 # them, so it gets a relative bound (measured 4.7e-10 absolute, 2 ulp of
-# mean(lv16)).
+# mean(lv16)).  The wavelet denoise takes 2e-6, the bar the JAX package
+# holds its own fused kernel to against its XLA branch
+# (tests/test_pallas.py TestWaveletDenoisePallas); the CUDA kernel runs the
+# plain version's taps and product-then-sum order under --fmad=false and
+# both sum each band's squares in float64, so the thresholds and every
+# coefficient agree and it is in fact exact (measured 0.0 on an H100 at
+# 512^2 and 2048^2).
 KERNEL_TOL = {
     "box_stats": (1e-6, 1e-9),
     "unsharp": (0.0, 1e-5),
     "clahe": (0.0, 2e-5),
     "tv_chambolle": (0.0, 1e-5),
     "bilateral": (0.0, 1e-5),
+    "wavelet_denoise": (0.0, 2e-6),
 }
 
 

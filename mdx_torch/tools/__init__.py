@@ -7,6 +7,8 @@ Run each from the root of a checkout:
     python -m mdx_torch.tools.op_diff        # each op on the card against the CPU
     python -m mdx_torch.tools.sweep_knee     # qa_plan time and memory per group size
     python -m mdx_torch.tools.bench_config2  # BASELINE config 2: 64x2048^2
+    python -m mdx_torch.tools.time_kernels   # each kernel against its plain version
+    python -m mdx_torch.tools.tune_sweep     # ms per autotune sweep
 
 The port keeps its own copies of the JAX package's benchmark batch and
 plans (``bench.py`` ``_make_batch``, ``_PLAN_OPS``, ``_PLAN_PARAMS``;

@@ -1,15 +1,16 @@
 """Where the time of one ``qa_plan`` pass goes, on a CUDA card.
 
-    python -m mdx_torch.tools.profile_pass [--trace PATH]
+    python -m mdx_torch.tools.profile_pass [--n 32] [--size 512] [--trace PATH]
 
-Run from the root of a checkout.  The batch (32x512^2, the TPU
+Run from the root of a checkout.  The batch (by default 32x512^2, the TPU
 headline's) and the plan are ``mdx_torch.tools.make_batch`` and
 ``bench_plan``.  It prints:
 
 1. ms per phase, each the median of ``REPS`` synchronised calls on the
    host clock: the whole ``qa_plan`` pass; ``image_stats`` and three of its
-   parts; each op of the bench plan's chain on the previous op's output;
-   the three guards; validation; ``qa_deterministic``.
+   parts; each op of the bench plan's chain on the previous op's output
+   (the wavelet denoise also as its kernel and as its plain version with
+   sigma given); the three guards; validation; ``qa_deterministic``.
 2. One ``qa_plan`` pass under ``torch.profiler``: its wall time (host
    clock, synchronised, profiler on), the number of device kernels, their
    summed time, the busy time (the union of the kernel intervals) and the
@@ -75,6 +76,7 @@ def phases(x, static, dyn, reps: int) -> list[tuple[str, float]]:
     from mdx_torch.core import enhance as E
     from mdx_torch.core import metrics as M
     from mdx_torch.core import qa
+    from mdx_torch import kernels
     from mdx_torch.core.validate import validate
     from mdx_torch.ops import wavelet as W
     from mdx_torch.tools import all_ops_masks
@@ -93,6 +95,19 @@ def phases(x, static, dyn, reps: int) -> list[tuple[str, float]]:
             return E._run_chain(inp, (op,), static, dyn, masks,
                                 dyn.unsharp_amount)
         rows.append((f"op {op}", _median_ms(run, reps)))
+        if op == "denoise":
+            sig = W.mad_sigma_from_hh(W.dwt2(out, "db1")[1][2]).contiguous()
+            soft = torch.ones(out.shape[0], dtype=torch.bool,
+                              device=out.device)
+            lv = W.default_levels(out.shape[-2:])
+            rows += [
+                ("  wavelet_denoise kernel, sigma given", _median_ms(
+                    lambda inp=out: kernels.wavelet_denoise(inp, sig, soft,
+                                                            lv), reps)),
+                ("  denoise_wavelet_plain, sigma given", _median_ms(
+                    lambda inp=out: W.denoise_wavelet_plain(
+                        inp, sig, wavelet_levels=lv, soft_mask=soft),
+                    reps))]
         out = run()
     out = torch.clamp(out, 0.0, 1.0)
     stats = M.image_stats(x)
@@ -142,6 +157,8 @@ def traced_pass(x, static, dyn, trace: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=N)
+    ap.add_argument("--size", type=int, default=SIZE)
     ap.add_argument("--trace", type=Path,
                     default=ROOT / "build" / "profile_pass_trace.json")
     args = ap.parse_args(argv)
@@ -154,10 +171,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}")
-    x = torch.from_numpy(make_batch(N, SIZE)).to(dev)
+    x = torch.from_numpy(make_batch(args.n, args.size)).to(dev)
     static, dyn = bench_plan(dev)
-    print(f"ms per phase, [{N},{SIZE},{SIZE}], median of {REPS} "
-          f"synchronised calls:")
+    print(f"ms per phase, [{args.n},{args.size},{args.size}], median of "
+          f"{REPS} synchronised calls:")
     for label, ms in phases(x, static, dyn, REPS):
         print(f"{label:<45} {ms:9.3f} ms")
 

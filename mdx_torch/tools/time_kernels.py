@@ -43,6 +43,17 @@ def _cases(x: torch.Tensor) -> dict:
 
         cases["bilateral"] = ((x, 5, full(0.05), full(0.05)),
                               B.bilateral_plain)
+    if "wavelet_denoise" in kernels.LAUNCHES:
+        from mdx_torch.ops import wavelet as W
+
+        def wavelet_plain(x, sigma, soft, levels):
+            return W.denoise_wavelet_plain(x, sigma, wavelet_levels=levels,
+                                           soft_mask=soft)
+
+        soft = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        cases["wavelet_denoise"] = (
+            (x, full(0.05), soft, W.default_levels(x.shape[-2:])),
+            wavelet_plain)
     return {k: v for k, v in cases.items() if k in kernels.LAUNCHES}
 
 

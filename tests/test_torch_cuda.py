@@ -22,6 +22,7 @@ from mdx_torch.ops import bilateral as B
 from mdx_torch.ops import clahe as C
 from mdx_torch.ops import filters as F
 from mdx_torch.ops import tv as T
+from mdx_torch.ops import wavelet as W
 
 pytestmark = pytest.mark.gpu
 
@@ -135,6 +136,80 @@ def test_bilateral_wrapper_refuses(dev):
         kernels.bilateral(x, 4, one, one)
 
 
+@pytest.mark.parametrize("shape,levels", [((2, 512, 512), 6),
+                                          ((1, 2048, 2048), 8),
+                                          ((3, 64, 48), 4), ((2, 96, 96), 3)])
+@pytest.mark.parametrize("soft", [[True], [False], [True, False]])
+@pytest.mark.parametrize("given_sigma", [True, False])
+def test_wavelet_kernel(dev, shape, levels, soft, given_sigma):
+    x = _batch(13, *shape, dev)
+    n = shape[0]
+    mask = torch.tensor((soft * n)[:n], device=dev)
+    sigma = (torch.linspace(0.02, 0.1, n, device=dev) if given_sigma
+             else None)
+    kernels.reset_launches()
+    got = W.denoise_wavelet(x, sigma, wavelet_levels=levels, soft_mask=mask)
+    assert kernels.LAUNCHES["wavelet_denoise"] == 1
+    _assert_kernel_parity("wavelet_denoise", got, W.denoise_wavelet_plain(
+        x, sigma, wavelet_levels=levels, soft_mask=mask))
+
+
+def test_wavelet_zero_sigma_and_flat_image(dev):
+    x = _batch(14, 3, 64, 64, dev)
+    x[1] = 0.5
+    sigma = torch.tensor([0.0, 0.05, 0.05], device=dev)
+    mask = torch.tensor([True, False, True], device=dev)
+    _assert_kernel_parity(
+        "wavelet_denoise", kernels.wavelet_denoise(x, sigma, mask, 3),
+        W.denoise_wavelet_plain(x, sigma, wavelet_levels=3, soft_mask=mask))
+
+
+def test_wavelet_gate_runs_plain_off_the_gate(dev):
+    x = _batch(15, 2, 60, 64, dev)
+    kernels.reset_launches()
+    W.denoise_wavelet(x, wavelet_levels=3)              # 60 not / 8
+    W.denoise_wavelet(x[:, :56], wavelet="db2", wavelet_levels=2)
+    assert kernels.LAUNCHES["wavelet_denoise"] == 0
+
+
+def test_wavelet_wrapper_refuses(dev):
+    x = _batch(16, 2, 64, 64, dev)
+    sig = torch.full((2,), 0.05, device=dev)
+    soft = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.wavelet_denoise(x.cpu(), sig.cpu(), soft.cpu(), 3)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.wavelet_denoise(x.double(), sig, soft, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.wavelet_denoise(x.transpose(1, 2), sig, soft, 3)
+    with pytest.raises(ValueError, match="divisible"):
+        kernels.wavelet_denoise(x[:, :60].contiguous(), sig, soft, 3)
+    with pytest.raises(ValueError, match="bool"):
+        kernels.wavelet_denoise(x, sig, soft.float(), 3)
+
+
+def test_autotune_card_against_cpu(dev):
+    from mdx_torch.core import tuning
+
+    img = _batch(17, 1, 128, 128, "cpu")[0].numpy()
+    kernels.reset_launches()
+    plan, enh, recs = tuning.autotune(img, ["noise", "blur"], device=dev)
+    for k in ("box_stats", "clahe", "unsharp", "wavelet_denoise"):
+        assert kernels.LAUNCHES[k] > 0, kernels.LAUNCHES
+    c_plan, c_enh, c_recs = tuning.autotune(img, ["noise", "blur"],
+                                            device="cpu")
+    assert len(recs) == 27 and sum(r.chosen for r in recs) == 1
+    for a, b in zip(recs, c_recs):
+        assert abs(a.score - b.score) <= 1e-4    # rounded to 4 places
+    if plan.params != c_plan.params:             # a last-ulp tie
+        i = next(r.iteration for r in recs if r.chosen) - 1
+        j = next(r.iteration for r in c_recs if r.chosen) - 1
+        assert abs(recs[i].score - recs[j].score) <= 1e-4
+    else:
+        np.testing.assert_allclose(enh, c_enh, rtol=0,
+                                   atol=parity.PIXEL_ATOL)
+
+
 def test_wrappers_check_their_inputs(dev):
     x = _batch(7, 2, 32, 32, dev)
     one = torch.ones(2, device=dev)
@@ -159,6 +234,7 @@ def test_launch_counters_count_wrapper_launches(dev):
     kernels.clahe(x, one * 0.02, 16)
     kernels.tv_chambolle(x, one * 0.05)
     kernels.bilateral(x, 5, one * 0.05, one * 0.05)
+    kernels.wavelet_denoise(x, one * 0.05, one.bool(), 3)
     assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
     F.unsharp_mask_plain(x, one, one)
     assert kernels.LAUNCHES["unsharp"] == 1

@@ -1,5 +1,6 @@
-"""The plain versions of the five CUDA kernels (box stats, unsharp, CLAHE,
-TV, bilateral), against the JAX package on the CPU.
+"""The plain versions of the CUDA kernels (box stats, unsharp, CLAHE, TV,
+bilateral), against the JAX package on the CPU (the wavelet denoise's:
+tests/test_torch_wavelet.py).
 
 Each plain version is held against both JAX forms the TPU path has: the
 XLA lowering and the Pallas kernel in ``interpret=True`` mode, at small
@@ -170,7 +171,7 @@ def test_cpu_path_launches_and_builds_nothing():
     x = _t(_batch(8, 2, 32, 32))
     static, dyn = mdx_torch.plan_from_numpy(
         {"ops": mdx_torch.OP_ORDER, "bilateral_d": 5},
-        {"tv_denoise_weight": 0.05})
+        {"tv_denoise_weight": 0.05}, device="cpu")
     qa.qa_plan(x, static, dyn)
     assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
     assert kernels._lib is None
@@ -182,6 +183,8 @@ def test_cpu_path_launches_and_builds_nothing():
     lambda x: kernels.clahe(x, torch.ones(2), 16),
     lambda x: kernels.tv_chambolle(x, torch.ones(2)),
     lambda x: kernels.bilateral(x, 5, torch.ones(2), torch.ones(2)),
+    lambda x: kernels.wavelet_denoise(x, torch.ones(2),
+                                      torch.ones(2, dtype=torch.bool), 3),
 ])
 def test_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -202,10 +205,11 @@ def test_build_flags_and_library_name():
     assert _build.library_path() == _build.library_path()
     assert {s.name for s in _build._sources()} >= {
         "box_stats.cu", "unsharp.cu", "clahe.cu", "tv.cu", "bilateral.cu",
-        "common.cuh"}
+        "wavelet.cu", "common.cuh"}
     assert set(_build.SIGNATURES) == {
         "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_iteration",
-        "mdx_bilateral"}
+        "mdx_bilateral", "mdx_wavelet_analysis", "mdx_wavelet_thresholds",
+        "mdx_wavelet_synthesis"}
 
 
 def test_jax_stays_on_cpu():

@@ -75,7 +75,7 @@ def _bench_plans():
 def _to_torch(static, dyn):
     return mdx_torch.plan_from_numpy(
         dataclasses.asdict(static),
-        {k: np.asarray(v) for k, v in dyn._asdict().items()})
+        {k: np.asarray(v) for k, v in dyn._asdict().items()}, device="cpu")
 
 
 # halo-tripping plans: one whose re-run order differs from the fixed order
@@ -178,7 +178,7 @@ def test_plan_from_numpy_round_trip():
     static, dyn = HALO_PLANS["prefix_reuse"]
     sfields = dataclasses.asdict(static)
     dfields = {k: np.asarray(v) for k, v in dyn._asdict().items()}
-    ts, td = mdx_torch.plan_from_numpy(sfields, dfields)
+    ts, td = mdx_torch.plan_from_numpy(sfields, dfields, device="cpu")
     assert dataclasses.asdict(ts) == sfields
     assert ts.order() == static.order()
     for k, v in td._asdict().items():
@@ -186,9 +186,10 @@ def test_plan_from_numpy_round_trip():
         assert v.numpy().dtype == dtype
         np.testing.assert_array_equal(v.numpy(), dfields[k].astype(dtype))
     with pytest.raises(ValueError):
-        mdx_torch.plan_from_numpy({"tv_mode": "quick"}, {})
+        mdx_torch.plan_from_numpy({"tv_mode": "quick"}, {}, device="cpu")
     with pytest.raises(TypeError):
-        mdx_torch.plan_from_numpy({}, {"no_such_param": 1.0})
+        mdx_torch.plan_from_numpy({}, {"no_such_param": 1.0},
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("tv_ran,off,breach", [
@@ -248,10 +249,22 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
             (2, 48, 48), dtype=np.float32))
         static, dyn = mdx_torch.plan_from_numpy(
             {"ops": mdx_torch.OP_ORDER, "bilateral_d": 5},
-            {"tv_denoise_weight": 0.05})
+            {"tv_denoise_weight": 0.05}, device="cpu")
         enh, flags, val, score = qa.qa_plan(x, static, dyn)
         assert enh.shape == x.shape and bool(torch.isfinite(score).all())
         qa.qa_deterministic(x)
+        from mdx_torch.core import schemas, tuning
+        from mdx_torch.ops import ingest
+        plan, best, recs = tuning.autotune(x[0, :32, :32].numpy(),
+                                           ["noise"], device="cpu")
+        assert isinstance(plan, schemas.EnhancementPlan)
+        assert sum(r.chosen for r in recs) == 1 and best.shape == (32, 32)
+        one = torch.ones(2)
+        raw = torch.arange(2 * 8 * 8, dtype=torch.int16).reshape(2, 8, 8)
+        frames = ingest.normalize_ingest(raw, one, 0 * one, 0 * one, one,
+                                         0 * one, 0 * one, one, 0 * one, one,
+                                         per_frame_minmax=True)
+        assert float(frames.max()) == 1.0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx")]

@@ -58,11 +58,30 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    ``qa_deterministic``, per-frame min-max and stack-global bounds; finite
    on 64 frames, the card against the CPU on 2 within ``parity.breaches``,
    img/s timed with the upload.
+9. spatial — the row-sharded path (``mdx_torch.parallel``) on one
+   [1,2048,2048] frame through ``mdx_torch.tools.spatial_check.rank_check``:
+   k = 1 rank over NCCL, then k = 4 ranks on the one card over gloo (NCCL
+   refuses two ranks on one device), launched with every counter reset:
+   ``qa_plan_spatial``'s body with the bench plan and ``qa_spatial``'s with
+   denoise, CLAHE, TV and the noise guard; kernels 11 (``clahe_remap_ext``)
+   and 12 (``tv_shard_step``) must launch on every rank, outputs finite;
+   every call of kernels 11 and 12 and of kernel C's LUT stage
+   (``clahe_luts``, the local LUTs) on rank 0 replayed against its plain
+   version and the whole sharded TV solve run through the kernels and plain with
+   equal iteration counts; the gathered frame against k = 1 and against the
+   dense ``qa_plan`` on the card within ``parity.breaches``, guard and pass
+   flags equal; ms per ``qa_plan_spatial`` call (median of 5 synchronised
+   reps in the ranks) with the backend and the host round trips per call;
+   kernels 11 and 12 and the LUT stage against their plain versions at
+   the shard shape [1,512,2048] and at [1,2048,2048], with their bounds.
 
 The second-last line is one JSON object with a row per kernel (times at
-16x2048^2, with the 32x512^2 times under ``by_size``; ``bound_ms`` from
-this run's shapes, and for TV its iteration counts; launches per path of
-phases 5-8); the last line is
+16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
+the shard shape [1,512,2048], with [1,2048,2048] under ``by_size``, and
+the LUT stage's times at both under the CLAHE row's ``by_size``;
+``bound_ms`` from this run's shapes, and for TV its iteration counts;
+launches per path of phases 5-9, summed over the ranks in phase 9); the
+last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -82,14 +101,21 @@ SOURCE = {"box_stats": "mdx_torch/csrc/box_stats.cu",
           "clahe": "mdx_torch/csrc/clahe.cu",
           "tv_chambolle": "mdx_torch/csrc/tv.cu",
           "bilateral": "mdx_torch/csrc/bilateral.cu",
-          "wavelet_denoise": "mdx_torch/csrc/wavelet.cu"}
+          "wavelet_denoise": "mdx_torch/csrc/wavelet.cu",
+          "clahe_remap_ext": "mdx_torch/csrc/clahe.cu",
+          "tv_shard_step": "mdx_torch/csrc/tv.cu"}
 _PK = "mdx/ops/pallas_kernels.py"
 REPLACES = {"box_stats": [f"{_PK}:792"],
             "unsharp": [f"{_PK}:1126", f"{_PK}:1388"],
             "clahe": [f"{_PK}:371", f"{_PK}:654"],
             "tv_chambolle": [f"{_PK}:511", f"{_PK}:906"],
             "bilateral": [f"{_PK}:1229", f"{_PK}:1301"],
-            "wavelet_denoise": [f"{_PK}:1549"]}
+            "wavelet_denoise": [f"{_PK}:1549"],
+            "clahe_remap_ext": ["mdx/parallel/clahe_sp.py:112"],
+            "tv_shard_step": ["mdx/parallel/tv_sp.py:92", f"{_PK}:906"]}
+# the sharded path's kernels (phase 9); the others serve phases 3-8
+SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
+DENSE_KERNELS = tuple(k for k in SOURCE if k not in SPATIAL_KERNELS)
 SIZE_N = 32
 BIG, CONFIG2_N, QA_BIG_N = 2048, 64, 16
 REPS = 7
@@ -116,9 +142,16 @@ F32_OPS_PER_S = 67e12
 # wavelet denoise, over all levels (each level works on a quarter of the
 # pixels of the one before, 4/3 in all): analysis 6 per pixel (24 per 2x2
 # quad) -> 8, the bands' squares and sums 1.5 -> 2, the soft shrink 3 -> 4
-# and synthesis 6 -> 8.
+# and synthesis 6 -> 8; the sharded CLAHE remap the bin index (4), the two
+# tile coordinates and their weights (10) and the 4-LUT blend (11); one
+# sharded TV step the dense TV iteration's 23; CLAHE's LUT stage alone the
+# bin index and its count (5) and the clip, redistribution, scan and scale
+# of 256 bins per 16x16 tile (6).
 OPS_PER_PIXEL = {"box_stats": 130, "unsharp": 103, "clahe": 47,
-                 "tv_chambolle": 23, "wavelet_denoise": 22}
+                 "tv_chambolle": 23, "wavelet_denoise": 22,
+                 "clahe_remap_ext": 25, "tv_shard_step": 23,
+                 "clahe_luts": 11}
+SPATIAL_SIZE, SPATIAL_K = 2048, 4
 
 
 class SmokeFailure(Exception):
@@ -576,6 +609,234 @@ def _phase_ingest(torch, kernels, parity, paths: dict, card: str,
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
 
+def _spatial_args(torch, name: str, x):
+    """A recorded wrapper's arguments on a block ``x`` as the sharded path
+    hands them over: the LUT stage at the check's clip limit and tile; the
+    block's own LUTs with edge copies as the halo; one TV iteration of an
+    interior block with neighbour rows, every image active."""
+    from mdx_torch.parallel import clahe_sp
+
+    n, h, w = x.shape
+    g = torch.Generator(device=x.device).manual_seed(5)
+    if name == "clahe_luts":
+        return (x, torch.full((n,), 0.02, device=x.device), 16)
+    if name == "clahe_remap_ext":
+        lut = clahe_sp.clahe_luts(x, 0.02, 16)
+        lut = torch.cat([lut[:, :1], lut, lut[:, -1:]], dim=1)
+        lut = torch.cat([lut[:, :, :1], lut, lut[:, :, -1:]], dim=2)
+        return (x, lut.contiguous(), 16)
+    small = lambda *shape: 0.05 * torch.randn(  # noqa: E731
+        *shape, device=x.device, generator=g)
+    return (x, small(n, 2, h, w), torch.empty((n, 2, h, w), device=x.device),
+            torch.empty_like(x),
+            torch.ones(n, dtype=torch.int32, device=x.device),
+            torch.full((n,), 0.05, device=x.device), small(n, w),
+            x[:, -1].contiguous(), small(n, w), small(n, w), False)
+
+
+def _spatial_bound(name: str, args) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of one recorded wrapper's call:
+    the LUT stage reads x and writes the LUT grid; kernel 11 reads x and the
+    LUT grid and writes out; kernel 12 reads x, p and the four halo rows and
+    writes p, out and the [N,2] sums."""
+    n, h, w = args[0].shape
+    px = n * h * w
+    if name == "clahe_luts":
+        t = args[2]
+        moved = 4 * px + 4 * 256 * n * -(-h // t) * -(-w // t)
+    elif name == "clahe_remap_ext":
+        moved = 8 * px + args[1].numel() * 4
+    else:
+        moved = 24 * px + 4 * 4 * n * w + 16 * n
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = px * OPS_PER_PIXEL[name] / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# the device functions of the recorded wrappers (csrc/clahe.cu, csrc/tv.cu)
+DEVICE_FUNCTIONS = {"clahe_luts": ("clahe_lut_kernel",),
+                    "clahe_remap_ext": ("clahe_remap_ext_kernel",),
+                    "tv_shard_step": ("tv_step_kernel",
+                                      "tv_block_sums_kernel")}
+
+
+def _device_ms(torch, fn, reps: int, names) -> float | None:
+    """Device time per call of the kernels named ``names`` over ``reps``
+    calls, from a ``torch.profiler`` trace of the card (None where the
+    trace shows no device time): the CUDA-event time of a call also holds
+    its wrapper's host work whenever that is longer than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    us = sum(getattr(e, "device_time_total", 0) or 0
+             for e in events if any(n in e.key for n in names))
+    if not us:
+        print(f"  no device time for {names} in the trace; its device "
+              f"events: {[e.key[:60] for e in events][:12]}")
+    return us / reps / 1e3 if us else None
+
+
+def _time_spatial_kernels(torch, kernels, check, x, card: str) -> dict:
+    """Kernels 11 and 12 and CLAHE's LUT stage against their plain versions
+    on the block ``x`` (plain, kernel, kernel, plain; CUDA events), outputs
+    compared (the LUT stage's error goes to the CLAHE row); and the
+    kernels' device time from a profiler trace."""
+    from mdx_torch.tools import spatial_check as SC
+
+    label = "x".join(map(str, x.shape))
+    out = {}
+    for k in SC.RECORDED:
+        args = _spatial_args(torch, k, x)
+        err, ok = SC.compare_call(k, args)
+        row = SC.ROW_OF.get(k, k)
+        check.errs[row] = max(check.errs[row], err)
+        print(f"kernel parity [{label}] {k}: max|d| {err!r} "
+              f"(tol {parity_tol(row)})")
+        if not ok:
+            check.failed.append(f"[{label}] {k}: max|d| {err!r}")
+        kern = lambda k=k, a=args: getattr(kernels, k)(*a)  # noqa: E731
+        plain = lambda k=k, a=args: SC.plain_of(k)(*a)  # noqa: E731
+        p1 = _sync_ms(torch, plain, 20)
+        k1 = _sync_ms(torch, kern, 20)
+        k2 = _sync_ms(torch, kern, 20)
+        p2 = _sync_ms(torch, plain, 20)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, bound_by = _spatial_bound(k, args)
+        dev_ms = _device_ms(torch, kern, 20, DEVICE_FUNCTIONS[k])
+        print(f"time [{label}] {k} on {card}: kernel {ms!r} ms "
+              f"({k1!r}, {k2!r}; device {dev_ms!r} ms), plain {plain_ms!r} "
+              f"ms ({p1!r}, {p2!r}), bound {bound_ms!r} ms ({bound_by})")
+        out[k] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    check.require_ok()
+    return out
+
+
+def parity_tol(name: str) -> str:
+    from mdx_torch import parity
+
+    rtol, atol = parity.KERNEL_TOL[name]
+    return f"{atol} + {rtol}*|plain|"
+
+
+def _gathered(results, key: str):
+    """One frame's ``key`` from the ranks' results: row blocks joined in
+    rank order (n_data = 1)."""
+    import numpy as np
+
+    return np.concatenate([r[key] for r in results], axis=1)
+
+
+def _phase_spatial(torch, kernels, parity, check, paths: dict, card: str,
+                   dev) -> dict:
+    """Phase 9: the row-sharded path on one 2048^2 frame (module doc)."""
+    import numpy as np
+
+    from mdx_torch.core import qa
+    from mdx_torch.parallel import launch
+    from mdx_torch.tools import make_batch
+    from mdx_torch.tools import spatial_check as SC
+
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()
+    x = make_batch(1, SPATIAL_SIZE, seed=4)
+    static_cpu, dyn_cpu = _bench_plan("cpu")
+    want = parity.flatten_result(
+        qa.qa_plan(torch.from_numpy(x).to(dev), *_bench_plan(dev)),
+        parity.QA_PLAN_FIELDS)
+    runs = {}
+    for k in (1, SPATIAL_K):
+        t0 = time.perf_counter()
+        res = launch.run(SC.rank_check, x, static_cpu, dyn_cpu, n_space=k,
+                         device="cuda", timeout_s=900)
+        rs = res.results
+        label = f"k={k} {res.backend} on {sorted(set(res.devices))}"
+        print(f"spatial {label}: launch {time.perf_counter() - t0:.1f} s")
+        for path in ("plan", "qa"):
+            per_rank = [r[f"launches_{path}"] for r in rs]
+            print(f"launches in qa_{path}_spatial {label}, per rank: "
+                  f"{per_rank}")
+            for kname in SPATIAL_KERNELS:
+                _require(all(int(lr[kname]) > 0 for lr in per_rank),
+                         f"{kname} not launched on every rank of "
+                         f"qa_{path}_spatial {label}")
+            paths[f"spatial_{path}_k{k}"] = {
+                kname: sum(int(lr[kname]) for lr in per_rank)
+                for kname in kernels.LAUNCHES}
+        r0 = rs[0]
+        print(f"rank 0 stages {label} (s): "
+              f"{ {k: round(float(v), 2) for k, v in r0['stage_s'].items()} }")
+        got = {"enhanced": _gathered(rs, "enhanced"),
+               "flags": r0["flags"], "validation": r0["validation"],
+               "score": r0["score"]}
+        flat = parity.flatten(got)
+        _require_finite(f"qa_plan_spatial {label}", flat, 1, SPATIAL_SIZE)
+        qa_enh = _gathered(rs, "qa_enhanced")
+        _require(bool(np.isfinite(qa_enh).all()),
+                 f"qa_spatial {label}: non-finite output")
+        for name, (n_calls, err, ok) in r0["replay"].items():
+            row = SC.ROW_OF.get(name, name)
+            print(f"replayed rank 0 {label} {name}: {int(n_calls)} calls, "
+                  f"max|d| {float(err)!r} (tol {parity_tol(row)})")
+            check.errs[row] = max(check.errs[row], float(err))
+            _require(bool(ok) and int(n_calls) > 0,
+                     f"{name} replay {label}: max|d| {float(err)!r}")
+        for rank, r in enumerate(rs):
+            tv = r["tv_solve"]
+            it_k, it_p = tv["iters_kernel"].tolist(), tv["iters_plain"].tolist()
+            print(f"tv solve rank {rank} {label}: "
+                  f"kernel vs plain max|d| {tv['max_abs_err']!r}, iterations "
+                  f"kernel {it_k} plain {it_p}")
+            _require(it_k == it_p, f"tv solve {label}: iteration counts")
+            _require(tv["max_abs_err"] <= parity.KERNEL_TOL[
+                "tv_shard_step"][1], f"tv solve {label}: kernel vs plain")
+        bad = parity.breaches(flat, want, tv_ran=True)
+        print(f"qa_plan_spatial {label} vs dense qa_plan on the card: "
+              f"enhanced max|d| {parity.max_abs(flat, want, 'enhanced')!r}, "
+              f"score {flat['score'].tolist()} vs {want['score'].tolist()}, "
+              f"breaches {len(bad)}")
+        for line in bad:
+            print("  " + line)
+        _require(not bad, f"qa_plan_spatial {label} and dense qa_plan differ")
+        med = statistics.median(r0["plan_ms"])
+        print(f"qa_plan_spatial [1,{SPATIAL_SIZE},{SPATIAL_SIZE}] {label} on "
+              f"{card}: median {med!r} ms of {len(r0['plan_ms'])} reps "
+              f"({[float(v) for v in r0['plan_ms']]}), "
+              f"{int(r0['plan_round_trips'])} host round trips per call"
+              + (" (k>1 on one card over gloo: host staging, not scaling)"
+                 if k > 1 else ""))
+        runs[k] = (flat, qa_enh, r0)
+    (f1, q1, r1), (f4, q4, r4) = runs[1], runs[SPATIAL_K]
+    bad = parity.breaches(f4, f1, tv_ran=True)
+    bad += [f"qa_spatial enhanced: {line}" for line in parity.breaches(
+        {"enhanced": q4}, {"enhanced": q1}, tv_ran=True)]
+    for key in ("qa_passes", "qa_noise_amp"):
+        if not np.array_equal(r4[key], r1[key]):
+            bad.append(f"{key}: {r4[key].tolist()} vs {r1[key].tolist()}")
+    print(f"k={SPATIAL_K} vs k=1: plan enhanced max|d| "
+          f"{parity.max_abs(f4, f1, 'enhanced')!r}, qa enhanced max|d| "
+          f"{float(np.abs(q4 - q1).max())!r}, breaches {len(bad)}")
+    for line in bad:
+        print("  " + line)
+    _require(not bad, f"k={SPATIAL_K} and k=1 differ")
+
+    xd = torch.from_numpy(x).to(dev)
+    hs = SPATIAL_SIZE // SPATIAL_K
+    times = {f"1x{hs}x{SPATIAL_SIZE}": _time_spatial_kernels(
+                 torch, kernels, check, xd[:, :hs].contiguous(), card),
+             f"1x{SPATIAL_SIZE}x{SPATIAL_SIZE}": _time_spatial_kernels(
+                 torch, kernels, check, xd, card)}
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -660,8 +921,9 @@ def main() -> int:
             torch, kernels, f"qa_plan + qa_deterministic at "
             f"[{SIZE_N},512,512]",
             lambda: (qa.qa_plan(x32, static, dyn), qa.qa_deterministic(x32)))
-    for k, v in paths["qa_512"].items():
-        _require(v > 0, f"kernel {k} was not launched by the 512^2 path")
+    for k in DENSE_KERNELS:
+        _require(paths["qa_512"][k] > 0,
+                 f"kernel {k} was not launched by the 512^2 path")
     for label, res, fields in (
             ("qa_plan", res_plan, parity.QA_PLAN_FIELDS),
             ("qa_deterministic", res_det, parity.QA_DETERMINISTIC_FIELDS)):
@@ -731,8 +993,9 @@ def main() -> int:
         res, paths["qa_plan_2048"] = _run_path(
             torch, kernels, f"qa_plan at [{QA_BIG_N},{BIG},{BIG}]",
             lambda: qa.qa_plan(x16, static, dyn))
-    for k, v in paths["qa_plan_2048"].items():
-        _require(v > 0, f"kernel {k} was not launched by qa_plan at 2048^2")
+    for k in DENSE_KERNELS:
+        _require(paths["qa_plan_2048"][k] > 0,
+                 f"kernel {k} was not launched by qa_plan at 2048^2")
     _require_finite("qa_plan", parity.flatten_result(
         res, parity.QA_PLAN_FIELDS), QA_BIG_N, BIG)
     del res
@@ -776,13 +1039,34 @@ def main() -> int:
     # ---- 7. the tuning sweep; 8. raw ingest -------------------------------
     _phase_tuning(torch, kernels, parity, check, paths, card, dev)
     _phase_ingest(torch, kernels, parity, paths, card, dev)
+    # ---- 9. the row-sharded path -----------------------------------------
+    times_spatial = _phase_spatial(torch, kernels, parity, check, paths,
+                                   card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     shape_512 = f"{SIZE_N}x512x512"
     shape_big = f"{QA_BIG_N}x{BIG}x{BIG}"
-    for k in kernels.LAUNCHES:
+    shard = f"1x{SPATIAL_SIZE // SPATIAL_K}x{SPATIAL_SIZE}"
+    for k in SPATIAL_KERNELS:
+        at = times_spatial[shard][k]
+        rows.append({
+            "name": k, "route": "cuda", "source": SOURCE[k],
+            "replaces": REPLACES[k],
+            "launches": sum(p[k] for p in paths.values()),
+            "launches_by_path": {p: v[k] for p, v in paths.items()
+                                 if p.startswith("spatial")},
+            "max_abs_err": check.errs[k], "shape": shard,
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": None,
+            "by_size": {s: t[k] for s, t in times_spatial.items()}})
+    for k in DENSE_KERNELS:
         big = times_big[k]
+        by_size = {shape_512: times_512[k], shape_big: big}
+        if k == "clahe":
+            by_size.update({f"{s} clahe_luts": t["clahe_luts"]
+                            for s, t in times_spatial.items()})
         rows.append({
             "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k],
@@ -792,7 +1076,7 @@ def main() -> int:
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": None,
-            "by_size": {shape_512: times_512[k], shape_big: big}})
+            "by_size": by_size})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,7 +8,9 @@ easy to find:
 * :mod:`mdx_torch.core` — metrics, the 7-op enhancement plan with its
   three safeguards, validation, the objective score and the fused QA steps;
 * :mod:`mdx_torch.kernels` — hand-written CUDA kernels (``csrc/*.cu``),
-  built with ``nvcc`` on first use and bound with ``ctypes``.
+  built with ``nvcc`` on first use and bound with ``ctypes``;
+* :mod:`mdx_torch.parallel` — the row-sharded QA path, one process per
+  row block over ``torch.distributed``.
 
 Every function takes its device from the input tensor.  On a CUDA tensor
 the five kernel-backed ops (box statistics, unsharp, CLAHE, TV,

@@ -18,7 +18,8 @@ import torch
 
 LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
                             "tv_chambolle": 0, "bilateral": 0,
-                            "wavelet_denoise": 0}
+                            "wavelet_denoise": 0, "clahe_remap_ext": 0,
+                            "tv_shard_step": 0}
 
 _lib = None
 
@@ -152,6 +153,50 @@ def clahe(x: torch.Tensor, clip_limit: torch.Tensor, tile_size: int = 16,
     return out
 
 
+def clahe_luts(x: torch.Tensor, clip_limit: torch.Tensor,
+               tile_size: int) -> torch.Tensor:
+    """The per-tile LUTs of [N,H,W] → [N, ceil(H/t), ceil(W/t), 256]: kernel
+    C's LUT stage alone (``csrc/clahe.cu`` ``mdx_clahe_luts``), for the
+    local LUTs of the sharded CLAHE; counted as a launch of ``clahe``.
+    Plain version ``mdx_torch.ops.clahe.clahe_luts_plain``."""
+    n, h, w = _image(x)
+    _check(clip_limit, "clip_limit", (n,), device=x.device)
+    t = int(tile_size)
+    if t < 1:
+        raise ValueError(f"clahe kernel: tile size must be ≥ 1, got {t}")
+    lib = library()
+    with torch.cuda.device(x.device):
+        lut = torch.empty((n, -(-h // t), -(-w // t), 256),
+                          dtype=torch.float32, device=x.device)
+        _ok(lib.mdx_clahe_luts(x.data_ptr(), clip_limit.data_ptr(),
+                               lut.data_ptr(), n, h, w, t, _stream()),
+            "clahe_luts")
+    LAUNCHES["clahe"] += 1
+    return lut
+
+
+def clahe_remap_ext(x: torch.Tensor, lut_ext: torch.Tensor,
+                    tile_size: int) -> torch.Tensor:
+    """Bilinear CLAHE remap of a row block x [N,H,W] (clipped to [0,1])
+    against its halo-extended LUT grid [N, ceil(H/t)+2, ceil(W/t)+2, 256]
+    (TPU kernel 11) — see ``csrc/clahe.cu``; plain version
+    ``mdx_torch.parallel.clahe_sp.remap_ext_plain``."""
+    n, h, w = _image(x)
+    t = int(tile_size)
+    if t < 1:
+        raise ValueError(f"clahe kernel: tile size must be ≥ 1, got {t}")
+    _check(lut_ext, "lut_ext", (n, -(-h // t) + 2, -(-w // t) + 2, 256),
+           device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        _ok(lib.mdx_clahe_remap_ext(x.data_ptr(), lut_ext.data_ptr(),
+                                    out.data_ptr(), n, h, w, t, _stream()),
+            "clahe_remap_ext")
+    LAUNCHES["clahe_remap_ext"] += 1
+    return out
+
+
 # iterations between the host's reads of the per-image active flags
 _TV_CHECK_EVERY = 8
 
@@ -191,6 +236,77 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
             p_cur, p_next = p_next, p_cur
     LAUNCHES["tv_chambolle"] += 1
     return out, iters
+
+
+def _row_ptr(r: torch.Tensor | None, name: str, n: int, w: int, device):
+    if r is None:
+        return None
+    _check(r, name, (n, w), device=device)
+    return r.data_ptr()
+
+
+def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor, p_out: torch.Tensor,
+                  out: torch.Tensor, active: torch.Tensor,
+                  weight: torch.Tensor, up_p0: torch.Tensor | None,
+                  dn_x: torch.Tensor | None, dn_p0: torch.Tensor | None,
+                  dn_p1: torch.Tensor | None, glast: bool) -> torch.Tensor:
+    """One Chambolle iteration on a row block x [N,H,W] (TPU kernel 12):
+    reads ``p_in`` [N,2,H,W], writes the active images' new dual into
+    ``p_out`` and their image into ``out``; ``active`` [N] int32,
+    ``weight`` [N]; the halo rows ``up_p0`` (previous block's last p0 row)
+    and ``dn_x``/``dn_p0``/``dn_p1`` (next block's first rows) are [N,W] or
+    None for zeros; ``glast``: the block holds the image's bottom row.
+    Returns the block's (Σd², Σ|∇out|) [N,2] float64, zeros for stopped
+    images — see ``csrc/tv.cu``; plain version
+    ``mdx_torch.parallel.tv_sp.tv_shard_step_plain``."""
+    n, h, w = _image(x)
+    dev = x.device
+    _check(p_in, "p_in", (n, 2, h, w), device=dev)
+    _check(p_out, "p_out", (n, 2, h, w), device=dev)
+    _check(out, "out", (n, h, w), device=dev)
+    _check(active, "active", (n,), dtype=torch.int32, device=dev)
+    _check(weight, "weight", (n,), device=dev)
+    rows = [_row_ptr(r, name, n, w, dev) for r, name in (
+        (up_p0, "up_p0"), (dn_x, "dn_x"), (dn_p0, "dn_p0"), (dn_p1, "dn_p1"))]
+    lib = library()
+    with torch.cuda.device(dev):
+        nblk = -(-w // 32) * -(-h // 32)
+        partials = torch.empty((n, nblk, 2), dtype=torch.float64, device=dev)
+        sums = torch.zeros((n, 2), dtype=torch.float64, device=dev)
+        _ok(lib.mdx_tv_shard_step(
+            x.data_ptr(), p_in.data_ptr(), p_out.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), active.data_ptr(),
+            weight.data_ptr(), *rows, n, h, w, int(bool(glast)), _stream()),
+            "tv_shard_step")
+    LAUNCHES["tv_shard_step"] += 1
+    return sums
+
+
+def tv_shard_finalize(sums: torch.Tensor, weight: torch.Tensor,
+                      e0: torch.Tensor, e_prev: torch.Tensor,
+                      active: torch.Tensor, iters: torch.Tensor, first: bool,
+                      eps: float, size: float) -> None:
+    """The stop rule of kernel T's finalize on the global sums [N,2]
+    float64 (the row blocks' ``tv_shard_step`` sums added over the blocks),
+    in place on ``e0``, ``e_prev``, ``active``, ``iters``; ``size`` is the
+    global H·W.  The second launch of kernel 12's pair, counted with
+    ``tv_shard_step``.  Plain version
+    ``mdx_torch.parallel.tv_sp.tv_shard_finalize_plain``."""
+    n = sums.shape[0]
+    dev = sums.device
+    _check(sums, "sums", (n, 2), dtype=torch.float64)
+    _check(weight, "weight", (n,), device=dev)
+    _check(e0, "e0", (n,), device=dev)
+    _check(e_prev, "e_prev", (n,), device=dev)
+    _check(active, "active", (n,), dtype=torch.int32, device=dev)
+    _check(iters, "iters", (n,), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        _ok(lib.mdx_tv_shard_finalize(
+            sums.data_ptr(), weight.data_ptr(), e0.data_ptr(),
+            e_prev.data_ptr(), active.data_ptr(), iters.data_ptr(), n,
+            int(bool(first)), float(eps), float(size), _stream()),
+            "tv_shard_finalize")
 
 
 def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,

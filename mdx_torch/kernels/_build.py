@@ -38,8 +38,13 @@ SIGNATURES = {
     "mdx_box_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_unsharp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mdx_clahe": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_clahe_luts": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_clahe_remap_ext": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_tv_iteration": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P),
+    "mdx_tv_shard_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _P),
+    "mdx_tv_shard_finalize": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_wavelet_analysis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_wavelet_thresholds": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -21,6 +21,44 @@ from mdx_torch import kernels
 from mdx_torch.ops.filters import as_n, pad_axis
 
 
+def clahe_luts_plain(xp: torch.Tensor, clip_limit, tile_size: int,
+                     nbins: int = 256) -> torch.Tensor:
+    """Per-tile LUTs of a clipped [N, H, W] block whose extents are
+    multiples of the tile size → [N, H/t, W/t, nbins]: integer histograms,
+    clip at ``max(clip_limit·t², 1)`` with the excess spread evenly, scaled
+    CDF.  The LUT stage of :func:`clahe_plain`, and the local LUTs of the
+    sharded CLAHE (``mdx_torch.parallel.clahe_sp``)."""
+    n, ph, pw = xp.shape
+    t = int(tile_size)
+    gy, gx = ph // t, pw // t
+    ntiles = gy * gx
+    dev = xp.device
+
+    q = torch.clamp_max((xp * nbins).to(torch.int64), nbins - 1)  # [N,ph,pw]
+
+    ty = torch.arange(ph, device=dev) // t
+    tx = torch.arange(pw, device=dev) // t
+    tile_id = ty[:, None] * gx + tx[None, :]                       # [ph,pw]
+
+    img_base = (torch.arange(n, device=dev) * ntiles * nbins)[:, None, None]
+    flat_idx = (img_base + tile_id[None] * nbins + q).reshape(-1)
+    hists = torch.bincount(flat_idx, minlength=n * ntiles * nbins)
+    hists = hists.to(xp.dtype).reshape(n, ntiles, nbins)
+
+    # clip + uniform redistribution
+    npix = float(t * t)
+    clim = torch.clamp_min(as_n(clip_limit, xp, xp.dtype) * npix, 1.0)
+    clim = clim[:, None, None]
+    excess = torch.clamp_min(hists - clim, 0.0).sum(dim=-1, keepdim=True)
+    hists = torch.minimum(hists, clim) + excess / nbins
+
+    # per-tile LUT: scaled CDF
+    cdf = torch.cumsum(hists, dim=-1)
+    cdf_min = cdf[..., :1]
+    denom = torch.clamp_min(cdf[..., -1:] - cdf_min, 1e-12)
+    return ((cdf - cdf_min) / denom).reshape(n, gy, gx, nbins)
+
+
 def clahe_plain(x: torch.Tensor, clip_limit, tile_size: int = 16,
                 nbins: int = 256) -> torch.Tensor:
     """The plain PyTorch version of the CLAHE kernel (``clahe_xla``)."""
@@ -34,32 +72,10 @@ def clahe_plain(x: torch.Tensor, clip_limit, tile_size: int = 16,
                       "reflect")
     ph, pw = h + pad_h, w + pad_w
     gy, gx = ph // t, pw // t
-    ntiles = gy * gx
     dev = x.device
 
     q = torch.clamp_max((xp * nbins).to(torch.int64), nbins - 1)  # [N,ph,pw]
-
-    ty = torch.arange(ph, device=dev) // t
-    tx = torch.arange(pw, device=dev) // t
-    tile_id = ty[:, None] * gx + tx[None, :]                       # [ph,pw]
-
-    img_base = (torch.arange(n, device=dev) * ntiles * nbins)[:, None, None]
-    flat_idx = (img_base + tile_id[None] * nbins + q).reshape(-1)
-    hists = torch.bincount(flat_idx, minlength=n * ntiles * nbins)
-    hists = hists.to(x.dtype).reshape(n, ntiles, nbins)
-
-    # clip + uniform redistribution
-    npix = float(t * t)
-    clim = torch.clamp_min(as_n(clip_limit, x, x.dtype) * npix, 1.0)
-    clim = clim[:, None, None]
-    excess = torch.clamp_min(hists - clim, 0.0).sum(dim=-1, keepdim=True)
-    hists = torch.minimum(hists, clim) + excess / nbins
-
-    # per-tile LUT: scaled CDF
-    cdf = torch.cumsum(hists, dim=-1)
-    cdf_min = cdf[..., :1]
-    denom = torch.clamp_min(cdf[..., -1:] - cdf_min, 1e-12)
-    lut_flat = ((cdf - cdf_min) / denom).reshape(n, ntiles * nbins)
+    lut_flat = clahe_luts_plain(xp, clip_limit, t, nbins).reshape(n, -1)
 
     # bilinear interpolation between 4 neighbouring tile LUTs
     fy = (torch.arange(ph, dtype=x.dtype, device=dev) + 0.5) / t - 0.5

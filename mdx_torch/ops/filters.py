@@ -56,58 +56,86 @@ def pad2(x: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
     return pad_axis(pad_axis(x, 1, lo, hi, mode), 2, lo, hi, mode)
 
 
-def laplace(x: torch.Tensor) -> torch.Tensor:
-    """3×3 cross Laplacian, symmetric boundary (ref pipeline/metrics.py:48)."""
-    xp = pad2(x, 1, 1, "symmetric")
+# The stencils below come in one form: a block whose rows are already
+# extended (a symmetric pad for the dense image, a shard's halo rows in
+# ``mdx_torch.parallel.spatial``), with each column stage padding its own
+# columns symmetrically, as the JAX package's per-axis filters do.
+
+
+def laplace_rows_ext(xr: torch.Tensor) -> torch.Tensor:
+    """5-point Laplacian of a [N, H+2, W] block whose rows are extended by
+    one → [N, H, W]."""
+    xp = pad_axis(xr, 2, 1, 1, "symmetric")
     return (4.0 * xp[:, 1:-1, 1:-1] - xp[:, :-2, 1:-1] - xp[:, 2:, 1:-1]
             - xp[:, 1:-1, :-2] - xp[:, 1:-1, 2:])
 
 
-def _smooth3(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """[1,2,1]/2 correlation along ``axis`` (symmetric boundary)."""
-    n = x.shape[axis]
-    xp = pad_axis(x, axis, 1, 1, "symmetric")
+def laplace(x: torch.Tensor) -> torch.Tensor:
+    """3×3 cross Laplacian, symmetric boundary (ref pipeline/metrics.py:48)."""
+    return laplace_rows_ext(pad_axis(x, 1, 1, 1, "symmetric"))
+
+
+def _smooth3_ext(xp: torch.Tensor, axis: int) -> torch.Tensor:
+    """[1,2,1]/2 correlation along ``axis``, already extended by one."""
+    n = xp.shape[axis] - 2
     return (0.5 * xp.narrow(axis, 0, n) + xp.narrow(axis, 1, n)
             + 0.5 * xp.narrow(axis, 2, n))
 
 
-def _diff3(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """[-1,0,1]/2 correlation along ``axis`` (symmetric boundary)."""
-    n = x.shape[axis]
-    xp = pad_axis(x, axis, 1, 1, "symmetric")
+def _diff3_ext(xp: torch.Tensor, axis: int) -> torch.Tensor:
+    """[-1,0,1]/2 correlation along ``axis``, already extended by one."""
+    n = xp.shape[axis] - 2
     return 0.5 * (xp.narrow(axis, 2, n) - xp.narrow(axis, 0, n))
+
+
+def sobel_h_rows_ext(xr: torch.Tensor) -> torch.Tensor:
+    """Row diff, then column smooth, of a row-extended [N, H+2, W] block."""
+    return _smooth3_ext(pad_axis(_diff3_ext(xr, 1), 2, 1, 1, "symmetric"), 2)
+
+
+def sobel_v_rows_ext(xr: torch.Tensor) -> torch.Tensor:
+    """Column diff, then row smooth, of a row-extended [N, H+2, W] block."""
+    return _smooth3_ext(_diff3_ext(pad_axis(xr, 2, 1, 1, "symmetric"), 2), 1)
 
 
 def sobel_h(x: torch.Tensor) -> torch.Tensor:
     """Smoothed horizontal-edge Sobel, /4 (ref pipeline/metrics.py:62)."""
-    return _smooth3(_diff3(x, 1), 2)
+    return sobel_h_rows_ext(pad_axis(x, 1, 1, 1, "symmetric"))
 
 
 def sobel_v(x: torch.Tensor) -> torch.Tensor:
-    return _smooth3(_diff3(x, 2), 1)
+    return sobel_v_rows_ext(pad_axis(x, 1, 1, 1, "symmetric"))
 
 
 def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
     return torch.hypot(sobel_h(x), sobel_v(x))
 
 
-def box_filter(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Mean filter, SciPy ``uniform_filter`` semantics (left-heavy window
-    for even sizes, reflect boundary).  Row sums, ×1/size, column sums,
-    ×1/size — the order of ``mdx.ops.filters.box_filter``."""
+def box_rows_ext(xr: torch.Tensor, size: int) -> torch.Tensor:
+    """size×size mean of a block whose rows are extended by ``size//2``
+    above and the rest below → [N, H, W]: row sums, ×1/size, column sums
+    on a symmetric column pad, ×1/size — the order of
+    ``mdx.ops.filters.box_filter``."""
     lo = size // 2
     hi = size - lo - 1
-    _, h, w = x.shape
-    xp = pad_axis(x, 1, lo, hi, "symmetric")
-    acc = xp[:, 0:h, :]
+    h = xr.shape[1] - (size - 1)
+    w = xr.shape[2]
+    acc = xr[:, 0:h, :]
     for i in range(1, size):
-        acc = acc + xp[:, i:i + h, :]
+        acc = acc + xr[:, i:i + h, :]
     acc = acc * (1.0 / size)
     xp = pad_axis(acc, 2, lo, hi, "symmetric")
     out = xp[:, :, 0:w]
     for i in range(1, size):
         out = out + xp[:, :, i:i + w]
     return out * (1.0 / size)
+
+
+def box_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Mean filter, SciPy ``uniform_filter`` semantics (left-heavy window
+    for even sizes, reflect boundary)."""
+    lo = size // 2
+    return box_rows_ext(pad_axis(x, 1, lo, size - lo - 1, "symmetric"), size)
 
 
 def local_variance(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -77,6 +77,21 @@ def _analysis_last(x: torch.Tensor, wavelet: str):
     return a, d
 
 
+def strided_taps_mac(ext: torch.Tensor, taps, n_out: int,
+                     axis: int) -> torch.Tensor:
+    """Σᵢ taps[i]·ext[…, i:i+2·n_out:2, …] along ``axis`` (1 or 2) of a
+    pre-extended [N, H, W] signal, tap-ascending (``taps`` already
+    time-reversed) — the analysis sweep of :func:`_analysis_last` on either
+    spatial axis (``mdx.ops.wavelet.strided_taps_mac``)."""
+    acc = None
+    for i in range(len(taps)):
+        s = ext.narrow(axis, i, ext.shape[axis] - i)
+        s = (s[:, ::2] if axis == 1 else s[:, :, ::2]).narrow(axis, 0, n_out)
+        t = _f32(taps[i]) * s
+        acc = t if acc is None else acc + t
+    return acc
+
+
 def _synthesis_last(a: torch.Tensor, d: torch.Tensor, wavelet: str,
                     n_out: int) -> torch.Tensor:
     """Inverse of :func:`_analysis_last` (polyphase), cropped to n_out."""

@@ -1,0 +1,245 @@
+"""The plan path, sharded: ``apply_plan`` with all three safeguards,
+validation and the objective score on row blocks.
+
+Counterpart of ``mdx/parallel/plan_sp.py`` (1-D layout): the dense plan
+chain (``mdx_torch.core.enhance.apply_plan`` = ref
+pipeline/enhancement.py:235-369) with every op replaced by its sharded
+counterpart and per-image masks selecting, then
+
+1. halo — edge_ratio(out) > 1.5 where unsharp ran → the chain again with
+   ``unsharp_amount × 0.5`` (from the cached pre-unsharp prefix when the
+   re-run order allows),
+2. noise amplification — σ_after > 1.3·σ_before → ``light_denoise(0.4)``,
+3. over-processing — NIQE up by more than 0.5 → blend back 40 % of x,
+
+then the full validation and the objective score.  A guard branch holds
+collectives (the re-run chain, the corrective denoise), so every rank
+takes it or none does: its predicate is reduced over all ranks first
+(``comm.any_all``), as JAX psums it (``plan_sp.py:189,212``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mdx_torch.core.enhance import OP_ORDER, PlanDynamic, PlanStatic
+from mdx_torch.core.score import objective_score
+from mdx_torch.core.validate import validation_from_stats
+from mdx_torch.ops import filters as F
+from mdx_torch.ops.filters import as_n
+from mdx_torch.ops.tv import tv_mode_params
+from mdx_torch.parallel import _spmd_stats as S
+from mdx_torch.parallel import comm, launch, spatial
+from mdx_torch.parallel.clahe_sp import clahe_sharded
+from mdx_torch.parallel.tv_sp import tv_sharded
+from mdx_torch.parallel.wavelet_sp import (
+    denoise_wavelet_sharded,
+    light_denoise_sharded,
+)
+
+
+@dataclass(frozen=True)
+class Layout:
+    """A spatial layout's primitives bound to this rank's mesh (the 1-D
+    row-block layout; the 2-D tile layout is not ported yet)."""
+
+    mesh: object
+    prims: S.SpatialPrims
+    blur: Callable        # (x, sigma) → Gaussian blur, skimage 'nearest'
+    bilateral: Callable   # (x, d, sigma_color, sigma_space)
+    ssim: Callable        # (x, y) → [N]
+    psnr: Callable        # (x, y) → [N]
+
+
+def layout_1d(mesh) -> Layout:
+    return Layout(mesh, spatial.prims(mesh),
+                  partial(spatial.gaussian_blur_halo, mesh=mesh),
+                  partial(spatial.bilateral_halo, mesh=mesh),
+                  partial(spatial.ssim_block, mesh=mesh),
+                  partial(spatial.psnr_block, mesh=mesh))
+
+
+def edge_ratio_sp(x: torch.Tensor, p: S.SpatialPrims) -> torch.Tensor:
+    """mean(|laplace|) / mean(grad_mag) → [N] (ref
+    pipeline/metrics.py:213-217; the halo guard's input)."""
+    lap, gh, gv = p.lap_sobel(x)
+    return p.pmean(lap.abs()) / (p.pmean(torch.hypot(gh, gv)) + 1e-8)
+
+
+def niqe_sp(x: torch.Tensor, p: S.SpatialPrims) -> torch.Tensor:
+    """NIQE approximation → [N] (ref pipeline/metrics.py:187-210; the
+    over-processing guard's input)."""
+    m, v = p.pvar(p.local_variance(x, 16))
+    cov = torch.sqrt(v) / (m + 1e-8)
+    return cov + torch.clamp_min(edge_ratio_sp(x, p) - 1.0, 0.0) * 10.0
+
+
+def run_chain_sp(x, order, static: PlanStatic, dyn: PlanDynamic, masks,
+                 unsharp_amount, lay: Layout) -> torch.Tensor:
+    """The dense ``_run_chain`` with every op sharded; masks select per
+    image."""
+    mesh = lay.mesh
+    out = x
+    for op in order:
+        if op not in static.ops:
+            continue
+        m = masks[op]
+        if op == "denoise":
+            y = denoise_wavelet_sharded(
+                out, mesh, soft_mask=as_n(dyn.denoise_soft, x, torch.bool))
+        elif op == "clahe":
+            y = clahe_sharded(out, as_n(dyn.clahe_clip_limit, x),
+                              int(static.tile_size), mesh)
+        elif op == "gamma":
+            g = as_n(dyn.gamma, x)
+            m = m & ((g - 1.0).abs() > 1e-4)
+            y = F.adjust_gamma(out, g)
+        elif op == "unsharp":
+            y = spatial.unsharp_halo(out, dyn.unsharp_radius, unsharp_amount,
+                                     mesh)
+        elif op == "post_denoise":
+            s = as_n(dyn.post_denoise_strength, x)
+            m = m & (s > 0)
+            y = light_denoise_sharded(out, s, lay.prims.sigma(out), mesh)
+        elif op == "bilateral":
+            if static.bilateral_d <= 0:
+                continue
+            y = lay.bilateral(out, static.bilateral_d,
+                              as_n(dyn.bilateral_sigma_color, x),
+                              as_n(dyn.bilateral_sigma_space, x))
+        elif op == "tv_denoise":
+            w = as_n(dyn.tv_denoise_weight, x)
+            m = m & (w > 0)
+            eps, max_iter = tv_mode_params(static.tv_mode)
+            y, _ = tv_sharded(out, torch.clamp_min(w, 1e-6), mesh, eps,
+                              max_iter)
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        out = torch.where(m[:, None, None], y, out)
+    return out
+
+
+def apply_plan_sp(x, static: PlanStatic, dyn: PlanDynamic, masks,
+                  lay: Layout, niqe_before: torch.Tensor | None = None):
+    """Sharded plan chain + 3 safeguards → (enhanced block, guard flags
+    {halo, noise_amp, over_processed} as [N] bools).  ``niqe_before``:
+    the metric pass's ``niqe`` of x, when the caller has it."""
+    n = x.shape[0]
+    mesh = lay.mesh
+    fixed_order = tuple(o for o in OP_ORDER if o in static.ops)
+    rerun_order = static.order()
+
+    # when the halo re-run order equals the fixed order up to 'unsharp', the
+    # ops before unsharp are the same in both runs: the re-run resumes from
+    # that prefix (as the dense apply_plan does)
+    u_at = fixed_order.index("unsharp") if "unsharp" in fixed_order else -1
+    prefix_reusable = (u_at >= 0
+                       and rerun_order[:u_at + 1] == fixed_order[:u_at + 1])
+    if prefix_reusable:
+        pre = run_chain_sp(x, fixed_order[:u_at], static, dyn, masks,
+                           dyn.unsharp_amount, lay)
+        suffix = fixed_order[u_at:]
+    else:
+        pre, suffix = x, fixed_order
+    out = torch.clamp(run_chain_sp(pre, suffix, static, dyn, masks,
+                                   dyn.unsharp_amount, lay), 0.0, 1.0)
+
+    # Safeguard 1: halo → re-run with the halved amount
+    if "unsharp" in static.ops:
+        halo = (edge_ratio_sp(out, lay.prims) > 1.5) & masks["unsharp"]
+        if comm.any_all(halo, mesh):
+            half = as_n(dyn.unsharp_amount, x) * 0.5
+            if prefix_reusable:
+                redo = run_chain_sp(pre, suffix, static, dyn, masks, half,
+                                    lay)
+            else:
+                redo = run_chain_sp(x, rerun_order, static, dyn, masks, half,
+                                    lay)
+            out = torch.where(halo[:, None, None],
+                              torch.clamp(redo, 0.0, 1.0), out)
+    else:
+        halo = torch.zeros(n, dtype=torch.bool, device=x.device)
+
+    # Safeguard 2: noise amplification → corrective light denoise
+    sigma_before = lay.prims.sigma(x)
+    sigma_after = lay.prims.sigma(out)
+    noise_amp = (sigma_before >= 1e-8) & (sigma_after > sigma_before * 1.3)
+    if comm.any_all(noise_amp, mesh):
+        fixed = torch.clamp(light_denoise_sharded(out, 0.4, sigma_after,
+                                                  mesh), 0.0, 1.0)
+        out = torch.where(noise_amp[:, None, None], fixed, out)
+
+    # Safeguard 3: over-processing → blend back 40 % of the original
+    if niqe_before is None:
+        niqe_before = niqe_sp(x, lay.prims)
+    over = (niqe_sp(out, lay.prims) - niqe_before) > 0.5
+    out = torch.where(over[:, None, None],
+                      torch.clamp(0.6 * out + 0.4 * x, 0.0, 1.0), out)
+    return out, {"halo": halo, "noise_amp": noise_amp,
+                 "over_processed": over}
+
+
+def _local(v, mesh, n: int):
+    """A plan value for this rank's ``n`` images: a per-image vector of the
+    whole batch is cut to this data row's slice; scalars stay."""
+    if torch.is_tensor(v) and v.ndim == 1 and v.numel() == n * mesh.n_data \
+            and mesh.n_data > 1:
+        return v[mesh.data_index * n:(mesh.data_index + 1) * n]
+    return v
+
+
+def qa_plan_block(xb: torch.Tensor, static: PlanStatic, dyn: PlanDynamic,
+                  masks: dict | None = None, *, mesh) -> dict:
+    """Per-rank body of :func:`qa_plan_spatial`: metrics → sharded
+    apply_plan → metrics, SSIM, PSNR → validation and score."""
+    n = xb.shape[0]
+    lay = layout_1d(mesh)
+    dyn = PlanDynamic(*(_local(v, mesh, n) for v in dyn))
+    masks = masks or {}
+    masks = {op: as_n(_local(torch.as_tensor(masks.get(op, True)), mesh, n),
+                      xb, torch.bool) for op in OP_ORDER}
+    before = S.image_stats_block(xb, lay.prims)
+    enhanced, flags = apply_plan_sp(xb, static, dyn, masks, lay,
+                                    niqe_before=before["niqe"])
+    after = S.image_stats_block(enhanced, lay.prims)
+    validation = validation_from_stats(before, after, lay.ssim(xb, enhanced),
+                                       lay.psnr(xb, enhanced))
+    score, _ = objective_score(validation)
+    return {"enhanced": enhanced, "stats_before": before,
+            "validation": validation, "score": score, "flags": flags}
+
+
+def check_plan_shape(shape, k: int, static: PlanStatic) -> None:
+    """``plan_sp.py:286-293``: even blocks of at least
+    ``MIN_ROWS_PER_SHARD`` rows, and whole CLAHE tiles per block."""
+    h = shape[1]
+    if h % k or (h // k) % 2 or h // k < spatial.MIN_ROWS_PER_SHARD:
+        raise ValueError(
+            f"H={h} must split into even blocks of "
+            f"≥{spatial.MIN_ROWS_PER_SHARD} rows over {k} 'space' shards")
+    if "clahe" in static.ops:
+        spatial.check_clahe_tiles(shape, k, int(static.tile_size))
+
+
+def qa_plan_spatial(x: np.ndarray, n_space: int, static: PlanStatic,
+                    dyn: PlanDynamic, masks: dict | None = None, *,
+                    n_data: int = 1, device: str = "cuda",
+                    timeout_s: float = 600.0) -> dict:
+    """One plan-driven QA/tuning iteration of [N, H, W] numpy on
+    ``n_data × n_space`` ranks: sharded apply_plan (7 ops, 3 guards) →
+    validation → score.  ``static``/``dyn`` as from
+    ``mdx_torch.plan_from_numpy`` (scalars or per-image [N] values);
+    ``masks``: {op: [N] bool}.  Returns JAX's fields as numpy
+    (``enhanced``, ``stats_before``, ``validation``, ``score``, ``flags``)
+    plus ``"launch"``."""
+    check_plan_shape(x.shape, n_space, static)
+    res = launch.run(qa_plan_block, x, static, dyn, masks, n_space=n_space,
+                     n_data=n_data, device=device, timeout_s=timeout_s)
+    out = launch.assemble(res.results, n_data, n_space)
+    out["launch"] = res.info()
+    return out

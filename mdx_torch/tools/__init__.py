@@ -9,6 +9,7 @@ Run each from the root of a checkout:
     python -m mdx_torch.tools.bench_config2  # BASELINE config 2: 64x2048^2
     python -m mdx_torch.tools.time_kernels   # each kernel against its plain version
     python -m mdx_torch.tools.tune_sweep     # ms per autotune sweep
+    python -m mdx_torch.tools.spatial_check  # the row-sharded path on k ranks
 
 The port keeps its own copies of the JAX package's benchmark batch and
 plans (``bench.py`` ``_make_batch``, ``_PLAN_OPS``, ``_PLAN_PARAMS``;

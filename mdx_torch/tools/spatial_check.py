@@ -1,0 +1,249 @@
+"""Check and time the spatially-sharded QA path on the card.
+
+    python -m mdx_torch.tools.spatial_check [--n-space 4] [--size 2048]
+                                            [--trace]
+
+Runs :func:`rank_check` on ``--n-space`` ranks (the backend rule of
+``mdx_torch.parallel.mesh``: NCCL with one card per rank, gloo when they
+share one) on one ``make_batch`` frame and prints one JSON line: per-call
+ms of ``qa_plan_spatial`` (median of synchronised reps inside the ranks,
+spawn excluded), the backend, host round trips per call, kernel launches
+and the replay errors of the recorded kernels; with ``--trace`` also rank
+0's device time, idle share and top kernels of one traced call.
+``chip_smoke.py`` phase 9 runs the same rank function.
+
+:func:`rank_check` runs on every rank: the bench plan's ``qa_plan_block``
+with the launch counters reset and, on rank 0, every call of kernels 11
+and 12 and of kernel C's LUT stage (the local LUTs) recorded;
+``qa_block`` (the issue-driven chain with denoise, CLAHE, TV and the noise
+guard); each recorded call replayed against the plain version;
+the whole sharded TV solve through the kernels and through
+``tv_sharded_plain`` on the same block; then the timed reps.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import time
+
+import torch
+
+SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
+# the wrappers rank 0 records and replays: kernels 11 and 12, and kernel C's
+# LUT stage, which builds the sharded CLAHE's local LUTs and is counted and
+# held to its tolerance as "clahe" (ROW_OF)
+RECORDED = ("clahe_luts",) + SPATIAL_KERNELS
+ROW_OF = {"clahe_luts": "clahe"}
+# qa_spatial's chain in the check: denoise, CLAHE, gamma/unsharp, TV and the
+# noise guard (bilateral off)
+QA_KW = dict(gamma=0.95, unsharp_radius=1.0, unsharp_amount=0.6,
+             bilateral_d=0, clahe_clip=0.02, clahe_tile=16, tv_weight=0.05,
+             use_tv=True, use_denoise=True, use_noise_guard=True)
+
+
+def plain_of(name: str):
+    from mdx_torch.ops.clahe import clahe_luts_plain
+    from mdx_torch.parallel import clahe_sp, tv_sp
+
+    return {"clahe_luts": clahe_luts_plain,
+            "clahe_remap_ext": clahe_sp.remap_ext_plain,
+            "tv_shard_step": tv_sp.tv_shard_step_plain}[name]
+
+
+def _clone(args):
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
+def compare_call(name: str, args) -> tuple[float, bool]:
+    """One recorded wrapper's call against its plain version on copies of
+    the same inputs → (max|d|, within ``parity.KERNEL_TOL`` of its row).
+    For kernel 12 the outputs are the written ``p_out`` and ``out`` and the
+    returned sums."""
+    from mdx_torch import kernels, parity
+
+    ka, pa = _clone(args), _clone(args)
+    got = getattr(kernels, name)(*ka)
+    want = plain_of(name)(*pa)
+    if name == "tv_shard_step":
+        got, want = (ka[2], ka[3], got), (pa[2], pa[3], want)
+    torch.cuda.synchronize()
+    return parity.kernel_parity(ROW_OF.get(name, name), got, want)
+
+
+@contextlib.contextmanager
+def recording(calls: list, enabled: bool):
+    """Record (name, cloned args) of every call of the wrappers in
+    ``RECORDED`` while they run as usual."""
+    from mdx_torch import kernels
+
+    originals = {k: getattr(kernels, k) for k in RECORDED}
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, _clone(args)))
+            return fn(*args)
+        return call
+
+    if enabled:
+        for k, fn in originals.items():
+            setattr(kernels, k, recorder(k, fn))
+    try:
+        yield
+    finally:
+        for k, fn in originals.items():
+            setattr(kernels, k, fn)
+
+
+def _traced_call(fn, device) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): the
+    wall, the summed device time of its kernels, the idle share
+    (1 − device / wall) and the 8 kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "idle_share": 1.0 - dev_ms / wall_ms,
+            "launches": sum(e.count for e in kern),
+            "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+                    for e in top]}
+
+
+def rank_check(x, static, dyn, *, mesh, reps: int = 5,
+               trace: bool = False) -> dict:
+    """The per-rank check (module doc) → numpy-able dict; with ``trace``,
+    one more call that rank 0 traces (:func:`_traced_call`)."""
+    from mdx_torch import kernels
+    from mdx_torch.parallel import comm, plan_sp, spatial, tv_sp
+
+    def sync():
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+    out = {}
+    stage_s = {}
+    t_stage = time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        sync()
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage
+        t_stage = now
+
+    calls: list = []
+    sync()
+    kernels.reset_launches()
+    trips = mesh.host_round_trips
+    with recording(calls, enabled=mesh.rank == 0):
+        res = plan_sp.qa_plan_block(x, static, dyn, mesh=mesh)
+    sync()
+    out["plan_round_trips"] = mesh.host_round_trips - trips
+    out["launches_plan"] = dict(kernels.LAUNCHES)
+    out.update(enhanced=res["enhanced"], flags=res["flags"],
+               validation=res["validation"], score=res["score"],
+               stats_before=res["stats_before"])
+    stage("qa_plan recorded")
+
+    kernels.reset_launches()
+    qa = spatial.qa_block(x, mesh=mesh, **QA_KW)
+    sync()
+    out["launches_qa"] = dict(kernels.LAUNCHES)
+    out.update(qa_enhanced=qa["enhanced"], qa_passes=qa["passes"],
+               qa_noise_amp=qa["noise_amp_guard"], qa_ssim=qa["ssim"],
+               qa_psnr=qa["psnr"])
+    stage("qa_spatial")
+
+    replay = {k: [0, 0.0, True] for k in RECORDED}
+    for name, args in calls:
+        err, ok = compare_call(name, args)
+        r = replay[name]
+        r[0], r[1], r[2] = r[0] + 1, max(r[1], err), r[2] and ok
+    del calls
+    out["replay"] = replay
+    stage("replay")
+
+    # the whole solve, kernels (on the card) against plain, on the clipped
+    # block
+    y = torch.clamp(x, 0.0, 1.0)
+    a, it_a = tv_sp.tv_sharded(y, 0.05, mesh)
+    b, it_b = tv_sp.tv_sharded_plain(y, 0.05, mesh)
+    sync()
+    out["tv_solve"] = {"max_abs_err": float((a - b).abs().max()),
+                       "iters_kernel": it_a, "iters_plain": it_b}
+    stage("tv solve twice")
+
+    times = []
+    for _ in range(reps):
+        comm.barrier(mesh)
+        sync()
+        t0 = time.perf_counter()
+        plan_sp.qa_plan_block(x, static, dyn, mesh=mesh)
+        sync()
+        comm.barrier(mesh)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["plan_ms"] = times
+    stage("timed reps")
+    if trace:
+        def call():
+            plan_sp.qa_plan_block(x, static, dyn, mesh=mesh)
+
+        if mesh.rank == 0:
+            out["trace"] = _traced_call(call, x.device)
+        else:
+            call()
+        stage("traced call")
+    out["stage_s"] = stage_s
+    return out
+
+
+def main() -> None:
+    import numpy as np
+
+    from mdx_torch.parallel import launch
+    from mdx_torch.tools import bench_plan, card_line, make_batch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n-space", type=int, default=4)
+    ap.add_argument("--size", type=int, default=2048)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--trace", action="store_true",
+                    help="trace one more call on rank 0 (torch.profiler)")
+    a = ap.parse_args()
+    x = make_batch(1, a.size, seed=4)
+    t0 = time.perf_counter()
+    res = launch.run(rank_check, x, *bench_plan("cpu"), n_space=a.n_space,
+                     device="cuda", reps=a.reps, trace=a.trace)
+    r0 = res.results[0]
+    print(json.dumps({
+        "trace": r0.get("trace"),
+        "stage_s": r0["stage_s"],
+        "card": card_line(), "n_space": a.n_space, "size": a.size,
+        "backend": res.backend, "devices": res.devices,
+        "plan_ms_median": statistics.median(r0["plan_ms"]),
+        "plan_ms": [float(v) for v in r0["plan_ms"]],
+        "host_round_trips_per_call": int(r0["plan_round_trips"]),
+        "launches_plan": [r["launches_plan"] for r in res.results],
+        "replay": r0["replay"],
+        "tv_solve_max_abs_err": max(r["tv_solve"]["max_abs_err"]
+                                    for r in res.results),
+        "tv_iters_equal": all(np.array_equal(r["tv_solve"]["iters_kernel"],
+                                             r["tv_solve"]["iters_plain"])
+                              for r in res.results),
+        "seconds": time.perf_counter() - t0}))
+
+
+if __name__ == "__main__":
+    main()

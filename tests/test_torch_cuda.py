@@ -23,6 +23,9 @@ from mdx_torch.ops import clahe as C
 from mdx_torch.ops import filters as F
 from mdx_torch.ops import tv as T
 from mdx_torch.ops import wavelet as W
+from mdx_torch.parallel import clahe_sp, launch, tv_sp
+from mdx_torch.parallel.launch import Block
+from mdx_torch.tools import spatial_check as SC
 
 pytestmark = pytest.mark.gpu
 
@@ -235,6 +238,11 @@ def test_launch_counters_count_wrapper_launches(dev):
     kernels.tv_chambolle(x, one * 0.05)
     kernels.bilateral(x, 5, one * 0.05, one * 0.05)
     kernels.wavelet_denoise(x, one * 0.05, one.bool(), 3)
+    kernels.clahe_remap_ext(x, _lut_ext(x, 16), 16)
+    p = torch.zeros((2, 2, 64, 64), device=dev)
+    kernels.tv_shard_step(x, p, torch.empty_like(p), torch.empty_like(x),
+                          one.int(), one * 0.05, None, None, None, None, True)
+    kernels.LAUNCHES["clahe"] -= 1      # _lut_ext's LUT stage
     assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
     F.unsharp_mask_plain(x, one, one)
     assert kernels.LAUNCHES["unsharp"] == 1
@@ -249,9 +257,116 @@ def test_qa_slice_card_against_cpu(dev):
            "unsharp_amount": 0.6, "tv_denoise_weight": 0.05}
     kernels.reset_launches()
     card = qa.qa_plan(x, *plan_from_numpy(static, dyn, dev))
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    dense = {k: v for k, v in kernels.LAUNCHES.items()
+             if k not in SC.SPATIAL_KERNELS}
+    assert all(v > 0 for v in dense.values()), kernels.LAUNCHES
     cpu = qa.qa_plan(x.cpu(), *plan_from_numpy(static, dyn, "cpu"))
     bad = parity.breaches(parity.flatten_result(card, parity.QA_PLAN_FIELDS),
                           parity.flatten_result(cpu, parity.QA_PLAN_FIELDS),
                           tv_ran=True)
     assert not bad, "\n".join(bad)
+
+
+def _lut_ext(x, tile):
+    """The block's LUTs (kernel C's LUT stage) with halo rows taken from the
+    opposite edge, so the interior and edge halos differ, and edge columns."""
+    n = x.shape[0]
+    lut = clahe_sp.clahe_luts(x, torch.linspace(0.01, 0.05, n,
+                                                device=x.device), tile)
+    lut = torch.cat([lut[:, -1:], lut, lut[:, :1]], dim=1)
+    return torch.cat([lut[:, :, :1], lut, lut[:, :, -1:]], dim=2).contiguous()
+
+
+@pytest.mark.parametrize("shape,tile", [((1, 512, 2048), 16),
+                                        ((2, 48, 77), 16), ((2, 33, 129), 8),
+                                        ((3, 64, 64), 32)])
+def test_clahe_remap_ext_kernel(dev, shape, tile):
+    x = _batch(20, *shape, dev)
+    lut_ext = _lut_ext(x, tile)
+    kernels.reset_launches()
+    got = kernels.clahe_remap_ext(x, lut_ext, tile)
+    assert kernels.LAUNCHES["clahe_remap_ext"] == 1
+    _assert_kernel_parity("clahe_remap_ext", got,
+                          clahe_sp.remap_ext_plain(x, lut_ext, tile))
+
+
+@pytest.mark.parametrize("shape,tile", [((2, 512, 512), 16), ((1, 96, 64), 32)])
+def test_clahe_lut_stage(dev, shape, tile):
+    x = _batch(22, *shape, dev)
+    clip = torch.full((shape[0],), 0.03, device=dev)
+    _assert_kernel_parity("clahe", kernels.clahe_luts(x, clip, tile),
+                          C.clahe_luts_plain(x, clip, tile))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2048), (2, 48, 77), (3, 33, 129)])
+@pytest.mark.parametrize("glast,rows", [(True, False), (False, True),
+                                        (False, False)])
+def test_tv_shard_step_kernel(dev, shape, glast, rows):
+    n, h, w = shape
+    x = _batch(21, n, h, w, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: 0.05 * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    active = torch.tensor([1, 0, 1][:n] if n > 1 else [1], dtype=torch.int32,
+                          device=dev)
+    halo = ((rnd(n, w), x[:, 0].contiguous(), rnd(n, w), rnd(n, w)) if rows
+            else (None,) * 4)
+    p = rnd(n, 2, h, w)
+    args = (x, p, rnd(n, 2, h, w), rnd(n, h, w), active,
+            torch.linspace(0.03, 0.1, n, device=dev), *halo, glast)
+    kernels.reset_launches()
+    err, ok = SC.compare_call("tv_shard_step", args)
+    assert kernels.LAUNCHES["tv_shard_step"] == 1
+    assert ok, f"tv_shard_step: max|d| {err}"
+
+
+def test_spatial_wrappers_refuse(dev):
+    x = _batch(23, 2, 64, 64, dev)
+    lut = _lut_ext(x, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.clahe_remap_ext(x.cpu(), lut.cpu(), 16)
+    with pytest.raises(ValueError, match="lut_ext"):
+        kernels.clahe_remap_ext(x, lut[:, 1:].contiguous(), 16)
+    p = torch.zeros((2, 2, 64, 64), device=dev)
+    one = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.tv_shard_step(x, p, p.clone(), x.clone(), one, one, None,
+                              None, None, None, True)
+    with pytest.raises(ValueError, match="up_p0"):
+        kernels.tv_shard_step(x, p, p.clone(), x.clone(), one.int(), one,
+                              torch.zeros(2, 63, device=dev), None, None,
+                              None, True)
+
+
+def test_sharded_tv_solve_on_one_card_over_gloo(dev):
+    """Two ranks on the card (gloo): the kernel solve equals the plain one
+    and the dense kernel, with equal iteration counts."""
+    x = _batch(24, 2, 128, 96, "cpu").numpy()
+    w = torch.tensor([0.1, 0.02])
+    res = launch.run(launch.call_each, x, n_space=2, device="cuda",
+                     timeout_s=300, calls=[
+                         (tv_sp.tv_sharded, (Block(0), w), {}),
+                         (tv_sp.tv_sharded_plain, (Block(0), w), {})])
+    assert res.backend == "gloo"
+    assert all(t > 0 for t in res.host_round_trips)
+    got = np.concatenate([r[0][0] for r in res.results], axis=1)
+    plain = np.concatenate([r[1][0] for r in res.results], axis=1)
+    dense, it = kernels.tv_chambolle(torch.from_numpy(x).to(dev), w.to(dev))
+    for r in res.results:
+        assert r[0][1].tolist() == r[1][1].tolist() == it.tolist()
+    np.testing.assert_array_equal(got, plain)
+    _assert_kernel_parity("tv_shard_step", torch.from_numpy(got), dense.cpu())
+
+
+def test_spatial_check_replays_every_recorded_wrapper(dev):
+    """``spatial_check.rank_check`` on 2 ranks of the card: rank 0 records
+    calls of kernels 11 and 12 and of CLAHE's LUT stage, and each replays
+    within its tolerance."""
+    from mdx_torch.tools import bench_plan, make_batch
+
+    res = launch.run(SC.rank_check, make_batch(1, 256, seed=4),
+                     *bench_plan("cpu"), n_space=2, device="cuda",
+                     timeout_s=300, reps=1)
+    replay = res.results[0]["replay"]
+    assert set(replay) == set(SC.RECORDED)
+    for name, (n_calls, err, ok) in replay.items():
+        assert n_calls > 0 and ok, (name, err)

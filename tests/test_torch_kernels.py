@@ -185,6 +185,12 @@ def test_cpu_path_launches_and_builds_nothing():
     lambda x: kernels.bilateral(x, 5, torch.ones(2), torch.ones(2)),
     lambda x: kernels.wavelet_denoise(x, torch.ones(2),
                                       torch.ones(2, dtype=torch.bool), 3),
+    lambda x: kernels.clahe_luts(x, torch.ones(2), 16),
+    lambda x: kernels.clahe_remap_ext(x, torch.zeros(2, 4, 4, 256), 16),
+    lambda x: kernels.tv_shard_step(
+        x, torch.zeros(2, 2, 32, 32), torch.zeros(2, 2, 32, 32),
+        torch.zeros(2, 32, 32), torch.ones(2, dtype=torch.int32),
+        torch.ones(2), None, None, None, None, True),
 ])
 def test_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -209,7 +215,8 @@ def test_build_flags_and_library_name():
     assert set(_build.SIGNATURES) == {
         "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_iteration",
         "mdx_bilateral", "mdx_wavelet_analysis", "mdx_wavelet_thresholds",
-        "mdx_wavelet_synthesis"}
+        "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
+        "mdx_tv_shard_step", "mdx_tv_shard_finalize"}
 
 
 def test_jax_stays_on_cpu():

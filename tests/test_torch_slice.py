@@ -265,6 +265,9 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
                                          0 * one, 0 * one, one, 0 * one, one,
                                          per_frame_minmax=True)
         assert float(frames.max()) == 1.0
+        from mdx_torch.parallel import (clahe_sp, comm, launch, mesh,
+                                        plan_sp, spatial, tv_sp, wavelet_sp)
+        from mdx_torch.tools import spatial_check
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx")]

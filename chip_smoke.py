@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of mdx_torch's fused QA pass, tuning sweep and raw ingest on
-one NVIDIA GPU.
+"""Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
+paths and capability probe on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -74,14 +74,30 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    reps in the ranks) with the backend and the host round trips per call;
    kernels 11 and 12 and the LUT stage against their plain versions at
    the shard shape [1,512,2048] and at [1,2048,2048], with their bounds.
+10. tiles  — the 2-D tile layout on the same frame: ``rank_check`` on a
+   (sy, sx) = (2, 2) grid of four ranks on the one card over gloo, with
+   phase 9's requirements (kernels 11, 12 and C's LUT stage launched on
+   every rank, rank 0's calls replayed, the whole 2-D TV solve kernels vs
+   plain with equal counts, within ``parity.breaches`` of the dense
+   ``qa_plan``), and against phase 9's k = 4 row blocks (flags equal);
+   ms per call, host round trips, launch wall; kernels 11 and 12 (its
+   column-halo form) and the LUT stage at the tile [1,1024,1024].
+11. probe  — kernel 13, the capability probe (``mdx_torch.tools.probe_nvcc``,
+   the counterpart of ``tools/probe_mosaic.py``): 18 probes, one nvcc each,
+   all started together, every one ``ok`` and equal to its plain version
+   (exactly where the TPU tool checks ``array_equal``, to ``allclose``
+   where it does); time per launch (CUDA events, and the device time from
+   a profiler trace) against its bound, the plain version and one PyTorch
+   call.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
-the shard shape [1,512,2048], with [1,2048,2048] under ``by_size``, and
-the LUT stage's times at both under the CLAHE row's ``by_size``;
+the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
+``by_size``, and the LUT stage's times under the CLAHE row's ``by_size``;
+the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-9, summed over the ranks in phase 9); the
-last line is
+launches per path of phases 5-11, summed over the ranks in phases 9-10);
+the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -103,7 +119,8 @@ SOURCE = {"box_stats": "mdx_torch/csrc/box_stats.cu",
           "bilateral": "mdx_torch/csrc/bilateral.cu",
           "wavelet_denoise": "mdx_torch/csrc/wavelet.cu",
           "clahe_remap_ext": "mdx_torch/csrc/clahe.cu",
-          "tv_shard_step": "mdx_torch/csrc/tv.cu"}
+          "tv_shard_step": "mdx_torch/csrc/tv.cu",
+          "capability_probe": "mdx_torch/csrc/probes/"}
 _PK = "mdx/ops/pallas_kernels.py"
 REPLACES = {"box_stats": [f"{_PK}:792"],
             "unsharp": [f"{_PK}:1126", f"{_PK}:1388"],
@@ -112,10 +129,13 @@ REPLACES = {"box_stats": [f"{_PK}:792"],
             "bilateral": [f"{_PK}:1229", f"{_PK}:1301"],
             "wavelet_denoise": [f"{_PK}:1549"],
             "clahe_remap_ext": ["mdx/parallel/clahe_sp.py:112"],
-            "tv_shard_step": ["mdx/parallel/tv_sp.py:92", f"{_PK}:906"]}
-# the sharded path's kernels (phase 9); the others serve phases 3-8
+            "tv_shard_step": ["mdx/parallel/tv_sp.py:92", f"{_PK}:906"],
+            "capability_probe": ["tools/probe_mosaic.py:60"]}
+# the sharded path's kernels (phases 9-10); the probe is phase 11's; the
+# others serve phases 3-8
 SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
-DENSE_KERNELS = tuple(k for k in SOURCE if k not in SPATIAL_KERNELS)
+DENSE_KERNELS = tuple(k for k in SOURCE
+                      if k not in SPATIAL_KERNELS + ("capability_probe",))
 SIZE_N = 32
 BIG, CONFIG2_N, QA_BIG_N = 2048, 64, 16
 REPS = 7
@@ -151,7 +171,7 @@ OPS_PER_PIXEL = {"box_stats": 130, "unsharp": 103, "clahe": 47,
                  "tv_chambolle": 23, "wavelet_denoise": 22,
                  "clahe_remap_ext": 25, "tv_shard_step": 23,
                  "clahe_luts": 11}
-SPATIAL_SIZE, SPATIAL_K = 2048, 4
+SPATIAL_SIZE, SPATIAL_K, SPATIAL_2D = 2048, 4, (2, 2)
 
 
 class SmokeFailure(Exception):
@@ -609,11 +629,12 @@ def _phase_ingest(torch, kernels, parity, paths: dict, card: str,
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
 
-def _spatial_args(torch, name: str, x):
+def _spatial_args(torch, name: str, x, two_d: bool = False):
     """A recorded wrapper's arguments on a block ``x`` as the sharded path
     hands them over: the LUT stage at the check's clip limit and tile; the
     block's own LUTs with edge copies as the halo; one TV iteration of an
-    interior block with neighbour rows, every image active."""
+    interior block with neighbour rows (and, ``two_d``, an interior tile's
+    neighbour columns), every image active."""
     from mdx_torch.parallel import clahe_sp
 
     n, h, w = x.shape
@@ -627,18 +648,20 @@ def _spatial_args(torch, name: str, x):
         return (x, lut.contiguous(), 16)
     small = lambda *shape: 0.05 * torch.randn(  # noqa: E731
         *shape, device=x.device, generator=g)
+    cols = ((small(n, h + 1), x[:, :, -1].contiguous(), small(n, h + 1),
+             small(n, h), False) if two_d else (None, None, None, None, True))
     return (x, small(n, 2, h, w), torch.empty((n, 2, h, w), device=x.device),
             torch.empty_like(x),
             torch.ones(n, dtype=torch.int32, device=x.device),
             torch.full((n,), 0.05, device=x.device), small(n, w),
-            x[:, -1].contiguous(), small(n, w), small(n, w), False)
+            x[:, -1].contiguous(), small(n, w), small(n, w), False, *cols)
 
 
 def _spatial_bound(name: str, args) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of one recorded wrapper's call:
     the LUT stage reads x and writes the LUT grid; kernel 11 reads x and the
-    LUT grid and writes out; kernel 12 reads x, p and the four halo rows and
-    writes p, out and the [N,2] sums."""
+    LUT grid and writes out; kernel 12 reads x, p, the four halo rows and
+    any halo columns and writes p, out and the [N,2] sums."""
     n, h, w = args[0].shape
     px = n * h * w
     if name == "clahe_luts":
@@ -647,7 +670,8 @@ def _spatial_bound(name: str, args) -> tuple[float, str]:
     elif name == "clahe_remap_ext":
         moved = 8 * px + args[1].numel() * 4
     else:
-        moved = 24 * px + 4 * 4 * n * w + 16 * n
+        moved = 24 * px + 4 * 4 * n * w + 16 * n + sum(
+            4 * a.numel() for a in args[11:15] if a is not None)
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = px * OPS_PER_PIXEL[name] / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -683,17 +707,19 @@ def _device_ms(torch, fn, reps: int, names) -> float | None:
     return us / reps / 1e3 if us else None
 
 
-def _time_spatial_kernels(torch, kernels, check, x, card: str) -> dict:
+def _time_spatial_kernels(torch, kernels, check, x, card: str,
+                          two_d: bool = False) -> dict:
     """Kernels 11 and 12 and CLAHE's LUT stage against their plain versions
     on the block ``x`` (plain, kernel, kernel, plain; CUDA events), outputs
     compared (the LUT stage's error goes to the CLAHE row); and the
-    kernels' device time from a profiler trace."""
+    kernels' device time from a profiler trace.  ``two_d``: kernel 12 with
+    halo columns, as an interior tile of a 2-D grid runs it."""
     from mdx_torch.tools import spatial_check as SC
 
-    label = "x".join(map(str, x.shape))
+    label = "x".join(map(str, x.shape)) + (" tile" if two_d else "")
     out = {}
     for k in SC.RECORDED:
-        args = _spatial_args(torch, k, x)
+        args = _spatial_args(torch, k, x, two_d)
         err, ok = SC.compare_call(k, args)
         row = SC.ROW_OF.get(k, k)
         check.errs[row] = max(check.errs[row], err)
@@ -726,106 +752,130 @@ def parity_tol(name: str) -> str:
     return f"{atol} + {rtol}*|plain|"
 
 
-def _gathered(results, key: str):
-    """One frame's ``key`` from the ranks' results: row blocks joined in
-    rank order (n_data = 1)."""
+def _gathered(results, key: str, n_space):
+    """One frame's ``key`` from the ranks' results: row blocks or tiles put
+    back in place (n_data = 1)."""
+    from mdx_torch.parallel import launch
+
+    return launch.assemble([{key: r[key]} for r in results], 1, n_space,
+                           block_keys=(key,))[key]
+
+
+def _spatial_run(torch, kernels, parity, check, paths: dict, card: str, x,
+                 n_space, want) -> tuple:
+    """One launch of ``spatial_check.rank_check`` on ``n_space`` (row blocks
+    or a (sy, sx) grid) with its checks: kernels 11 and 12 launched on every
+    rank, finite outputs, rank 0's recorded calls replayed, the whole TV
+    solve kernels vs plain on every rank, the frame against the dense
+    ``qa_plan`` (``want``); prints the ms per call → (flattened plan
+    result, qa_spatial's frame, rank 0's result)."""
     import numpy as np
 
-    return np.concatenate([r[key] for r in results], axis=1)
+    from mdx_torch.parallel import launch
+    from mdx_torch.tools import spatial_check as SC
+
+    static_cpu, dyn_cpu = _bench_plan("cpu")
+    t0 = time.perf_counter()
+    res = launch.run(SC.rank_check, x, static_cpu, dyn_cpu, n_space=n_space,
+                     device="cuda", timeout_s=900)
+    rs = res.results
+    two_d = isinstance(res.n_space, tuple)
+    tag = "x".join(map(str, res.n_space)) if two_d else f"k{res.n_space}"
+    label = (f"{'layout ' + tag if two_d else 'k=' + str(res.n_space)} "
+             f"{res.backend} on {sorted(set(res.devices))}")
+    print(f"spatial {label}: launch {time.perf_counter() - t0:.1f} s")
+    for path in ("plan", "qa"):
+        per_rank = [r[f"launches_{path}"] for r in rs]
+        print(f"launches in qa_{path}_spatial {label}, per rank: "
+              f"{per_rank}")
+        for kname in SPATIAL_KERNELS + ("clahe",):
+            _require(all(int(lr[kname]) > 0 for lr in per_rank),
+                     f"{kname} not launched on every rank of "
+                     f"qa_{path}_spatial {label}")
+        paths[f"spatial_{path}_{tag}"] = {
+            kname: sum(int(lr[kname]) for lr in per_rank)
+            for kname in kernels.LAUNCHES}
+    r0 = rs[0]
+    print(f"rank 0 stages {label} (s): "
+          f"{ {k: round(float(v), 2) for k, v in r0['stage_s'].items()} }")
+    got = {"enhanced": _gathered(rs, "enhanced", res.n_space),
+           "flags": r0["flags"], "validation": r0["validation"],
+           "score": r0["score"]}
+    flat = parity.flatten(got)
+    _require_finite(f"qa_plan_spatial {label}", flat, 1, SPATIAL_SIZE)
+    qa_enh = _gathered(rs, "qa_enhanced", res.n_space)
+    _require(bool(np.isfinite(qa_enh).all()),
+             f"qa_spatial {label}: non-finite output")
+    for name, (n_calls, err, ok) in r0["replay"].items():
+        row = SC.ROW_OF.get(name, name)
+        print(f"replayed rank 0 {label} {name}: {int(n_calls)} calls, "
+              f"max|d| {float(err)!r} (tol {parity_tol(row)})")
+        check.errs[row] = max(check.errs[row], float(err))
+        _require(bool(ok) and int(n_calls) > 0,
+                 f"{name} replay {label}: max|d| {float(err)!r}")
+    for rank, r in enumerate(rs):
+        tv = r["tv_solve"]
+        it_k, it_p = tv["iters_kernel"].tolist(), tv["iters_plain"].tolist()
+        print(f"tv solve rank {rank} {label}: "
+              f"kernel vs plain max|d| {tv['max_abs_err']!r}, iterations "
+              f"kernel {it_k} plain {it_p}")
+        _require(it_k == it_p, f"tv solve {label}: iteration counts")
+        _require(tv["max_abs_err"] <= parity.KERNEL_TOL[
+            "tv_shard_step"][1], f"tv solve {label}: kernel vs plain")
+    bad = parity.breaches(flat, want, tv_ran=True)
+    print(f"qa_plan_spatial {label} vs dense qa_plan on the card: "
+          f"enhanced max|d| {parity.max_abs(flat, want, 'enhanced')!r}, "
+          f"score {flat['score'].tolist()} vs {want['score'].tolist()}, "
+          f"breaches {len(bad)}")
+    for line in bad:
+        print("  " + line)
+    _require(not bad, f"qa_plan_spatial {label} and dense qa_plan differ")
+    med = statistics.median(r0["plan_ms"])
+    print(f"qa_plan_spatial [1,{SPATIAL_SIZE},{SPATIAL_SIZE}] {label} on "
+          f"{card}: median {med!r} ms of {len(r0['plan_ms'])} reps "
+          f"({[float(v) for v in r0['plan_ms']]}), "
+          f"{int(r0['plan_round_trips'])} host round trips per call"
+          + (" (several ranks on one card over gloo: host staging, not "
+             "scaling)" if len(rs) > 1 else ""))
+    return flat, qa_enh, r0
+
+
+def _against(label: str, parity, a: tuple, b: tuple) -> None:
+    """Two sharded runs of the same frame (``_spatial_run``'s results):
+    the plan and qa frames within ``parity.breaches``, flags equal."""
+    import numpy as np
+
+    (fa, qa_a, ra), (fb, qa_b, rb) = a, b
+    bad = parity.breaches(fa, fb, tv_ran=True)
+    bad += [f"qa_spatial enhanced: {line}" for line in parity.breaches(
+        {"enhanced": qa_a}, {"enhanced": qa_b}, tv_ran=True)]
+    for key in ("qa_passes", "qa_noise_amp"):
+        if not np.array_equal(ra[key], rb[key]):
+            bad.append(f"{key}: {ra[key].tolist()} vs {rb[key].tolist()}")
+    print(f"{label}: plan enhanced max|d| "
+          f"{parity.max_abs(fa, fb, 'enhanced')!r}, qa enhanced max|d| "
+          f"{float(np.abs(qa_a - qa_b).max())!r}, breaches {len(bad)}")
+    for line in bad:
+        print("  " + line)
+    _require(not bad, f"{label} differ")
 
 
 def _phase_spatial(torch, kernels, parity, check, paths: dict, card: str,
-                   dev) -> dict:
-    """Phase 9: the row-sharded path on one 2048^2 frame (module doc)."""
-    import numpy as np
-
+                   dev) -> tuple[dict, dict]:
+    """Phase 9: the row-sharded path on one 2048^2 frame (module doc) →
+    (kernel times by shape, the runs by k)."""
     from mdx_torch.core import qa
-    from mdx_torch.parallel import launch
     from mdx_torch.tools import make_batch
-    from mdx_torch.tools import spatial_check as SC
 
     t9 = time.perf_counter()
     torch.cuda.empty_cache()
     x = make_batch(1, SPATIAL_SIZE, seed=4)
-    static_cpu, dyn_cpu = _bench_plan("cpu")
     want = parity.flatten_result(
         qa.qa_plan(torch.from_numpy(x).to(dev), *_bench_plan(dev)),
         parity.QA_PLAN_FIELDS)
-    runs = {}
-    for k in (1, SPATIAL_K):
-        t0 = time.perf_counter()
-        res = launch.run(SC.rank_check, x, static_cpu, dyn_cpu, n_space=k,
-                         device="cuda", timeout_s=900)
-        rs = res.results
-        label = f"k={k} {res.backend} on {sorted(set(res.devices))}"
-        print(f"spatial {label}: launch {time.perf_counter() - t0:.1f} s")
-        for path in ("plan", "qa"):
-            per_rank = [r[f"launches_{path}"] for r in rs]
-            print(f"launches in qa_{path}_spatial {label}, per rank: "
-                  f"{per_rank}")
-            for kname in SPATIAL_KERNELS:
-                _require(all(int(lr[kname]) > 0 for lr in per_rank),
-                         f"{kname} not launched on every rank of "
-                         f"qa_{path}_spatial {label}")
-            paths[f"spatial_{path}_k{k}"] = {
-                kname: sum(int(lr[kname]) for lr in per_rank)
-                for kname in kernels.LAUNCHES}
-        r0 = rs[0]
-        print(f"rank 0 stages {label} (s): "
-              f"{ {k: round(float(v), 2) for k, v in r0['stage_s'].items()} }")
-        got = {"enhanced": _gathered(rs, "enhanced"),
-               "flags": r0["flags"], "validation": r0["validation"],
-               "score": r0["score"]}
-        flat = parity.flatten(got)
-        _require_finite(f"qa_plan_spatial {label}", flat, 1, SPATIAL_SIZE)
-        qa_enh = _gathered(rs, "qa_enhanced")
-        _require(bool(np.isfinite(qa_enh).all()),
-                 f"qa_spatial {label}: non-finite output")
-        for name, (n_calls, err, ok) in r0["replay"].items():
-            row = SC.ROW_OF.get(name, name)
-            print(f"replayed rank 0 {label} {name}: {int(n_calls)} calls, "
-                  f"max|d| {float(err)!r} (tol {parity_tol(row)})")
-            check.errs[row] = max(check.errs[row], float(err))
-            _require(bool(ok) and int(n_calls) > 0,
-                     f"{name} replay {label}: max|d| {float(err)!r}")
-        for rank, r in enumerate(rs):
-            tv = r["tv_solve"]
-            it_k, it_p = tv["iters_kernel"].tolist(), tv["iters_plain"].tolist()
-            print(f"tv solve rank {rank} {label}: "
-                  f"kernel vs plain max|d| {tv['max_abs_err']!r}, iterations "
-                  f"kernel {it_k} plain {it_p}")
-            _require(it_k == it_p, f"tv solve {label}: iteration counts")
-            _require(tv["max_abs_err"] <= parity.KERNEL_TOL[
-                "tv_shard_step"][1], f"tv solve {label}: kernel vs plain")
-        bad = parity.breaches(flat, want, tv_ran=True)
-        print(f"qa_plan_spatial {label} vs dense qa_plan on the card: "
-              f"enhanced max|d| {parity.max_abs(flat, want, 'enhanced')!r}, "
-              f"score {flat['score'].tolist()} vs {want['score'].tolist()}, "
-              f"breaches {len(bad)}")
-        for line in bad:
-            print("  " + line)
-        _require(not bad, f"qa_plan_spatial {label} and dense qa_plan differ")
-        med = statistics.median(r0["plan_ms"])
-        print(f"qa_plan_spatial [1,{SPATIAL_SIZE},{SPATIAL_SIZE}] {label} on "
-              f"{card}: median {med!r} ms of {len(r0['plan_ms'])} reps "
-              f"({[float(v) for v in r0['plan_ms']]}), "
-              f"{int(r0['plan_round_trips'])} host round trips per call"
-              + (" (k>1 on one card over gloo: host staging, not scaling)"
-                 if k > 1 else ""))
-        runs[k] = (flat, qa_enh, r0)
-    (f1, q1, r1), (f4, q4, r4) = runs[1], runs[SPATIAL_K]
-    bad = parity.breaches(f4, f1, tv_ran=True)
-    bad += [f"qa_spatial enhanced: {line}" for line in parity.breaches(
-        {"enhanced": q4}, {"enhanced": q1}, tv_ran=True)]
-    for key in ("qa_passes", "qa_noise_amp"):
-        if not np.array_equal(r4[key], r1[key]):
-            bad.append(f"{key}: {r4[key].tolist()} vs {r1[key].tolist()}")
-    print(f"k={SPATIAL_K} vs k=1: plan enhanced max|d| "
-          f"{parity.max_abs(f4, f1, 'enhanced')!r}, qa enhanced max|d| "
-          f"{float(np.abs(q4 - q1).max())!r}, breaches {len(bad)}")
-    for line in bad:
-        print("  " + line)
-    _require(not bad, f"k={SPATIAL_K} and k=1 differ")
+    runs = {k: _spatial_run(torch, kernels, parity, check, paths, card, x, k,
+                            want) for k in (1, SPATIAL_K)}
+    _against(f"k={SPATIAL_K} vs k=1", parity, runs[SPATIAL_K], runs[1])
 
     xd = torch.from_numpy(x).to(dev)
     hs = SPATIAL_SIZE // SPATIAL_K
@@ -834,7 +884,96 @@ def _phase_spatial(torch, kernels, parity, check, paths: dict, card: str,
              f"1x{SPATIAL_SIZE}x{SPATIAL_SIZE}": _time_spatial_kernels(
                  torch, kernels, check, xd, card)}
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return times, runs
+
+
+def _phase_tiles(torch, kernels, parity, check, paths: dict, card: str,
+                 dev, runs: dict) -> dict:
+    """Phase 10: the 2-D tile layout on the same frame (module doc) → the
+    kernel times at the tile."""
+    from mdx_torch.core import qa
+    from mdx_torch.tools import make_batch
+
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    x = make_batch(1, SPATIAL_SIZE, seed=4)
+    want = parity.flatten_result(
+        qa.qa_plan(torch.from_numpy(x).to(dev), *_bench_plan(dev)),
+        parity.QA_PLAN_FIELDS)
+    tiles = _spatial_run(torch, kernels, parity, check, paths, card, x,
+                         SPATIAL_2D, want)
+    sy, sx = SPATIAL_2D
+    _against(f"layout {sy}x{sx} vs k={SPATIAL_K} row blocks", parity, tiles,
+             runs[SPATIAL_K])
+    hs, ws = SPATIAL_SIZE // sy, SPATIAL_SIZE // sx
+    xt = torch.from_numpy(x[:, :hs, :ws].copy()).to(dev)
+    times = {f"1x{hs}x{ws} tile": _time_spatial_kernels(
+        torch, kernels, check, xt, card, two_d=True)}
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     return times
+
+
+def _phase_probe(torch, card: str) -> dict:
+    """Phase 11: kernel 13, the capability probe (module doc) → its row of
+    the kernels line."""
+    from mdx_torch.tools import probe_nvcc as PN
+
+    t11 = time.perf_counter()
+    t0 = time.perf_counter()
+    built = PN.build()
+    print(f"probe build: {len(built)} probes, one nvcc each, all started "
+          f"together: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    for k in PN.LAUNCHES:
+        PN.LAUNCHES[k] = 0
+    res = PN.run_suite()
+    torch.cuda.synchronize()
+    launches = dict(PN.LAUNCHES)
+    print(f"launches in the probe suite: {launches}")
+    by_probe = {}
+    for name, r in res.items():
+        print(f"probe {name:38s} {r['result']}  (registers "
+              f"{r['registers']}, spill {r['spill_stores']}/"
+              f"{r['spill_loads']} B; max|d| vs plain "
+              f"{r.get('max_abs_err')!r}, one PyTorch call equal "
+              f"{r.get('library_equal')})")
+    bad = [n for n, r in res.items() if r["result"] != "ok"
+           or not r["library_equal"] or launches[n] < 1]
+    _require(not bad, f"probes not ok: {bad}")
+    dev = torch.device("cuda", 0)
+    for name in res:
+        x = PN.probe_input(name, dev)
+        t = PN.time_probe(name, built[name], x)
+        # every probe's kernel is `k`; the CUDA-event time of a launch also
+        # holds the ctypes wrapper's host work
+        t["device_ms"] = _device_ms(
+            torch, lambda name=name, x=x: PN.launch(name, built[name], x), 20,
+            ("k(float const*, float*)",))
+        print(f"time probe {name} on {card}: kernel {t['ms']!r} ms a launch "
+              f"(device {t['device_ms']!r}), plain {t['plain_ms']!r}, one "
+              f"PyTorch call {t['library_ms']!r}, bound {t['bound_ms']!r} ms "
+              f"({t['bound_by']})")
+        by_probe[name] = dict(t, launches=launches[name],
+                              registers=res[name]["registers"],
+                              max_abs_err=res[name]["max_abs_err"])
+    total = lambda key: sum(t[key] for t in by_probe.values())  # noqa: E731
+    by_ops = sum(t["bound_ms"] for t in by_probe.values()
+                 if t["bound_by"] == "operations")
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return {
+        "name": "capability_probe", "route": "cuda",
+        "source": SOURCE["capability_probe"],
+        "replaces": REPLACES["capability_probe"],
+        "launches": sum(launches.values()),
+        "launches_by_path": {"probe_suite": sum(launches.values())},
+        "max_abs_err": max(t["max_abs_err"] for t in by_probe.values()),
+        "shape": "18 probes on [8,128], [16,256] and [256,512] aranges",
+        "ms": total("ms"), "device_ms": sum(
+            t["device_ms"] or 0.0 for t in by_probe.values()),
+        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if by_ops * 2 > total("bound_ms")
+        else "bytes",
+        "library_ms": total("library_ms"), "by_probe": by_probe}
 
 
 def main() -> int:
@@ -1039,9 +1178,12 @@ def main() -> int:
     # ---- 7. the tuning sweep; 8. raw ingest -------------------------------
     _phase_tuning(torch, kernels, parity, check, paths, card, dev)
     _phase_ingest(torch, kernels, parity, paths, card, dev)
-    # ---- 9. the row-sharded path -----------------------------------------
-    times_spatial = _phase_spatial(torch, kernels, parity, check, paths,
-                                   card, dev)
+    # ---- 9. the row-sharded path; 10. the 2-D tiles; 11. the probe -------
+    times_spatial, runs = _phase_spatial(torch, kernels, parity, check,
+                                         paths, card, dev)
+    times_spatial.update(_phase_tiles(torch, kernels, parity, check, paths,
+                                      card, dev, runs))
+    probe_row = _phase_probe(torch, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -1077,6 +1219,7 @@ def main() -> int:
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": None,
             "by_size": by_size})
+    rows.append(probe_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

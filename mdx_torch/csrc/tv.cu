@@ -40,6 +40,21 @@
 // (its bands ran in order and wrote in place) is not needed: the step reads
 // p_in and writes p_out.  Bound: memory, 24 bytes a pixel an iteration plus
 // four rows.
+//
+// On a 2-D grid of tiles (mdx/parallel/tv_sp.py with col_axis, an XLA body
+// on the TPU: its banded kernel is 1-D only) the same step takes column
+// halos too: the left tile's last p1 column (the divergence at column 0)
+// and the right tile's first x, p0 and p1 columns, from which the last
+// column's forward difference gets the next column of out; grlast (the
+// tile holds the global right column) zeroes that difference.  Two corners
+// enter: the right tile's row 0 of out needs p0 from the tile above it
+// (up-right), and the next row's out at column 0 needs p1 from the tile
+// below the left one (down-left).  The caller exchanges rows first and then
+// the columns of the row-extended state, so lf_p1 holds h + 1 values (row h
+// from the tile below the left one) and rt_p0 holds h + 1 (index 0 from the
+// tile above the right one): the corners come with the columns, no diagonal
+// message and no second launch.  Dense and row-block calls pass null column
+// halos and grlast = 1, which is the code they ran before.
 #include "common.cuh"
 
 namespace {
@@ -50,13 +65,21 @@ constexpr int NT = TT * TROWS;
 constexpr int FIN_T = 256;
 
 // The rows next to the array that the stencil reads: [n, w] each, null for
-// zeros.  glast: the array's last row is the image's bottom row.
+// zeros.  glast: the array's last row is the image's bottom row.  The
+// columns next to it (2-D tiles), null for zeros: lf_p1 [n, h + 1] (rows
+// 0 .. h), rt_x and rt_p1 [n, h], rt_p0 [n, h + 1] (rows -1 .. h - 1).
+// grlast: the array's last column is the image's right column.
 struct TvHalo {
     const float* up_p0;
     const float* dn_x;
     const float* dn_p0;
     const float* dn_p1;
     int glast;
+    const float* lf_p1;
+    const float* rt_x;
+    const float* rt_p0;
+    const float* rt_p1;
+    int grlast;
 };
 
 // d = -(p0 + p1) + (p0 above) + (p1 left), in the plain version's order
@@ -68,18 +91,19 @@ __device__ __forceinline__ float tv_dval(float p0c, float p1c, float above,
     return d;
 }
 
+__device__ __forceinline__ float row_at(const float* __restrict__ r, int j) {
+    return r ? r[j] : 0.0f;
+}
+
 __device__ __forceinline__ float tv_d(const float* __restrict__ p0,
                                       const float* __restrict__ p1, int i,
                                       int j, int w,
-                                      const float* __restrict__ up) {
+                                      const float* __restrict__ up,
+                                      const float* __restrict__ lf) {
     const size_t k = (size_t)i * w + j;
     return tv_dval(p0[k], p1[k],
-                   i > 0 ? p0[k - w] : (up ? up[j] : 0.0f),
-                   j > 0 ? p1[k - 1] : 0.0f);
-}
-
-__device__ __forceinline__ float row_at(const float* __restrict__ r, int j) {
-    return r ? r[j] : 0.0f;
+                   i > 0 ? p0[k - w] : row_at(up, j),
+                   j > 0 ? p1[k - 1] : row_at(lf, i));
 }
 
 __global__ void __launch_bounds__(NT)
@@ -103,6 +127,11 @@ tv_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
     const float* dnx = halo.dn_x ? halo.dn_x + ro : nullptr;
     const float* dn0 = halo.dn_p0 ? halo.dn_p0 + ro : nullptr;
     const float* dn1 = halo.dn_p1 ? halo.dn_p1 + ro : nullptr;
+    const size_t co = (size_t)img * h;
+    const float* lf = halo.lf_p1 ? halo.lf_p1 + co + img : nullptr;
+    const float* rtx = halo.rt_x ? halo.rt_x + co : nullptr;
+    const float* rt0 = halo.rt_p0 ? halo.rt_p0 + co + img : nullptr;
+    const float* rt1 = halo.rt_p1 ? halo.rt_p1 + co : nullptr;
     const float wgt = weight[img];
     const float tau = 0.25f;
 
@@ -112,20 +141,29 @@ tv_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
         const int i = blockIdx.y * TT + threadIdx.y + r * TROWS;
         if (i >= h || j >= w) continue;
         const size_t k = (size_t)i * w + j;
-        const float d = tv_d(p0, p1, i, j, w, up);
+        const float d = tv_d(p0, p1, i, j, w, up, lf);
         const float o = xi[k] + d;
         float gy;
         if (i < h - 1) {
-            gy = (xi[k + w] + tv_d(p0, p1, i + 1, j, w, up)) - o;
+            gy = (xi[k + w] + tv_d(p0, p1, i + 1, j, w, up, lf)) - o;
         } else if (halo.glast) {
             gy = 0.0f;
         } else {  // the next block's first row of out
             const float ddn = tv_dval(row_at(dn0, j), row_at(dn1, j), p0[k],
-                                      j > 0 ? row_at(dn1, j - 1) : 0.0f);
+                                      j > 0 ? row_at(dn1, j - 1)
+                                            : row_at(lf, h));
             gy = (row_at(dnx, j) + ddn) - o;
         }
-        const float gx = j < w - 1 ? (xi[k + 1] + tv_d(p0, p1, i, j + 1, w, up)) - o
-                                   : 0.0f;
+        float gx;
+        if (j < w - 1) {
+            gx = (xi[k + 1] + tv_d(p0, p1, i, j + 1, w, up, lf)) - o;
+        } else if (halo.grlast) {
+            gx = 0.0f;
+        } else {  // the right tile's first column of out (rt_p0 from row -1)
+            const float drt = tv_dval(row_at(rt0, i + 1), row_at(rt1, i),
+                                      row_at(rt0, i), p1[k]);
+            gx = (row_at(rtx, i) + drt) - o;
+        }
         const float norm = sqrtf(gy * gy + gx * gx);
         sd += (double)(d * d);
         sn += (double)norm;
@@ -238,7 +276,8 @@ extern "C" int mdx_tv_iteration(const float* x, const float* p_in,
                                 int first, float eps, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((w + TT - 1) / TT, (h + TT - 1) / TT, n);
-    const TvHalo dense{nullptr, nullptr, nullptr, nullptr, 1};
+    const TvHalo dense{nullptr, nullptr, nullptr, nullptr, 1,
+                       nullptr, nullptr, nullptr, nullptr, 1};
     tv_step_kernel<<<grid, dim3(TT, TROWS), 0, st>>>(x, p_in, p_out, out,
                                                       partials, active,
                                                       weight, h, w, dense);
@@ -248,20 +287,25 @@ extern "C" int mdx_tv_iteration(const float* x, const float* p_in,
     return (int)cudaGetLastError();
 }
 
-// One Chambolle iteration on a row block (kernel 12): the step with the
-// block's halo rows (each [n, w] or null for zeros), then the block's sums
-// of each active image into sums [n, 2] float64 (inactive images' rows are
-// left as they are).  partials: [n, nblk, 2] float64 scratch.
+// One Chambolle iteration on a row block or tile (kernel 12): the step
+// with the block's halo rows (each [n, w] or null for zeros) and halo
+// columns (lf_p1, rt_p0 [n, h + 1], rt_x, rt_p1 [n, h], or null), then the
+// block's sums of each active image into sums [n, 2] float64 (inactive
+// images' rows are left as they are).  partials: [n, nblk, 2] float64
+// scratch.
 extern "C" int mdx_tv_shard_step(const float* x, const float* p_in,
                                  float* p_out, float* out, double* partials,
                                  double* sums, const int* active,
                                  const float* weight, const float* up_p0,
                                  const float* dn_x, const float* dn_p0,
-                                 const float* dn_p1, int n, int h, int w,
-                                 int glast, void* stream) {
+                                 const float* dn_p1, const float* lf_p1,
+                                 const float* rt_x, const float* rt_p0,
+                                 const float* rt_p1, int n, int h, int w,
+                                 int glast, int grlast, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((w + TT - 1) / TT, (h + TT - 1) / TT, n);
-    const TvHalo halo{up_p0, dn_x, dn_p0, dn_p1, glast};
+    const TvHalo halo{up_p0, dn_x, dn_p0, dn_p1, glast,
+                      lf_p1, rt_x, rt_p0, rt_p1, grlast};
     tv_step_kernel<<<grid, dim3(TT, TROWS), 0, st>>>(x, p_in, p_out, out,
                                                       partials, active,
                                                       weight, h, w, halo);

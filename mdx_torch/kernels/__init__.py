@@ -238,10 +238,11 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
     return out, iters
 
 
-def _row_ptr(r: torch.Tensor | None, name: str, n: int, w: int, device):
+def _halo_ptr(r: torch.Tensor | None, name: str, n: int, length: int,
+              device):
     if r is None:
         return None
-    _check(r, name, (n, w), device=device)
+    _check(r, name, (n, length), device=device)
     return r.data_ptr()
 
 
@@ -249,15 +250,24 @@ def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor, p_out: torch.Tensor,
                   out: torch.Tensor, active: torch.Tensor,
                   weight: torch.Tensor, up_p0: torch.Tensor | None,
                   dn_x: torch.Tensor | None, dn_p0: torch.Tensor | None,
-                  dn_p1: torch.Tensor | None, glast: bool) -> torch.Tensor:
-    """One Chambolle iteration on a row block x [N,H,W] (TPU kernel 12):
-    reads ``p_in`` [N,2,H,W], writes the active images' new dual into
+                  dn_p1: torch.Tensor | None, glast: bool,
+                  lf_p1: torch.Tensor | None = None,
+                  rt_x: torch.Tensor | None = None,
+                  rt_p0: torch.Tensor | None = None,
+                  rt_p1: torch.Tensor | None = None,
+                  grlast: bool = True) -> torch.Tensor:
+    """One Chambolle iteration on a row block or tile x [N,H,W] (TPU kernel
+    12): reads ``p_in`` [N,2,H,W], writes the active images' new dual into
     ``p_out`` and their image into ``out``; ``active`` [N] int32,
     ``weight`` [N]; the halo rows ``up_p0`` (previous block's last p0 row)
     and ``dn_x``/``dn_p0``/``dn_p1`` (next block's first rows) are [N,W] or
-    None for zeros; ``glast``: the block holds the image's bottom row.
-    Returns the block's (Σd², Σ|∇out|) [N,2] float64, zeros for stopped
-    images — see ``csrc/tv.cu``; plain version
+    None for zeros; ``glast``: the block holds the image's bottom row.  The
+    halo columns of a 2-D tile: ``lf_p1`` [N,H+1] (the left tile's last p1
+    column, rows 0 … H), ``rt_x``/``rt_p1`` [N,H] and ``rt_p0`` [N,H+1] (the
+    right tile's first columns, ``rt_p0`` from row −1), or None for zeros;
+    ``grlast``: the tile holds the image's right column.  Returns the
+    block's (Σd², Σ|∇out|) [N,2] float64, zeros for stopped images — see
+    ``csrc/tv.cu``; plain version
     ``mdx_torch.parallel.tv_sp.tv_shard_step_plain``."""
     n, h, w = _image(x)
     dev = x.device
@@ -266,8 +276,10 @@ def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor, p_out: torch.Tensor,
     _check(out, "out", (n, h, w), device=dev)
     _check(active, "active", (n,), dtype=torch.int32, device=dev)
     _check(weight, "weight", (n,), device=dev)
-    rows = [_row_ptr(r, name, n, w, dev) for r, name in (
-        (up_p0, "up_p0"), (dn_x, "dn_x"), (dn_p0, "dn_p0"), (dn_p1, "dn_p1"))]
+    rows = [_halo_ptr(r, name, n, length, dev) for r, name, length in (
+        (up_p0, "up_p0", w), (dn_x, "dn_x", w), (dn_p0, "dn_p0", w),
+        (dn_p1, "dn_p1", w), (lf_p1, "lf_p1", h + 1), (rt_x, "rt_x", h),
+        (rt_p0, "rt_p0", h + 1), (rt_p1, "rt_p1", h))]
     lib = library()
     with torch.cuda.device(dev):
         nblk = -(-w // 32) * -(-h // 32)
@@ -276,8 +288,8 @@ def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor, p_out: torch.Tensor,
         _ok(lib.mdx_tv_shard_step(
             x.data_ptr(), p_in.data_ptr(), p_out.data_ptr(), out.data_ptr(),
             partials.data_ptr(), sums.data_ptr(), active.data_ptr(),
-            weight.data_ptr(), *rows, n, h, w, int(bool(glast)), _stream()),
-            "tv_shard_step")
+            weight.data_ptr(), *rows, n, h, w, int(bool(glast)),
+            int(bool(grlast)), _stream()), "tv_shard_step")
     LAUNCHES["tv_shard_step"] += 1
     return sums
 

@@ -43,7 +43,7 @@ SIGNATURES = {
     "mdx_tv_iteration": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P),
     "mdx_tv_shard_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _P),
+                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mdx_tv_shard_finalize": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_wavelet_analysis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -56,18 +56,26 @@ def pad2(x: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
     return pad_axis(pad_axis(x, 1, lo, hi, mode), 2, lo, hi, mode)
 
 
-# The stencils below come in one form: a block whose rows are already
-# extended (a symmetric pad for the dense image, a shard's halo rows in
-# ``mdx_torch.parallel.spatial``), with each column stage padding its own
-# columns symmetrically, as the JAX package's per-axis filters do.
+# The stencils below are written on an extended block.  The ``*_rows_ext``
+# forms take a block whose rows are extended (a symmetric pad for the dense
+# image, a row block's halo rows in ``mdx_torch.parallel.spatial``), with
+# each column stage padding its own columns symmetrically, as the JAX
+# package's per-axis filters do; the ``*_ext`` forms take a block extended
+# on both axes (a tile's two-phase halo in ``mdx_torch.parallel.spatial2d``).
+# Both run the same stages: a pad is a copy, so padding before or after a
+# stage along the other axis gives the same bits.
+
+
+def laplace_ext(xp: torch.Tensor) -> torch.Tensor:
+    """5-point Laplacian of a [N, H+2, W+2] block → [N, H, W]."""
+    return (4.0 * xp[:, 1:-1, 1:-1] - xp[:, :-2, 1:-1] - xp[:, 2:, 1:-1]
+            - xp[:, 1:-1, :-2] - xp[:, 1:-1, 2:])
 
 
 def laplace_rows_ext(xr: torch.Tensor) -> torch.Tensor:
     """5-point Laplacian of a [N, H+2, W] block whose rows are extended by
     one → [N, H, W]."""
-    xp = pad_axis(xr, 2, 1, 1, "symmetric")
-    return (4.0 * xp[:, 1:-1, 1:-1] - xp[:, :-2, 1:-1] - xp[:, 2:, 1:-1]
-            - xp[:, 1:-1, :-2] - xp[:, 1:-1, 2:])
+    return laplace_ext(pad_axis(xr, 2, 1, 1, "symmetric"))
 
 
 def laplace(x: torch.Tensor) -> torch.Tensor:
@@ -93,9 +101,19 @@ def sobel_h_rows_ext(xr: torch.Tensor) -> torch.Tensor:
     return _smooth3_ext(pad_axis(_diff3_ext(xr, 1), 2, 1, 1, "symmetric"), 2)
 
 
+def sobel_h_ext(xp: torch.Tensor) -> torch.Tensor:
+    """Row diff, then column smooth, of a [N, H+2, W+2] block."""
+    return _smooth3_ext(_diff3_ext(xp, 1), 2)
+
+
+def sobel_v_ext(xp: torch.Tensor) -> torch.Tensor:
+    """Column diff, then row smooth, of a [N, H+2, W+2] block."""
+    return _smooth3_ext(_diff3_ext(xp, 2), 1)
+
+
 def sobel_v_rows_ext(xr: torch.Tensor) -> torch.Tensor:
     """Column diff, then row smooth, of a row-extended [N, H+2, W] block."""
-    return _smooth3_ext(_diff3_ext(pad_axis(xr, 2, 1, 1, "symmetric"), 2), 1)
+    return sobel_v_ext(pad_axis(xr, 2, 1, 1, "symmetric"))
 
 
 def sobel_h(x: torch.Tensor) -> torch.Tensor:
@@ -111,24 +129,39 @@ def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
     return torch.hypot(sobel_h(x), sobel_v(x))
 
 
+def _box_rows(xr: torch.Tensor, size: int) -> torch.Tensor:
+    """Sums of ``size`` rows, ×1/size, of a row-extended block."""
+    h = xr.shape[1] - (size - 1)
+    acc = xr[:, 0:h, :]
+    for i in range(1, size):
+        acc = acc + xr[:, i:i + h, :]
+    return acc * (1.0 / size)
+
+
+def _box_cols(xp: torch.Tensor, size: int) -> torch.Tensor:
+    """Sums of ``size`` columns, ×1/size, of a column-extended block."""
+    w = xp.shape[2] - (size - 1)
+    out = xp[:, :, 0:w]
+    for i in range(1, size):
+        out = out + xp[:, :, i:i + w]
+    return out * (1.0 / size)
+
+
 def box_rows_ext(xr: torch.Tensor, size: int) -> torch.Tensor:
     """size×size mean of a block whose rows are extended by ``size//2``
     above and the rest below → [N, H, W]: row sums, ×1/size, column sums
     on a symmetric column pad, ×1/size — the order of
     ``mdx.ops.filters.box_filter``."""
     lo = size // 2
-    hi = size - lo - 1
-    h = xr.shape[1] - (size - 1)
-    w = xr.shape[2]
-    acc = xr[:, 0:h, :]
-    for i in range(1, size):
-        acc = acc + xr[:, i:i + h, :]
-    acc = acc * (1.0 / size)
-    xp = pad_axis(acc, 2, lo, hi, "symmetric")
-    out = xp[:, :, 0:w]
-    for i in range(1, size):
-        out = out + xp[:, :, i:i + w]
-    return out * (1.0 / size)
+    return _box_cols(pad_axis(_box_rows(xr, size), 2, lo, size - lo - 1,
+                              "symmetric"), size)
+
+
+def box_ext(xp: torch.Tensor, size: int) -> torch.Tensor:
+    """size×size mean of a block extended on both axes by ``size//2``
+    before and the rest after → [N, H, W], in :func:`box_rows_ext`'s order
+    (``mdx.ops.filters.box_core``)."""
+    return _box_cols(_box_rows(xp, size), size)
 
 
 def box_filter(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Sharded CLAHE: the tile grid mapped onto the row blocks.
+"""Sharded CLAHE: the CLAHE tile grid mapped onto row blocks or tiles.
 
 Counterpart of ``mdx/parallel/clahe_sp.py`` (skimage
 ``equalize_adapthist`` semantics, ref pipeline/enhancement.py:277-280).
-When a block's rows and the width are multiples of the tile size, every
-tile's histogram and LUT are local to the rank that holds it; the bilinear
-remap needs only one halo row of LUTs from each neighbouring block.  At the
-global top and bottom (and at the left and right edge) the halo is a copy of
-the block's own edge LUTs, so one uniform formula — ``y0 = floor(f) + 1``,
+When a block's rows and columns are multiples of the CLAHE tile size, every
+CLAHE tile's histogram and LUT are local to the rank that holds it; the
+bilinear remap needs only one halo row of LUTs from the blocks above and
+below and, on a 2-D grid, one halo column of the row-extended LUT grid from
+the blocks to the left and right (its corners come with it).  At the global
+top, bottom, left and right the halo is a copy of the block's own edge
+LUTs, so one uniform formula — ``y0 = floor(f) + 1``,
 ``w = f − floor(f)`` over the halo-extended grid, no clamp — gives skimage's
 clamped remap: in the first and last half-tile both neighbours are the same
 LUT.
@@ -16,6 +18,9 @@ LUT.
   and scan as the dense op;
 * remap: TPU kernel 11's port, ``kernels.clahe_remap_ext``
   (``csrc/clahe.cu``), on the card; :func:`remap_ext_plain` on the CPU.
+  Both place a pixel by its block-local column; that is the global
+  alignment of the CLAHE tiles because every block's width is a multiple
+  of the tile size (checked in :func:`clahe_sharded`).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from mdx_torch import kernels
 from mdx_torch.ops.clahe import clahe_luts_plain
 from mdx_torch.ops.filters import as_n
-from mdx_torch.parallel import comm
+from mdx_torch.parallel.spatial import halo_axis
 
 
 def remap_ext_plain(xp: torch.Tensor, lut_ext: torch.Tensor, t: int,
@@ -82,17 +87,17 @@ def remap_ext(xp: torch.Tensor, lut_ext: torch.Tensor, t: int,
 
 def clahe_sharded(x: torch.Tensor, clip_limit, tile_size: int, mesh,
                   nbins: int = 256) -> torch.Tensor:
-    """CLAHE of the global images from this rank's [N, Hs, W] block; Hs and
-    W must be multiples of ``tile_size`` (the entry points check)."""
+    """CLAHE of the global images from this rank's [N, Hs, Ws] block; Hs and
+    Ws must be multiples of ``tile_size``."""
     t = int(tile_size)
+    if x.shape[1] % t or x.shape[2] % t:
+        raise ValueError(f"sharded CLAHE: block {x.shape[1]}x{x.shape[2]} "
+                         f"is not a whole number of {t}x{t} tiles")
     xp = torch.clamp(x, 0.0, 1.0)
     lut = clahe_luts(xp, clip_limit, t, nbins)          # [N, gy, gx, nbins]
     # the LUT rows next to the block: the neighbours' edge rows, or a copy
-    # of this block's own at the global top and bottom
-    from_prev, from_next = comm.exchange_rows(lut[:, -1:], lut[:, :1], mesh)
-    lut_ext = torch.cat([lut[:, :1] if from_prev is None else from_prev, lut,
-                         lut[:, -1:] if from_next is None else from_next],
-                        dim=1)
-    lut_ext = torch.cat([lut_ext[:, :, :1], lut_ext, lut_ext[:, :, -1:]],
-                        dim=2)
+    # of this block's own at the global top and bottom; then the columns of
+    # that row-extended grid, likewise (a copy on a 1-D layout)
+    lut_ext = halo_axis(lut, 1, 1, 1, mesh, "edge")
+    lut_ext = halo_axis(lut_ext, 1, 1, 2, mesh, "edge")
     return remap_ext(xp, lut_ext, t, nbins)

@@ -2,13 +2,15 @@
 ``torch.distributed``.
 
 Counterparts of the JAX layer's ``lax.ppermute`` halos
-(``mdx/parallel/spatial.py:61-97``, ``tv_sp.py:32-89``), ``psum``,
-``pmax``/``pmin`` and ``all_gather`` (``wavelet_sp.py:61-74``).  Rows are
-axis 1 of every exchanged tensor; the neighbours are the previous and next
-``space`` ranks of the same data row.  A rank at the global top (bottom)
-edge gets ``None`` from :func:`rows_from_prev` (:func:`rows_from_next`) and
-substitutes its own pad, as the JAX layer does with ``jnp.where(idx == 0,
-…)``.
+(``mdx/parallel/spatial.py:61-97``, ``spatial2d.py:98-129``,
+``tv_sp.py:32-89``), ``psum``, ``pmax``/``pmin`` and ``all_gather``
+(``wavelet_sp.py:61-74``).  Rows are axis 1 and columns axis 2 of every
+exchanged tensor; the row neighbours are the tiles above and below in the
+same data row (ranks ``r ∓ sx``), the column neighbours the tiles to the
+left and right (``r ∓ 1``).  A rank at the global top (bottom, left,
+right) edge gets ``None`` from that side and substitutes its own pad, as
+the JAX layer does with ``jnp.where(idx == 0, …)``.  Sums, maxima and
+gathers run over the tile group (``space``).
 
 With gloo and CUDA tensors (ranks sharing one card) each call copies what
 it sends or reduces to host memory and back; ``mesh.host_round_trips``
@@ -42,27 +44,26 @@ def _group(mesh: SpatialMesh, axis: str):
     raise ValueError(f"axis must be 'space', 'data' or 'all', got {axis!r}")
 
 
-def exchange_rows(to_next: torch.Tensor | None, to_prev: torch.Tensor | None,
-                  mesh: SpatialMesh):
-    """Send ``to_next`` to the next space rank and ``to_prev`` to the
-    previous one, in one batch of point-to-point ops.  Returns
-    ``(from_prev, from_next)``: what the previous rank sent down and what the
-    next rank sent up, each shaped like this rank's own send, or ``None`` at
-    the global edge (or where nothing was sent)."""
+def _exchange(to_next, to_prev, mesh: SpatialMesh, step: int, first: bool,
+              last: bool):
+    """Send ``to_next`` to rank ``rank + step`` and ``to_prev`` to rank
+    ``rank − step`` in one batch of point-to-point ops → ``(from_prev,
+    from_next)``; ``first``/``last``: this rank has no previous / next
+    neighbour on that axis."""
     ops, recv_prev, recv_next = [], None, None
-    prev, nxt = mesh.rank - 1, mesh.rank + 1
-    if to_next is not None:
+    prev, nxt = mesh.rank - step, mesh.rank + step
+    if to_next is not None and not (first and last):
         to_next = _host(mesh, to_next)
-        if not mesh.is_last:
+        if not last:
             ops.append(dist.P2POp(dist.isend, to_next, nxt))
-        if not mesh.is_first:
+        if not first:
             recv_prev = torch.empty_like(to_next)
             ops.append(dist.P2POp(dist.irecv, recv_prev, prev))
-    if to_prev is not None:
+    if to_prev is not None and not (first and last):
         to_prev = _host(mesh, to_prev)
-        if not mesh.is_first:
+        if not first:
             ops.append(dist.P2POp(dist.isend, to_prev, prev))
-        if not mesh.is_last:
+        if not last:
             recv_next = torch.empty_like(to_prev)
             ops.append(dist.P2POp(dist.irecv, recv_next, nxt))
     if not ops:
@@ -75,6 +76,26 @@ def exchange_rows(to_next: torch.Tensor | None, to_prev: torch.Tensor | None,
             None if recv_next is None else _back(mesh, recv_next))
 
 
+def exchange_rows(to_next: torch.Tensor | None, to_prev: torch.Tensor | None,
+                  mesh: SpatialMesh):
+    """Send ``to_next`` to the next row block (the tile below) and
+    ``to_prev`` to the previous one, in one batch of point-to-point ops.
+    Returns ``(from_prev, from_next)``: what the previous rank sent down and
+    what the next rank sent up, each shaped like this rank's own send, or
+    ``None`` at the global edge (or where nothing was sent)."""
+    return _exchange(to_next, to_prev, mesh, mesh.n_sx, mesh.is_first,
+                     mesh.is_last)
+
+
+def exchange_cols(to_next: torch.Tensor | None, to_prev: torch.Tensor | None,
+                  mesh: SpatialMesh):
+    """:func:`exchange_rows` over the column neighbours of a 2-D tile grid
+    (the tiles to the right and left); with one tile column both are the
+    global edge and nothing moves."""
+    return _exchange(to_next, to_prev, mesh, 1, mesh.is_first_col,
+                     mesh.is_last_col)
+
+
 def rows_from_prev(v: torch.Tensor, n: int, mesh: SpatialMesh):
     """The previous space rank's last ``n`` rows of ``v`` (``None`` on the
     first rank)."""
@@ -85,6 +106,18 @@ def rows_from_next(v: torch.Tensor, n: int, mesh: SpatialMesh):
     """The next space rank's first ``n`` rows of ``v`` (``None`` on the last
     rank)."""
     return exchange_rows(None, v[:, :n], mesh)[1]
+
+
+def cols_from_prev(v: torch.Tensor, n: int, mesh: SpatialMesh):
+    """The left tile's last ``n`` columns of ``v`` (``None`` at the global
+    left edge)."""
+    return exchange_cols(v[:, :, v.shape[2] - n:], None, mesh)[0]
+
+
+def cols_from_next(v: torch.Tensor, n: int, mesh: SpatialMesh):
+    """The right tile's first ``n`` columns of ``v`` (``None`` at the global
+    right edge)."""
+    return exchange_cols(None, v[:, :, :n], mesh)[1]
 
 
 def _all_reduce(v: torch.Tensor, op, mesh: SpatialMesh,
@@ -121,15 +154,19 @@ def any_all(flags: torch.Tensor, mesh: SpatialMesh) -> bool:
     return bool(_all_reduce(one, dist.ReduceOp.MAX, mesh, "all").item())
 
 
-def gather_rows(v: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
-    """The space ranks' ``v`` concatenated along axis 1, in rank order, on
-    every rank (``all_gather`` over ``space``)."""
+def gather_tiles(v: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
+    """The tile group's ``v`` [N, h, w] put together as the whole grid
+    [N, sy·h, sx·w] on every rank (``all_gather`` over the tile group; with
+    one tile column, the row blocks concatenated in rank order)."""
     t = _host(mesh, v)
     parts = [torch.empty_like(t) for _ in range(mesh.n_space)]
     dist.all_gather(parts, t, group=mesh.space_group)
     if mesh.staged:
         mesh.host_round_trips += 1
-    return _back(mesh, torch.cat(parts, dim=1))
+    sx = mesh.n_sx
+    rows = [torch.cat(parts[r * sx:(r + 1) * sx], dim=2)
+            for r in range(mesh.n_sy)]
+    return _back(mesh, torch.cat(rows, dim=1))
 
 
 def barrier(mesh: SpatialMesh) -> None:

@@ -1,7 +1,8 @@
 """Spawn the ranks of a sharded call and collect their results.
 
 :func:`run` splits each input ``[N, H, W]`` array into ``n_data`` slices of
-images and ``n_space`` blocks of rows, starts one process per rank
+images and ``n_space`` tiles (an int: blocks of rows; a pair ``(sy, sx)``:
+a grid of tiles), starts one process per rank
 (``torch.multiprocessing``, start method ``spawn``), joins them into a
 process group through a ``FileStore`` in a fresh temporary directory (no
 ports, so parallel launches cannot clash), calls
@@ -33,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mdx_torch.parallel.mesh import choose_backend
+from mdx_torch.parallel.mesh import choose_backend, grid
 
 
 @dataclass
@@ -45,12 +46,13 @@ class Launched:
     backend: str
     devices: list[str]
     host_round_trips: list[int]
-    n_space: int
+    n_space: int | tuple[int, int]
     n_data: int
 
     def info(self) -> dict:
         """What an entry point reports under ``"launch"``: the backend, the
-        grid, and the most host round trips any rank made."""
+        grid (``n_space`` an int for row blocks, ``(sy, sx)`` for tiles),
+        and the most host round trips any rank made."""
         return {"backend": self.backend, "n_space": self.n_space,
                 "n_data": self.n_data,
                 "host_round_trips": max(self.host_round_trips)}
@@ -84,34 +86,48 @@ def _to_device(tree, device):
     return _map(tree, lambda t: t.to(device) if torch.is_tensor(t) else t)
 
 
-def split(x: np.ndarray, rank: int, n_data: int, n_space: int) -> np.ndarray:
+def _normal(n_space):
+    """``n_space`` as :func:`run` reports it: an int for row blocks, the
+    pair (sy, sx) for a 2-D grid."""
+    sy, sx = grid(n_space)
+    return sy if sx == 1 else (sy, sx)
+
+
+def split(x: np.ndarray, rank: int, n_data: int, n_space) -> np.ndarray:
     """Rank ``rank``'s block of ``x`` [N, H, W]: images of its data row,
-    rows of its space column."""
-    n, h = x.shape[0], x.shape[1]
-    d, s = rank // n_space, rank % n_space
-    nd, hs = n // n_data, h // n_space
-    return np.ascontiguousarray(x[d * nd:(d + 1) * nd, s * hs:(s + 1) * hs])
+    rows and columns of its tile (``n_space``: row blocks or ``(sy, sx)``)."""
+    sy, sx = grid(n_space)
+    n, h, w = x.shape
+    d, s = rank // (sy * sx), rank % (sy * sx)
+    r, c = s // sx, s % sx
+    nd, hs, ws = n // n_data, h // sy, w // sx
+    return np.ascontiguousarray(
+        x[d * nd:(d + 1) * nd, r * hs:(r + 1) * hs, c * ws:(c + 1) * ws])
 
 
-def assemble(results: list, n_data: int, n_space: int,
+def assemble(results: list, n_data: int, n_space,
              block_keys=("enhanced",)) -> dict:
     """The per-rank result dicts of a sharded QA call → one dict for the
-    whole ``[N, H, W]`` input: ``block_keys`` (row blocks) concatenated
-    along rows within a data row, every other leaf (per-image [N_local]
-    vectors, replicated over ``space``) taken from the data row's first
-    space rank; data rows concatenated along images."""
+    whole ``[N, H, W]`` input: ``block_keys`` (tiles) put back in place
+    within a data row, every other leaf (per-image [N_local] vectors,
+    replicated over ``space``) taken from the data row's first space rank;
+    data rows concatenated along images."""
+    sy, sx = grid(n_space)
+    k = sy * sx
     rows = []
     for d in range(n_data):
-        first = results[d * n_space]
+        first = results[d * k]
         row = dict(first)
-        for k in block_keys:
-            row[k] = np.concatenate(
-                [results[d * n_space + s][k] for s in range(n_space)], axis=1)
+        for key in block_keys:
+            row[key] = np.concatenate([
+                np.concatenate([results[d * k + r * sx + c][key]
+                                for c in range(sx)], axis=2)
+                for r in range(sy)], axis=1)
         rows.append(row)
 
     def cat(*leaves):
         if isinstance(leaves[0], dict):
-            return {k: cat(*(lf[k] for lf in leaves)) for k in leaves[0]}
+            return {key: cat(*(lf[key] for lf in leaves)) for key in leaves[0]}
         return np.concatenate(leaves, axis=0)
 
     return cat(*rows)
@@ -147,7 +163,7 @@ def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
                timeout_s, fn, blocks, args, kwargs, out_queue):
     import torch.distributed as dist
 
-    from mdx_torch.parallel.mesh import make_mesh
+    from mdx_torch.parallel.mesh import make_mesh2d
 
     try:
         torch.set_num_threads(1)
@@ -158,7 +174,7 @@ def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world,
                                 timeout=timedelta(seconds=timeout_s))
-        mesh = make_mesh(rank, n_data, n_space, dev, backend)
+        mesh = make_mesh2d(rank, n_data, *grid(n_space), dev, backend)
         xs = [torch.from_numpy(b).to(dev) for b in blocks]
         out = fn(*xs, *_to_device(args, dev), mesh=mesh,
                  **_to_device(kwargs, dev))
@@ -172,24 +188,29 @@ def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
             dist.destroy_process_group()
 
 
-def run(fn, inputs, *args, n_space: int, n_data: int = 1,
+def run(fn, inputs, *args, n_space, n_data: int = 1,
         device: str = "cuda", backend: str | None = None,
         timeout_s: float = 600.0, **kwargs) -> Launched:
     """Run ``fn`` on ``n_data × n_space`` ranks (see the module doc).
 
-    ``inputs``: one ``[N, H, W]`` numpy array or a tuple of them, each
-    split by :func:`split`.  ``device``: "cuda" (rank r on card
+    ``n_space``: an int (row blocks) or a pair ``(sy, sx)`` (a grid of
+    tiles).  ``inputs``: one ``[N, H, W]`` numpy array or a tuple of them,
+    each split by :func:`split`.  ``device``: "cuda" (rank r on card
     ``r % device_count``) or "cpu".  ``backend``: None for the rule of
     :func:`~mdx_torch.parallel.mesh.choose_backend`, or "gloo"/"nccl"."""
     import torch.multiprocessing as mp
 
     inputs = (inputs,) if isinstance(inputs, np.ndarray) else tuple(inputs)
-    world = n_data * n_space
+    n_space = _normal(n_space)
+    sy, sx = grid(n_space)
+    world = n_data * sy * sx
     for x in inputs:
-        if x.ndim != 3 or x.shape[0] % n_data or x.shape[1] % n_space:
+        if x.ndim != 3 or x.shape[0] % n_data or x.shape[1] % sy \
+                or x.shape[2] % sx:
             raise ValueError(
                 f"input {x.shape} does not split into {n_data} image slices "
-                f"and {n_space} row blocks")
+                + (f"and {sy} row blocks" if sx == 1
+                   else f"and {sy}×{sx} tiles"))
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch.cuda.is_available() "

@@ -1,11 +1,14 @@
 """A rank's place in the ``(data, space)`` grid — counterpart of
-``mdx/parallel/mesh.py`` ``make_mesh``.
+``mdx/parallel/mesh.py`` ``make_mesh`` and ``make_mesh2d``.
 
-Rank ``r`` of ``n_data × n_space`` ranks holds data row ``r // n_space``
-(a slice of the images) and space column ``r % n_space`` (a block of their
-rows).  The ``space`` ranks of one data row exchange halos and reduce
-together; the ``data`` axis needs no collective except the uniform stop and
-guard flags, which reduce over all ranks.
+The ``space`` ranks of one data row hold the tiles of its images: a
+``sy × sx`` grid of tiles (``sx = 1``: row blocks, the 1-D layout).  Rank
+``r`` of ``n_data × sy × sx`` ranks holds data row ``r // (sy·sx)``, tile
+row ``(r // sx) % sy`` and tile column ``r % sx``.  The ``sy·sx`` ranks of
+one data row (the tile group) reduce together; halos go to the row
+neighbours (``r ∓ sx``) and the column neighbours (``r ∓ 1``).  The
+``data`` axis needs no collective except the uniform stop and guard flags,
+which reduce over all ranks.
 
 Backend rule (:func:`choose_backend`), explicit and never a silent
 fallback: NCCL when every rank has a card of its own, gloo when ranks share
@@ -39,14 +42,53 @@ def choose_backend(device_type: str, world: int, n_cards: int,
     return backend
 
 
+def grid(n_space) -> tuple[int, int]:
+    """``n_space`` as an int (row blocks) or a pair ``(sy, sx)`` → (sy, sx)."""
+    if isinstance(n_space, (tuple, list)):
+        sy, sx = (int(v) for v in n_space)
+    else:
+        sy, sx = int(n_space), 1
+    if sy < 1 or sx < 1:
+        raise ValueError(f"a tile grid needs sy, sx ≥ 1, got {n_space!r}")
+    return sy, sx
+
+
+def choose_layout(h: int, w: int, n_devices: int,
+                  min_per_shard: int = 16) -> tuple[int, int]:
+    """The (sy, sx) tile grid for an H×W slice on ``n_devices`` ranks — the
+    port's copy of ``mdx/pipeline/spatial_runner.py`` ``choose_layout``.
+
+    The most ranks usable first, then the squarest grid (the shortest halo
+    perimeter per tile).  Per axis the extent divides evenly, the per-tile
+    extent is even (the stride-2 wavelet phase) and ≥ ``min_per_shard``
+    (the widest stencil halo).  (1, 1) always works."""
+    best, best_key = (1, 1), (1, 0)
+    for used in range(n_devices, 0, -1):
+        for sy in range(1, used + 1):
+            if used % sy:
+                continue
+            sx = used // sy
+            if any(extent % k or (extent // k) % 2
+                   or extent // k < min_per_shard
+                   for extent, k in ((h, sy), (w, sx))):
+                continue
+            key = (used, -abs(sy - sx))
+            if key > best_key:
+                best_key, best = key, (sy, sx)
+        if best_key[0] == used:
+            break
+    return best
+
+
 @dataclass
 class SpatialMesh:
-    """This rank in an ``n_data × n_space`` grid of ranks.
+    """This rank in an ``n_data × n_space`` grid of ranks, the ``n_space``
+    ranks of a data row being a grid of ``n_sy × n_sx`` tiles.
 
     ``space_group`` / ``data_group`` are the process groups of this rank's
-    data row / space column (``None`` = all ranks); ``host_round_trips``
-    counts the collectives that went through host memory (gloo with CUDA
-    tensors)."""
+    data row (the tile group) / space position (``None`` = all ranks);
+    ``host_round_trips`` counts the collectives that went through host
+    memory (gloo with CUDA tensors)."""
 
     rank: int
     n_data: int
@@ -56,10 +98,15 @@ class SpatialMesh:
     space_group: object = None
     data_group: object = None
     host_round_trips: int = 0
+    n_sx: int = 1
 
     @property
     def world(self) -> int:
         return self.n_data * self.n_space
+
+    @property
+    def n_sy(self) -> int:
+        return self.n_space // self.n_sx
 
     @property
     def data_index(self) -> int:
@@ -67,17 +114,36 @@ class SpatialMesh:
 
     @property
     def space_index(self) -> int:
+        """This rank's place in its tile group (row-major over the tiles)."""
         return self.rank % self.n_space
+
+    @property
+    def row_index(self) -> int:
+        return self.space_index // self.n_sx
+
+    @property
+    def col_index(self) -> int:
+        return self.space_index % self.n_sx
 
     @property
     def is_first(self) -> bool:
         """This rank holds the global top rows."""
-        return self.space_index == 0
+        return self.row_index == 0
 
     @property
     def is_last(self) -> bool:
         """This rank holds the global bottom rows."""
-        return self.space_index == self.n_space - 1
+        return self.row_index == self.n_sy - 1
+
+    @property
+    def is_first_col(self) -> bool:
+        """This rank holds the global left columns."""
+        return self.col_index == 0
+
+    @property
+    def is_last_col(self) -> bool:
+        """This rank holds the global right columns."""
+        return self.col_index == self.n_sx - 1
 
     @property
     def staged(self) -> bool:
@@ -87,10 +153,21 @@ class SpatialMesh:
 
 def make_mesh(rank: int, n_data: int, n_space: int, device,
               backend: str) -> SpatialMesh:
-    """The mesh of ``rank`` once the default process group is up.  Every
-    rank must call it (creating a process group is itself collective)."""
+    """The 1-D mesh of ``rank`` (``n_space`` row blocks) once the default
+    process group is up.  Every rank must call it (creating a process group
+    is itself collective)."""
+    return make_mesh2d(rank, n_data, n_space, 1, device, backend)
+
+
+def make_mesh2d(rank: int, n_data: int, n_sy: int, n_sx: int, device,
+                backend: str) -> SpatialMesh:
+    """The mesh of ``rank`` in an ``n_data × n_sy × n_sx`` grid (the
+    counterpart of ``mdx/parallel/mesh.py:48-68``): the tile group of its
+    data row and the data group of its tile.  ``n_sx = 1`` is
+    :func:`make_mesh`'s grid, groups and all."""
+    n_space = n_sy * n_sx
     if n_data * n_space != dist.get_world_size():
-        raise ValueError(f"mesh {n_data}×{n_space} needs "
+        raise ValueError(f"mesh {n_data}×{n_sy}×{n_sx} needs "
                          f"{n_data * n_space} ranks, have "
                          f"{dist.get_world_size()}")
     space_group = data_group = None
@@ -105,18 +182,19 @@ def make_mesh(rank: int, n_data: int, n_space: int, device,
             if rank % n_space == s:
                 data_group = g
     return SpatialMesh(rank, n_data, n_space, torch.device(device), backend,
-                       space_group, data_group)
+                       space_group, data_group, n_sx=n_sx)
 
 
-def mesh_from_env(n_space: int | None = None,
-                  device: str = "cuda") -> SpatialMesh:
+def mesh_from_env(n_space=None, device: str = "cuda") -> SpatialMesh:
     """Join the ranks of a ``torchrun`` launch (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) and return this rank's
-    mesh: ``n_space`` row blocks (default: all ranks), the rest on ``data``;
-    on the card each rank takes ``cuda:LOCAL_RANK``."""
+    mesh: ``n_space`` row blocks or ``(sy, sx)`` tiles (default: all ranks
+    in row blocks), the rest on ``data``; on the card each rank takes
+    ``cuda:LOCAL_RANK``."""
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
-    n_space = world if n_space is None else int(n_space)
+    sy, sx = grid(world if n_space is None else n_space)
+    n_space = sy * sx
     if world % n_space:
         raise ValueError(f"{world} ranks do not split into rows of "
                          f"{n_space} space ranks")
@@ -131,4 +209,4 @@ def mesh_from_env(n_space: int | None = None,
     backend = choose_backend(dev.type, local, n_cards)
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world)
-    return make_mesh(rank, world // n_space, n_space, dev, backend)
+    return make_mesh2d(rank, world // n_space, sy, sx, dev, backend)

@@ -1,8 +1,8 @@
 """The plan path, sharded: ``apply_plan`` with all three safeguards,
 validation and the objective score on row blocks.
 
-Counterpart of ``mdx/parallel/plan_sp.py`` (1-D layout): the dense plan
-chain (``mdx_torch.core.enhance.apply_plan`` = ref
+Counterpart of ``mdx/parallel/plan_sp.py`` (1-D row blocks and 2-D
+tiles; the mesh decides, :func:`layout`): the dense plan chain (``mdx_torch.core.enhance.apply_plan`` = ref
 pipeline/enhancement.py:235-369) with every op replaced by its sharded
 counterpart and per-image masks selecting, then
 
@@ -34,7 +34,7 @@ from mdx_torch.ops import filters as F
 from mdx_torch.ops.filters import as_n
 from mdx_torch.ops.tv import tv_mode_params
 from mdx_torch.parallel import _spmd_stats as S
-from mdx_torch.parallel import comm, launch, spatial
+from mdx_torch.parallel import comm, launch, spatial, spatial2d
 from mdx_torch.parallel.clahe_sp import clahe_sharded
 from mdx_torch.parallel.tv_sp import tv_sharded
 from mdx_torch.parallel.wavelet_sp import (
@@ -45,8 +45,8 @@ from mdx_torch.parallel.wavelet_sp import (
 
 @dataclass(frozen=True)
 class Layout:
-    """A spatial layout's primitives bound to this rank's mesh (the 1-D
-    row-block layout; the 2-D tile layout is not ported yet)."""
+    """A spatial layout's primitives bound to this rank's mesh (1-D row
+    blocks or 2-D tiles)."""
 
     mesh: object
     prims: S.SpatialPrims
@@ -56,12 +56,27 @@ class Layout:
     psnr: Callable        # (x, y) → [N]
 
 
-def layout_1d(mesh) -> Layout:
-    return Layout(mesh, spatial.prims(mesh),
+def _layout(mesh, prims, ssim) -> Layout:
+    # the blur, the bilateral filter and PSNR serve both layouts
+    return Layout(mesh, prims(mesh),
                   partial(spatial.gaussian_blur_halo, mesh=mesh),
                   partial(spatial.bilateral_halo, mesh=mesh),
-                  partial(spatial.ssim_block, mesh=mesh),
+                  partial(ssim, mesh=mesh),
                   partial(spatial.psnr_block, mesh=mesh))
+
+
+def layout_1d(mesh) -> Layout:
+    return _layout(mesh, spatial.prims, spatial.ssim_block)
+
+
+def layout_2d(mesh) -> Layout:
+    return _layout(mesh, spatial2d.prims, spatial2d.ssim_block)
+
+
+def layout(mesh) -> Layout:
+    """The layout of ``mesh``: 2-D tiles when it has more than one tile
+    column, else row blocks (``mdx/parallel/plan_sp.py:246-249``)."""
+    return layout_2d(mesh) if mesh.n_sx > 1 else layout_1d(mesh)
 
 
 def edge_ratio_sp(x: torch.Tensor, p: S.SpatialPrims) -> torch.Tensor:
@@ -198,7 +213,7 @@ def qa_plan_block(xb: torch.Tensor, static: PlanStatic, dyn: PlanDynamic,
     """Per-rank body of :func:`qa_plan_spatial`: metrics → sharded
     apply_plan → metrics, SSIM, PSNR → validation and score."""
     n = xb.shape[0]
-    lay = layout_1d(mesh)
+    lay = layout(mesh)
     dyn = PlanDynamic(*(_local(v, mesh, n) for v in dyn))
     masks = masks or {}
     masks = {op: as_n(_local(torch.as_tensor(masks.get(op, True)), mesh, n),
@@ -214,24 +229,29 @@ def qa_plan_block(xb: torch.Tensor, static: PlanStatic, dyn: PlanDynamic,
             "validation": validation, "score": score, "flags": flags}
 
 
-def check_plan_shape(shape, k: int, static: PlanStatic) -> None:
-    """``plan_sp.py:286-293``: even blocks of at least
-    ``MIN_ROWS_PER_SHARD`` rows, and whole CLAHE tiles per block."""
-    h = shape[1]
+def _check_plan_rows(h: int, k: int) -> None:
     if h % k or (h // k) % 2 or h // k < spatial.MIN_ROWS_PER_SHARD:
         raise ValueError(
             f"H={h} must split into even blocks of "
             f"≥{spatial.MIN_ROWS_PER_SHARD} rows over {k} 'space' shards")
-    if "clahe" in static.ops:
-        spatial.check_clahe_tiles(shape, k, int(static.tile_size))
 
 
-def qa_plan_spatial(x: np.ndarray, n_space: int, static: PlanStatic,
+def check_plan_shape(shape, n_space, static: PlanStatic) -> None:
+    """``plan_sp.py:273-293``: row blocks even and at least
+    ``MIN_ROWS_PER_SHARD`` rows, or tiles as ``spatial2d.check_tiles``
+    wants them; whole CLAHE tiles in every block."""
+    spatial.check_grid(shape, n_space,
+                       int(static.tile_size) if "clahe" in static.ops else 0,
+                       _check_plan_rows)
+
+
+def qa_plan_spatial(x: np.ndarray, n_space, static: PlanStatic,
                     dyn: PlanDynamic, masks: dict | None = None, *,
                     n_data: int = 1, device: str = "cuda",
                     timeout_s: float = 600.0) -> dict:
     """One plan-driven QA/tuning iteration of [N, H, W] numpy on
-    ``n_data × n_space`` ranks: sharded apply_plan (7 ops, 3 guards) →
+    ``n_data × n_space`` ranks (``n_space``: row blocks, or ``(sy, sx)``
+    tiles): sharded apply_plan (7 ops, 3 guards) →
     validation → score.  ``static``/``dyn`` as from
     ``mdx_torch.plan_from_numpy`` (scalars or per-image [N] values);
     ``masks``: {op: [N] bool}.  Returns JAX's fields as numpy

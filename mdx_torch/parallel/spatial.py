@@ -3,7 +3,8 @@ stencils and the sharded QA step.
 
 Counterpart of ``mdx/parallel/spatial.py``.  One slice too large for one
 device (a 2048² chest X-ray and up) is split into row blocks over the
-``space`` ranks:
+``space`` ranks (or into a grid of tiles, :mod:`.spatial2d`, whose
+primitives plug into the same rank bodies):
 
 * stencils (Laplacian, Sobel, box windows, Gaussian, bilateral, SSIM) read
   halo rows of the neighbouring blocks (:func:`halo_rows`); the first and
@@ -19,10 +20,19 @@ halo-extended block, as the JAX layer runs them in XLA: the unsharp and
 bilateral kernels pad at the block's own edges, which inside the image is
 not the halo's semantics.
 
-Per-rank functions take ``(x_block, ..., mesh=SpatialMesh)``; the host
-entry points (:func:`image_stats_spatial`, :func:`enhance_spatial`,
-:func:`qa_spatial`) take ``[N, H, W]`` numpy and ``n_space`` and run through
-:func:`mdx_torch.parallel.launch.run`.
+The halos (:func:`halo_axis`, :func:`halo2`), the reductions, the blur and
+the bilateral filter serve both layouts: on a 2-D grid a halo takes rows
+from the tiles above and below first, then the columns of that
+row-extended block from the tiles to the left and right, so the corners
+come with the columns (``mdx/parallel/spatial2d.py`` ``_halo2``); with one
+tile column the column phase is a pad.
+
+Per-rank functions take ``(x_block, ..., mesh=SpatialMesh)``; the rank
+bodies (:func:`image_stats_block`, :func:`enhance_block`, :func:`qa_block`)
+take the layout's primitives from the mesh.  The host entry points
+(:func:`image_stats_spatial`, :func:`enhance_spatial`, :func:`qa_spatial`)
+take ``[N, H, W]`` numpy and ``n_space`` (row blocks, or ``(sy, sx)`` tiles)
+and run through :func:`mdx_torch.parallel.launch.run`.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from mdx_torch.ops.quantile import (
 from mdx_torch.ops.wavelet import MAD_TO_SIGMA, _f32, qmf_pair, strided_taps_mac
 from mdx_torch.parallel import _spmd_stats as S
 from mdx_torch.parallel import comm, launch
+from mdx_torch.parallel.mesh import grid
 
 # Widest one-block halo: the unsharp Gaussian's fixed support (radius 12);
 # box16 needs 8, bilateral ≤ 4, the db2 DWT 3.  Row blocks must cover it.
@@ -54,32 +65,64 @@ MIN_ROWS_PER_SHARD = 16
 # ---------------------------------------------------------------------------
 
 
+_EDGE_MODES = ("symmetric", "reflect", "edge")
+
+
+def _edge_pad(x: torch.Tensor, n: int, axis: int, side: str,
+              mode: str) -> torch.Tensor:
+    """A global edge's ``n`` halo slabs along ``axis`` from the block's own
+    border: "symmetric" (edge slab repeated, ``jnp.pad`` symmetric),
+    "reflect" (edge slab excluded) or "edge" (edge slab replicated)."""
+    size = x.shape[axis]
+    if mode == "edge":
+        shape = list(x.shape)
+        shape[axis] = n
+        return x.narrow(axis, 0 if side == "lo" else size - 1, 1).expand(shape)
+    off = 1 if mode == "reflect" else 0
+    return x.narrow(axis, off if side == "lo" else size - off - n, n).flip(axis)
+
+
+def halo_axis(x: torch.Tensor, lo: int, hi: int, axis: int, mesh,
+              edge_mode: str = "symmetric") -> torch.Tensor:
+    """Extend axis 1 (rows) or 2 (columns) of the block by ``lo``/``hi``
+    halo slabs from the neighbouring tiles on that axis; a tile at the
+    global edge pads its own border with ``edge_mode``
+    (``mdx/parallel/spatial2d.py`` ``_halo_axis``)."""
+    if edge_mode not in _EDGE_MODES:
+        raise ValueError(f"unknown edge_mode {edge_mode!r}")
+    size = x.shape[axis]
+    exchange = comm.exchange_rows if axis == 1 else comm.exchange_cols
+    from_prev, from_next = exchange(
+        x.narrow(axis, size - lo, lo) if lo else None,
+        x.narrow(axis, 0, hi) if hi else None, mesh)
+    parts = []
+    if lo:
+        parts.append(_edge_pad(x, lo, axis, "lo", edge_mode)
+                     if from_prev is None else from_prev)
+    parts.append(x)
+    if hi:
+        parts.append(_edge_pad(x, hi, axis, "hi", edge_mode)
+                     if from_next is None else from_next)
+    return torch.cat(parts, dim=axis) if len(parts) > 1 else x
+
+
 def halo_rows(x: torch.Tensor, up: int, down: int, mesh,
               edge_mode: str = "symmetric") -> torch.Tensor:
     """[N, Hs, W] block → [N, up+Hs+down, W] with halo rows from the
     neighbouring blocks; the first and last block pad their own rows with
-    ``edge_mode``: "symmetric" (edge row repeated, ``jnp.pad`` symmetric),
-    "reflect" (edge row excluded) or "edge" (edge row replicated)."""
-    if edge_mode not in ("symmetric", "reflect", "edge"):
-        raise ValueError(f"unknown edge_mode {edge_mode!r}")
-    n, hs, w = x.shape
-    off = 1 if edge_mode == "reflect" else 0
-    from_prev, from_next = comm.exchange_rows(
-        x[:, hs - up:] if up else None, x[:, :down] if down else None, mesh)
-    parts = []
-    if up:
-        if from_prev is None:
-            from_prev = (x[:, :1].expand(n, up, w) if edge_mode == "edge"
-                         else x[:, off:up + off].flip(1))
-        parts.append(from_prev)
-    parts.append(x)
-    if down:
-        if from_next is None:
-            stop = hs - off
-            from_next = (x[:, -1:].expand(n, down, w) if edge_mode == "edge"
-                         else x[:, stop - down:stop].flip(1))
-        parts.append(from_next)
-    return torch.cat(parts, dim=1)
+    ``edge_mode``."""
+    return halo_axis(x, up, down, 1, mesh, edge_mode)
+
+
+def halo2(x: torch.Tensor, up: int, down: int, left: int, right: int, mesh,
+          edge_mode: str = "symmetric") -> torch.Tensor:
+    """The two-phase halo [N, Hs, Ws] → [N, up+Hs+down, left+Ws+right]:
+    rows from the tiles above and below, then the columns of the
+    row-extended block from the tiles to the left and right, which carry
+    the corners (no diagonal message; ``mdx/parallel/spatial2d.py``
+    ``_halo2``).  With one tile column the columns are a pad."""
+    return halo_axis(halo_axis(x, up, down, 1, mesh, edge_mode), left, right,
+                     2, mesh, edge_mode)
 
 
 def lap_sobel(x: torch.Tensor, mesh):
@@ -203,7 +246,8 @@ def estimate_sigma_spatial(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def prims(mesh) -> S.SpatialPrims:
-    """The 1-D layer's primitives bound to ``mesh``."""
+    """The 1-D layer's primitives bound to ``mesh`` (the 2-D layer's are
+    :func:`mdx_torch.parallel.spatial2d.prims`)."""
     return S.SpatialPrims(
         lap_sobel=partial(lap_sobel, mesh=mesh),
         local_variance=partial(local_variance_halo, mesh=mesh),
@@ -223,10 +267,17 @@ def prims(mesh) -> S.SpatialPrims:
 # ---------------------------------------------------------------------------
 
 
+def _layout(mesh):
+    """The layout of ``mesh`` (1-D row blocks or 2-D tiles)."""
+    from mdx_torch.parallel.plan_sp import layout
+
+    return layout(mesh)
+
+
 def image_stats_block(x: torch.Tensor, *, mesh) -> dict[str, torch.Tensor]:
     """Per-rank body of the metric pass: {metric: [N]} of the global
-    images, from this rank's [N, Hs, W] block."""
-    return S.image_stats_block(x, prims(mesh))
+    images, from this rank's [N, Hs, Ws] block."""
+    return S.image_stats_block(x, _layout(mesh).prims)
 
 
 def check_rows(h: int, k: int) -> None:
@@ -255,13 +306,39 @@ def check_clahe_tiles(shape, k: int, clahe_tile: int) -> None:
             f"W={shape[2]} to be multiples of tile_size={clahe_tile}")
 
 
-def image_stats_spatial(x: np.ndarray, n_space: int, *, n_data: int = 1,
+def check_enhance_rows(h: int, k: int) -> None:
+    """``enhance_spatial``'s row check (``mdx/parallel/spatial.py:446``)."""
+    if h % k or h // k < MIN_ROWS_PER_SHARD:
+        raise ValueError(
+            f"H={h} over {k} shards: need ≥{MIN_ROWS_PER_SHARD} "
+            f"rows per shard for the single-hop stencil halos (max usable "
+            f"space axis for H={h} is {h // MIN_ROWS_PER_SHARD})")
+
+
+def check_grid(shape, n_space, clahe_tile: int = 0,
+               check_1d=check_rows) -> None:
+    """The shape checks of the entry points, with the JAX layer's messages:
+    ``check_1d(H, k)`` and :func:`check_clahe_tiles` for row blocks, the
+    2-D layer's :func:`~.spatial2d.check_tiles` and
+    :func:`~.spatial2d.check_clahe_tiles` for a grid with ``sx > 1``."""
+    sy, sx = grid(n_space)
+    if sx > 1:
+        from mdx_torch.parallel import spatial2d
+
+        spatial2d.check_tiles(shape, sy, sx)
+        spatial2d.check_clahe_tiles(shape, sy, sx, clahe_tile)
+    else:
+        check_1d(shape[1], sy)
+        check_clahe_tiles(shape, sy, clahe_tile)
+
+
+def image_stats_spatial(x: np.ndarray, n_space, *, n_data: int = 1,
                         device: str = "cuda",
                         timeout_s: float = 600.0) -> dict:
-    """The fused metric pass on ``n_data × n_space`` ranks: [N, H, W] numpy →
-    {metric: [N] numpy}, plus ``"launch"`` (backend, ranks, host round
-    trips per rank)."""
-    check_rows(x.shape[1], n_space)
+    """The fused metric pass on ``n_data × n_space`` ranks (``n_space``: row
+    blocks, or ``(sy, sx)`` tiles): [N, H, W] numpy → {metric: [N] numpy},
+    plus ``"launch"`` (backend, ranks, host round trips per rank)."""
+    check_grid(x.shape, n_space)
     res = launch.run(image_stats_block, x, n_space=n_space, n_data=n_data,
                      device=device, timeout_s=timeout_s)
     out = launch.assemble(res.results, n_data, n_space, block_keys=())
@@ -281,14 +358,15 @@ def gaussian_blur_halo(x: torch.Tensor, sigma, mesh,
     r = max_radius
     _, hs, ws = x.shape
     w = F._gauss_taps(as_n(sigma, x, x.dtype), x.dtype)
-    xp = pad_axis(halo_rows(x, r, r, mesh, "edge"), 2, r, r, "edge")
+    xp = halo2(x, r, r, r, r, mesh, "edge")
     return F.shift_macs_cols(F.shift_macs_rows(xp, w, hs), w, ws)
 
 
 def bilateral_halo(x: torch.Tensor, d: int, sigma_color, sigma_space,
                    mesh) -> torch.Tensor:
     """d×d bilateral across blocks (reflect boundary at the global edges):
-    the shifted-MAC form of ``mdx/parallel/spatial.py`` ``_bilateral_halo``."""
+    the shifted-MAC form of ``mdx/parallel/spatial.py`` ``_bilateral_halo``
+    (and of ``spatial2d.py``'s, on the two-phase halo)."""
     d = min(int(d), 9)
     if d % 2 == 0:
         d += 1
@@ -298,7 +376,7 @@ def bilateral_halo(x: torch.Tensor, d: int, sigma_color, sigma_space,
     ss = as_n(sigma_space, x, x.dtype)[:, None, None]
     inv_2sc2 = 1.0 / (2.0 * sc * sc)
     inv_2ss2d2 = 1.0 / (2.0 * ss * ss * float(d * d))
-    xp = pad_axis(halo_rows(x, r, r, mesh, "reflect"), 2, r, r, "reflect")
+    xp = halo2(x, r, r, r, r, mesh, "reflect")
     num = torch.zeros_like(x)
     den = torch.zeros_like(x)
     for dy in range(-r, r + 1):
@@ -328,7 +406,7 @@ def enhance_block(x: torch.Tensor, *, mesh, gamma=1.0, unsharp_radius=0.8,
                   use_post_denoise: bool = False) -> torch.Tensor:
     """Per-rank enhancement chain in reference order (ref
     pipeline/enhancement.py:270-312): [denoise →] [CLAHE →] gamma →
-    unsharp → [post_denoise →] [bilateral →] [TV]."""
+    unsharp → [post_denoise →] [bilateral →] [TV], on row blocks or tiles."""
     from mdx_torch.parallel.clahe_sp import clahe_sharded
     from mdx_torch.parallel.tv_sp import tv_sharded
     from mdx_torch.parallel.wavelet_sp import (
@@ -344,7 +422,7 @@ def enhance_block(x: torch.Tensor, *, mesh, gamma=1.0, unsharp_radius=0.8,
     y = unsharp_halo(y, unsharp_radius, unsharp_amount, mesh)
     if use_post_denoise:
         y = light_denoise_sharded(y, post_denoise_strength,
-                                  estimate_sigma_spatial(y, mesh), mesh)
+                                  _layout(mesh).prims.sigma(y), mesh)
     if bilateral_d > 0:
         y = bilateral_halo(torch.clamp(y, 0.0, 1.0), bilateral_d,
                            bilateral_sigma_color, bilateral_sigma_space, mesh)
@@ -379,7 +457,7 @@ def _enhance_rank(x: torch.Tensor, *, mesh, **kw) -> dict:
     return {"enhanced": enhance_block(x, mesh=mesh, **kw)}
 
 
-def enhance_spatial(x: np.ndarray, n_space: int, *, gamma: float = 1.0,
+def enhance_spatial(x: np.ndarray, n_space, *, gamma: float = 1.0,
                     unsharp_radius: float = 0.8, unsharp_amount: float = 0.5,
                     bilateral_d: int = 0, bilateral_sigma_color: float = 0.05,
                     bilateral_sigma_space: float = 0.05,
@@ -389,14 +467,8 @@ def enhance_spatial(x: np.ndarray, n_space: int, *, gamma: float = 1.0,
                     post_denoise_strength: float | None = None,
                     n_data: int = 1, device: str = "cuda",
                     timeout_s: float = 600.0) -> np.ndarray:
-    """The sharded enhancement chain of [N, H, W] numpy → [N, H, W] numpy."""
-    k = n_space
-    if x.shape[1] % k or x.shape[1] // k < MIN_ROWS_PER_SHARD:
-        raise ValueError(
-            f"H={x.shape[1]} over {k} shards: need ≥{MIN_ROWS_PER_SHARD} "
-            f"rows per shard for the single-hop stencil halos (max usable "
-            f"space axis for H={x.shape[1]} is "
-            f"{x.shape[1] // MIN_ROWS_PER_SHARD})")
+    """The sharded enhancement chain of [N, H, W] numpy → [N, H, W] numpy
+    (``n_space``: row blocks, or ``(sy, sx)`` tiles)."""
     kw = enhance_kwargs(
         gamma=gamma, unsharp_radius=unsharp_radius,
         unsharp_amount=unsharp_amount, bilateral_d=bilateral_d,
@@ -405,7 +477,7 @@ def enhance_spatial(x: np.ndarray, n_space: int, *, gamma: float = 1.0,
         clahe_clip_limit=clahe_clip_limit, clahe_tile_size=clahe_tile_size,
         tv_weight=tv_weight, denoise=denoise,
         post_denoise_strength=post_denoise_strength)
-    check_clahe_tiles(x.shape, k, kw["clahe_tile"])
+    check_grid(x.shape, n_space, kw["clahe_tile"], check_enhance_rows)
     res = launch.run(_enhance_rank, x, n_space=n_space, n_data=n_data,
                      device=device, timeout_s=timeout_s,
                      **kw)
@@ -417,25 +489,31 @@ def enhance_spatial(x: np.ndarray, n_space: int, *, gamma: float = 1.0,
 # ---------------------------------------------------------------------------
 
 
-def ssim_block(x: torch.Tensor, y: torch.Tensor, mesh,
-               data_range: float = 1.0, win_size: int = 7) -> torch.Tensor:
-    """SSIM of the global images → [N] (skimage: 7×7 uniform window,
-    unbiased covariance, a (win−1)//2 crop of the global border)."""
+def ssim_map(x: torch.Tensor, y: torch.Tensor, box, data_range: float = 1.0,
+             win_size: int = 7) -> torch.Tensor:
+    """The SSIM map of two blocks from a halo box mean ``box(v, size)``
+    (skimage: 7×7 uniform window, unbiased covariance)."""
     np_ = win_size * win_size
     cov_norm = np_ / (np_ - 1.0)
-    ux = box_halo(x, win_size, mesh)
-    uy = box_halo(y, win_size, mesh)
-    uxx = box_halo(x * x, win_size, mesh)
-    uyy = box_halo(y * y, win_size, mesh)
-    uxy = box_halo(x * y, win_size, mesh)
+    ux = box(x, win_size)
+    uy = box(y, win_size)
+    uxx = box(x * x, win_size)
+    uyy = box(y * y, win_size)
+    uxy = box(x * y, win_size)
     vx = cov_norm * (uxx - ux * ux)
     vy = cov_norm * (uyy - uy * uy)
     vxy = cov_norm * (uxy - ux * uy)
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
-    s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / (
+    return ((2 * ux * uy + c1) * (2 * vxy + c2)) / (
         (ux * ux + uy * uy + c1) * (vx + vy + c2))
 
+
+def ssim_block(x: torch.Tensor, y: torch.Tensor, mesh,
+               data_range: float = 1.0, win_size: int = 7) -> torch.Tensor:
+    """SSIM of the global images → [N] (skimage: 7×7 uniform window,
+    unbiased covariance, a (win−1)//2 crop of the global border)."""
+    s = ssim_map(x, y, partial(box_halo, mesh=mesh), data_range, win_size)
     pad = (win_size - 1) // 2
     n, hs, w = x.shape
     row = torch.arange(hs, device=x.device)[None, :, None]
@@ -462,14 +540,15 @@ def qa_block(xb: torch.Tensor, *, mesh, use_noise_guard: bool = False,
     → metrics, SSIM, PSNR and the pass verdict."""
     from mdx_torch.parallel.wavelet_sp import light_denoise_sharded
 
-    p = prims(mesh)
+    lay = _layout(mesh)
+    p = lay.prims
     before = S.image_stats_block(xb, p)
     enhanced = enhance_block(xb, mesh=mesh, **enhance_kw)
     if use_noise_guard:
         # noise-amplification safeguard (ref pipeline/enhancement.py:55-63,
         # 221-226): σ_after > 1.3·σ_before → corrective light_denoise(0.4)
         sb = before["sigma"]
-        sa = estimate_sigma_spatial(enhanced, mesh)
+        sa = p.sigma(enhanced)
         noise_amp = (sb >= 1e-8) & (sa > sb * 1.3)
         fixed = torch.clamp(light_denoise_sharded(enhanced, 0.4, sa, mesh),
                             0.0, 1.0)
@@ -478,8 +557,8 @@ def qa_block(xb: torch.Tensor, *, mesh, use_noise_guard: bool = False,
         noise_amp = torch.zeros(xb.shape[0], dtype=torch.bool,
                                 device=xb.device)
     after = S.image_stats_block(enhanced, p)
-    s = ssim_block(xb, enhanced, mesh)
-    ps = psnr_block(xb, enhanced, mesh)
+    s = lay.ssim(xb, enhanced)
+    ps = lay.psnr(xb, enhanced)
     qi, passes = S.qa_verdict(before, after, s, ps)
     return {"stats_before": before, "stats_after": after,
             "enhanced": enhanced, "ssim": s, "psnr": ps,
@@ -487,7 +566,7 @@ def qa_block(xb: torch.Tensor, *, mesh, use_noise_guard: bool = False,
             "noise_amp_guard": noise_amp}
 
 
-def qa_spatial(x: np.ndarray, n_space: int, *, gamma: float = 0.95,
+def qa_spatial(x: np.ndarray, n_space, *, gamma: float = 0.95,
                unsharp_radius: float = 0.8, unsharp_amount: float = 0.5,
                bilateral_d: int = 5, bilateral_sigma_color: float = 0.05,
                bilateral_sigma_space: float = 0.05,
@@ -498,13 +577,12 @@ def qa_spatial(x: np.ndarray, n_space: int, *, gamma: float = 0.95,
                noise_guard: bool = False, n_data: int = 1,
                device: str = "cuda",
                timeout_s: float = 600.0) -> dict:
-    """Full sharded QA of [N, H, W] numpy on ``n_data × n_space`` ranks:
-    detect → the chain (optional ops join when their parameter is given) →
+    """Full sharded QA of [N, H, W] numpy on ``n_data × n_space`` ranks
+    (``n_space``: row blocks, or ``(sy, sx)`` tiles): detect → the chain (optional ops join when their parameter is given) →
     [noise guard] → before/after metrics, SSIM, PSNR, pass rule.  Returns
     JAX's fields as numpy (``stats_before``, ``stats_after``, ``issues``,
     ``enhanced``, ``ssim``, ``psnr``, ``quality_improvement``, ``passes``,
     ``noise_amp_guard``) plus ``"launch"``."""
-    check_rows(x.shape[1], n_space)
     kw = enhance_kwargs(
         gamma=gamma, unsharp_radius=unsharp_radius,
         unsharp_amount=unsharp_amount, bilateral_d=bilateral_d,
@@ -513,7 +591,7 @@ def qa_spatial(x: np.ndarray, n_space: int, *, gamma: float = 0.95,
         clahe_clip_limit=clahe_clip_limit, clahe_tile_size=clahe_tile_size,
         tv_weight=tv_weight, denoise=denoise,
         post_denoise_strength=post_denoise_strength)
-    check_clahe_tiles(x.shape, n_space, kw["clahe_tile"])
+    check_grid(x.shape, n_space, kw["clahe_tile"])
     res = launch.run(qa_block, x, n_space=n_space, n_data=n_data,
                      device=device, timeout_s=timeout_s,
                      use_noise_guard=bool(noise_guard), **kw)

@@ -1,4 +1,4 @@
-"""Sharded TV-Chambolle over row blocks (1-D layout).
+"""Sharded TV-Chambolle over row blocks or a 2-D grid of tiles.
 
 Counterpart of ``mdx/parallel/tv_sp.py`` (skimage
 ``denoise_tv_chambolle``, ref pipeline/enhancement.py:309-312): the dense
@@ -6,10 +6,16 @@ dual ascent, stop per image when |E_prev − E| < eps·E_0.  Per iteration a
 block needs one row of its neighbours' state: the previous block's last p0
 row (the divergence at row 0) and the next block's first x, p0 and p1 rows
 (the forward difference at the last row); the rank that holds the global
-bottom row has a zero difference there (``glast``).  The energy sums
-(Σd², Σ|∇out|) are float64 per block and added over ``space``, so every
-space rank sees the same energies and stops each image on the same
-iteration.
+bottom row has a zero difference there (``glast``).  On a 2-D grid it also
+needs one column: the left tile's last p1 column (the divergence at column
+0) and the right tile's first x, p0 and p1 columns (the forward difference
+at the last column; ``grlast`` at the global right edge).  The columns are
+exchanged after the rows and are columns of the row-extended state, so
+they carry the two corners the step reads: the up-right tile's p0 (the
+right neighbour's divergence at its row 0) and the down-left tile's p1 (the
+next row's divergence at column 0).  The energy sums (Σd², Σ|∇out|) are
+float64 per block and added over the tile group, so every rank of a data
+row sees the same energies and stops each image on the same iteration.
 
 The loop's stop flag is reduced over ALL ranks, data rows included: every
 iteration exchanges halos, so a rank that left the loop early would leave
@@ -38,17 +44,25 @@ _TAU = 0.25  # 1/(2·ndim), ndim = 2
 
 
 def tv_shard_step_plain(x, p_in, p_out, out, active, weight, up_p0, dn_x,
-                        dn_p0, dn_p1, glast: bool) -> torch.Tensor:
+                        dn_p0, dn_p1, glast: bool, lf_p1=None, rt_x=None,
+                        rt_p0=None, rt_p1=None,
+                        grlast: bool = True) -> torch.Tensor:
     """The plain PyTorch version of kernel 12: one Chambolle iteration on a
     block, with the same arguments as ``kernels.tv_shard_step``.
 
-    ``p_in``/``p_out`` [N, 2, Hs, W], ``out`` [N, Hs, W]: the active
+    ``p_in``/``p_out`` [N, 2, Hs, Ws], ``out`` [N, Hs, Ws]: the active
     images' new dual and image are written into ``p_out`` and ``out``;
     stopped images keep what those buffers held.  ``up_p0`` (the previous
     block's last p0 row), ``dn_x``/``dn_p0``/``dn_p1`` (the next block's
-    first rows) are [N, W] or None for zeros; ``glast``: this block holds
-    the global bottom row.  Returns the block's (Σd², Σ|∇out|) [N, 2]
-    float64, zeros for stopped images."""
+    first rows) are [N, Ws] or None for zeros; ``glast``: this block holds
+    the global bottom row.  The column halos of a 2-D tile, None for zeros:
+    ``lf_p1`` [N, Hs+1], the left tile's last p1 column for rows 0 … Hs
+    (row Hs: the tile below it); ``rt_x``/``rt_p1`` [N, Hs] and ``rt_p0``
+    [N, Hs+1], the right tile's first columns (``rt_p0`` for rows −1 … Hs−1:
+    row −1 from the tile above it); ``grlast``: this block holds the global
+    right column (a dense or row-block call passes no column halos and
+    True).  Returns the block's (Σd², Σ|∇out|) [N, 2] float64, zeros for
+    stopped images."""
     n, hs, w = x.shape
     p0, p1 = p_in[:, 0], p_in[:, 1]
     zrow = x.new_zeros((n, 1, w))
@@ -57,9 +71,13 @@ def tv_shard_step_plain(x, p_in, p_out, out, active, weight, up_p0, dn_x,
     def row(v):
         return zrow if v is None else v[:, None, :]
 
+    def col(v, rows=hs):
+        return x.new_zeros((n, rows, 1)) if v is None else v[:, :, None]
+
+    lf = col(lf_p1, hs + 1)
     d = -(p0 + p1)
     d = d + torch.cat([row(up_p0), p0[:, :-1]], dim=1)
-    d = d + torch.cat([zcol, p1[:, :, :-1]], dim=2)
+    d = d + torch.cat([lf[:, :hs], p1[:, :, :-1]], dim=2)
     o = x + d
     if glast:
         gy = torch.cat([o[:, 1:] - o[:, :-1], zrow], dim=1)
@@ -68,9 +86,17 @@ def tv_shard_step_plain(x, p_in, p_out, out, active, weight, up_p0, dn_x,
         dn1 = row(dn_p1)
         ddn = -(row(dn_p0) + dn1)
         ddn = ddn + p0[:, -1:]
-        ddn = ddn + torch.cat([zrow[:, :, :1], dn1[:, :, :-1]], dim=2)
+        ddn = ddn + torch.cat([lf[:, hs:], dn1[:, :, :-1]], dim=2)
         gy = torch.cat([o[:, 1:], row(dn_x) + ddn], dim=1) - o
-    gx = torch.cat([o[:, :, 1:] - o[:, :, :-1], zcol], dim=2)
+    if grlast:
+        gx = torch.cat([o[:, :, 1:] - o[:, :, :-1], zcol], dim=2)
+    else:
+        # the right tile's first column of out, from its x, p0 and p1
+        r0 = col(rt_p0, hs + 1)
+        drt = -(r0[:, 1:] + col(rt_p1))
+        drt = drt + r0[:, :-1]
+        drt = drt + p1[:, :, -1:]
+        gx = torch.cat([o[:, :, 1:], col(rt_x) + drt], dim=2) - o
     norm = torch.sqrt(gy * gy + gx * gx)
     scale = norm * _TAU / weight[:, None, None] + 1.0
     a = active.bool()
@@ -111,8 +137,13 @@ def solve_steps(x, weight, mesh, eps, max_iter, step, finalize):
     weight = as_n(weight, x)
     dev = x.device
     size = float(hs * mesh.n_space * w)      # the global H·W
-    dn_x = comm.rows_from_next(x, 1, mesh)
-    dn_x = None if dn_x is None else dn_x.reshape(n, w).contiguous()
+    two_d = mesh.n_sx > 1
+
+    def flat(v, length):
+        return None if v is None else v.reshape(n, length).contiguous()
+
+    dn_x = flat(comm.rows_from_next(x, 1, mesh), w)
+    rt_x = flat(comm.cols_from_next(x, 1, mesh), hs) if two_d else None
     p_cur = torch.zeros((n, 2, hs, w), dtype=torch.float32, device=dev)
     p_next = torch.empty_like(p_cur)
     out = torch.empty_like(x)
@@ -120,7 +151,8 @@ def solve_steps(x, weight, mesh, eps, max_iter, step, finalize):
     e_prev = torch.empty_like(e0)
     active = torch.ones(n, dtype=torch.int32, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
-    up = dn_p0 = dn_p1 = None                # p = 0 at iteration 0
+    # p = 0 at iteration 0
+    up = dn_p0 = dn_p1 = lf_p1 = rt_p0 = rt_p1 = None
     for i in range(max(int(max_iter), 1)):
         if (i and i % kernels._TV_CHECK_EVERY == 0
                 and not comm.any_all(active, mesh)):
@@ -128,13 +160,31 @@ def solve_steps(x, weight, mesh, eps, max_iter, step, finalize):
         if i:
             from_prev, from_next = comm.exchange_rows(
                 p_cur[:, 0, -1:], p_cur[:, :, :1], mesh)
-            up = None if from_prev is None else from_prev.reshape(n, w)
+            up = flat(from_prev, w)
             if from_next is not None:
-                dn_p0 = from_next[:, 0].reshape(n, w).contiguous()
-                dn_p1 = from_next[:, 1].reshape(n, w).contiguous()
-        sums = step(x, p_cur, p_next, out, active, weight,
-                    None if up is None else up.contiguous(), dn_x, dn_p0,
-                    dn_p1, mesh.is_last)
+                dn_p0 = flat(from_next[:, 0], w)
+                dn_p1 = flat(from_next[:, 1], w)
+        if i and two_d:
+            # the columns of the row-extended dual, corners included: to the
+            # right p1's last column and the row below's; to the left p0's
+            # first column under the row above's, and p1's first column
+            zero = x.new_zeros((n, 1))
+            to_right = torch.cat([p_cur[:, 1, :, -1],
+                                  zero if dn_p1 is None else dn_p1[:, -1:]],
+                                 dim=1)
+            to_left = torch.stack([
+                torch.cat([zero if up is None else up[:, :1],
+                           p_cur[:, 0, :, 0]], dim=1),
+                torch.cat([p_cur[:, 1, :, 0], zero], dim=1)], dim=1)
+            from_left, from_right = comm.exchange_cols(to_right, to_left,
+                                                       mesh)
+            lf_p1 = flat(from_left, hs + 1)
+            if from_right is not None:
+                rt_p0 = flat(from_right[:, 0], hs + 1)
+                rt_p1 = flat(from_right[:, 1, :hs], hs)
+        sums = step(x, p_cur, p_next, out, active, weight, up, dn_x, dn_p0,
+                    dn_p1, mesh.is_last, lf_p1, rt_x, rt_p0, rt_p1,
+                    mesh.is_last_col)
         finalize(comm.psum(sums, mesh), weight, e0, e_prev, active, iters,
                  i == 0, float(eps), size)
         p_cur, p_next = p_next, p_cur
@@ -150,27 +200,35 @@ def tv_sharded_kernel(x: torch.Tensor, weight, mesh, eps: float = 2e-4,
 
 def tv_sharded_plain(x: torch.Tensor, weight, mesh, eps: float = 2e-4,
                      max_iter: int = 200):
-    """The plain PyTorch version of the sharded solve: the JAX layer's 1-D
-    XLA body (``tv_sp.py:223-301``) with the energies summed in float64, as
-    ``mdx_torch.ops.tv.tv_chambolle_plain`` sums them → (out, iterations).
-    Reads the stop flag every iteration."""
+    """The plain PyTorch version of the sharded solve: the JAX layer's XLA
+    body (``tv_sp.py:223-301``, with ``col_axis`` on a 2-D grid) with the
+    energies summed in float64, as ``mdx_torch.ops.tv.tv_chambolle_plain``
+    sums them → (out, iterations).  Reads the stop flag every iteration."""
     n, hs, w = x.shape
     weight = as_n(weight, x, x.dtype)
     wcol = weight[:, None, None]
     size = float(hs * mesh.n_space * w)
     zrow = x.new_zeros((n, 1, w))
     zcol = x.new_zeros((n, hs, 1))
+    two_d = mesh.n_sx > 1
 
-    def shift_from_prev(v):
-        """Row i gets global row i−1 of v (zeros above the image)."""
-        prev = comm.rows_from_prev(v, 1, mesh)
-        return torch.cat([zrow if prev is None else prev, v[:, :-1]], dim=1)
+    def shift_from_prev(v, axis=1):
+        """Element i along ``axis`` gets global element i−1 of v (zeros
+        before the image)."""
+        prev = (comm.rows_from_prev if axis == 1
+                else comm.cols_from_prev)(v, 1, mesh)
+        if prev is None:
+            prev = zrow if axis == 1 else zcol
+        return torch.cat([prev, v.narrow(axis, 0, v.shape[axis] - 1)],
+                         dim=axis)
 
-    def diff_with_next(v):
-        """Global v[i+1] − v[i], zero at the global bottom row."""
-        nxt = comm.rows_from_next(v, 1, mesh)
-        nxt = v[:, -1:] if nxt is None else nxt
-        return torch.cat([v, nxt], dim=1)[:, 1:] - v
+    def diff_with_next(v, axis=1):
+        """Global v[i+1] − v[i] along ``axis``, zero at the global end."""
+        size_ax = v.shape[axis]
+        nxt = (comm.rows_from_next if axis == 1
+               else comm.cols_from_next)(v, 1, mesh)
+        nxt = v.narrow(axis, size_ax - 1, 1) if nxt is None else nxt
+        return torch.cat([v, nxt], dim=axis).narrow(axis, 1, size_ax) - v
 
     def energy_and_out(p0, p1, first):
         if first:
@@ -179,10 +237,12 @@ def tv_sharded_plain(x: torch.Tensor, weight, mesh, eps: float = 2e-4,
         else:
             d = -(p0 + p1)
             d = d + shift_from_prev(p0)
-            d = d + torch.cat([zcol, p1[:, :, :-1]], dim=2)
+            d = d + (shift_from_prev(p1, 2) if two_d
+                     else torch.cat([zcol, p1[:, :, :-1]], dim=2))
             o = x + d
         gy = diff_with_next(o)
-        gx = torch.cat([o[:, :, 1:] - o[:, :, :-1], zcol], dim=2)
+        gx = (diff_with_next(o, 2) if two_d
+              else torch.cat([o[:, :, 1:] - o[:, :, :-1], zcol], dim=2))
         norm = torch.sqrt(gy * gy + gx * gx)
         sums = comm.psum(torch.stack(
             [(d * d).sum(dim=(1, 2), dtype=torch.float64),
@@ -217,7 +277,7 @@ def tv_sharded_plain(x: torch.Tensor, weight, mesh, eps: float = 2e-4,
 
 def tv_sharded(x: torch.Tensor, weight, mesh, eps: float = 2e-4,
                max_iter: int = 200):
-    """TV denoise of the global images from this rank's [N, Hs, W] block
+    """TV denoise of the global images from this rank's [N, Hs, Ws] block
     with a per-image (or scalar) weight → (out block, iterations [N]):
     kernel 12 on a CUDA tensor, :func:`tv_sharded_plain` on a CPU one."""
     if kernels.use_kernel(x):

@@ -1,15 +1,17 @@
-"""Sharded BayesShrink db1 denoise over row blocks.
+"""Sharded BayesShrink db1 denoise over row blocks or tiles.
 
 Counterpart of ``mdx/parallel/wavelet_sp.py`` (skimage ``denoise_wavelet``
 semantics, ref pipeline/enhancement.py:270-273).  For even lengths the Haar
 transform of a block touches only the block (output j reads inputs 2j,
 2j+1), so the dense ``dwt2``/``idwt2`` on each block equal the global
-transform while the block's rows stay even:
+transform while the block's sharded extents stay even:
 
-1. levels ``1 … j_local`` (the deepest with even block rows) run the dense
-   ``dwt2`` on the block, with no communication;
-2. the coarser levels gather the small LL image (all_gather over ``space``)
-   and run the dense ``wavedec2 → BayesShrink → waverec2`` on every rank;
+1. levels ``1 … j_local`` (the deepest with even block rows, and on a 2-D
+   grid even tile columns) run the dense ``dwt2`` on the block, with no
+   communication;
+2. the coarser levels gather the small LL image over the tile group (both
+   axes) and run the dense ``wavedec2 → BayesShrink → waverec2`` on every
+   rank, which takes its own rows and columns back;
 3. the noise sigma, when not given, is the exact distributed median of the
    level-1 |HH|;
 4. each fine band's threshold needs the global mean of its squares: summed
@@ -54,17 +56,20 @@ def denoise_wavelet_sharded(x: torch.Tensor, mesh, sigma=None,
                             wavelet_levels: int | None = None,
                             soft_mask: torch.Tensor | None = None
                             ) -> torch.Tensor:
-    """BayesShrink db1 denoise of this rank's [N, Hs, W] block of the
+    """BayesShrink db1 denoise of this rank's [N, Hs, Ws] block of the
     global images.  ``sigma``: None (the distributed MAD estimate), a scalar
     or [N]; ``soft_mask`` ([N] bool) selects soft/hard per image and
-    overrides ``mode``.  Block rows must be even (the entry points check)."""
+    overrides ``mode``.  Block rows (and, on a 2-D grid, columns) must be
+    even (the entry points check)."""
     n, hs, ws = x.shape
-    if hs % 2:
-        raise ValueError(f"sharded wavelet denoise needs even block rows, "
-                         f"got {hs}")
+    two_d = mesh.n_sx > 1
+    if hs % 2 or (two_d and ws % 2):
+        raise ValueError(f"sharded wavelet denoise needs even block extents, "
+                         f"got {hs}x{ws}")
     levels = (wavelet_levels if wavelet_levels is not None
-              else default_levels((hs * mesh.n_space, ws), "db1"))
-    j_local = min(levels, _trailing_pow2(hs))
+              else default_levels((hs * mesh.n_sy, ws * mesh.n_sx), "db1"))
+    j_local = min(levels, _trailing_pow2(hs),
+                  *((_trailing_pow2(ws),) if two_d else ()))
 
     # 1. fine levels: dense dwt2 on the block
     ll = x
@@ -97,15 +102,16 @@ def denoise_wavelet_sharded(x: torch.Tensor, mesh, sigma=None,
 
     # 2. coarse levels: gather the small LL and run the dense machinery
     if j_local < levels:
-        llg = comm.gather_rows(ll, mesh)
+        llg = comm.gather_tiles(ll, mesh)
         ll_deep, deep_details, deep_shapes = wavedec2(llg, "db1",
                                                       levels - j_local)
         deep_new = [tuple(_threshold(b, (_sq_sum(b) / b[0].numel())
                                      .to(x.dtype)) for b in det)
                     for det in deep_details]
         llg = waverec2(ll_deep, deep_new, deep_shapes, "db1")
-        rows = ll.shape[1]
-        ll = llg[:, mesh.space_index * rows:(mesh.space_index + 1) * rows]
+        rows, cols = ll.shape[1], ll.shape[2]
+        r, c = mesh.row_index, mesh.col_index
+        ll = llg[:, r * rows:(r + 1) * rows, c * cols:(c + 1) * cols]
 
     # 4. fine levels: global mean of squares per band, pointwise threshold,
     #    dense idwt2 on the block back up

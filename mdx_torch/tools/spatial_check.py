@@ -1,16 +1,18 @@
 """Check and time the spatially-sharded QA path on the card.
 
-    python -m mdx_torch.tools.spatial_check [--n-space 4] [--size 2048]
-                                            [--trace]
+    python -m mdx_torch.tools.spatial_check [--n-space 4 | --layout 2x2]
+                                            [--size 2048] [--trace]
 
-Runs :func:`rank_check` on ``--n-space`` ranks (the backend rule of
+Runs :func:`rank_check` on ``--n-space`` row blocks or a ``--layout SYxSX``
+grid of tiles, one rank each (the backend rule of
 ``mdx_torch.parallel.mesh``: NCCL with one card per rank, gloo when they
 share one) on one ``make_batch`` frame and prints one JSON line: per-call
 ms of ``qa_plan_spatial`` (median of synchronised reps inside the ranks,
 spawn excluded), the backend, host round trips per call, kernel launches
 and the replay errors of the recorded kernels; with ``--trace`` also rank
 0's device time, idle share and top kernels of one traced call.
-``chip_smoke.py`` phase 9 runs the same rank function.
+``chip_smoke.py`` phases 9 (row blocks) and 10 (tiles) run the same rank
+function.
 
 :func:`rank_check` runs on every rank: the bench plan's ``qa_plan_block``
 with the launch counters reset and, on rank 0, every call of kernels 11
@@ -217,20 +219,25 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-space", type=int, default=4)
+    ap.add_argument("--layout", type=str, default=None,
+                    help="a grid of tiles SYxSX (e.g. 2x2) instead of "
+                         "--n-space row blocks")
     ap.add_argument("--size", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace", action="store_true",
                     help="trace one more call on rank 0 (torch.profiler)")
     a = ap.parse_args()
+    n_space = (tuple(int(v) for v in a.layout.lower().split("x"))
+               if a.layout else a.n_space)
     x = make_batch(1, a.size, seed=4)
     t0 = time.perf_counter()
-    res = launch.run(rank_check, x, *bench_plan("cpu"), n_space=a.n_space,
+    res = launch.run(rank_check, x, *bench_plan("cpu"), n_space=n_space,
                      device="cuda", reps=a.reps, trace=a.trace)
     r0 = res.results[0]
     print(json.dumps({
         "trace": r0.get("trace"),
         "stage_s": r0["stage_s"],
-        "card": card_line(), "n_space": a.n_space, "size": a.size,
+        "card": card_line(), "n_space": res.n_space, "size": a.size,
         "backend": res.backend, "devices": res.devices,
         "plan_ms_median": statistics.median(r0["plan_ms"]),
         "plan_ms": [float(v) for v in r0["plan_ms"]],

@@ -319,6 +319,64 @@ def test_tv_shard_step_kernel(dev, shape, glast, rows):
     assert ok, f"tv_shard_step: max|d| {err}"
 
 
+# kernel 12's column-halo form on an interior [1,64,64] tile: every halo
+# given, or one of them null (zeros), against the plain step
+@pytest.mark.parametrize("null", [None, "lf_p1", "rt_x", "rt_p0", "rt_p1",
+                                  "grlast"])
+def test_tv_shard_step_column_halos(dev, null):
+    n, h, w = 1, 64, 64
+    x = _batch(25, n, h, w, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *s: 0.05 * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    cols = {"lf_p1": rnd(n, h + 1), "rt_x": x[:, :, -1].contiguous(),
+            "rt_p0": rnd(n, h + 1), "rt_p1": rnd(n, h)}
+    if null in cols:
+        cols[null] = None
+    args = (x, rnd(n, 2, h, w), rnd(n, 2, h, w), rnd(n, h, w),
+            torch.ones(n, dtype=torch.int32, device=dev),
+            torch.full((n,), 0.05, device=dev), rnd(n, w),
+            x[:, 0].contiguous(), rnd(n, w), rnd(n, w), False,
+            cols["lf_p1"], cols["rt_x"], cols["rt_p0"], cols["rt_p1"],
+            null == "grlast")
+    kernels.reset_launches()
+    err, ok = SC.compare_call("tv_shard_step", args)
+    assert kernels.LAUNCHES["tv_shard_step"] == 1
+    assert ok, f"tv_shard_step: max|d| {err}"
+
+
+def test_sharded_tv_solve_on_a_2x2_grid_over_gloo(dev):
+    """Four ranks on the card (gloo), a 2 x 2 grid of tiles: the kernel
+    solve equals the plain 2-D body and the dense kernel, with equal
+    iteration counts."""
+    x = _batch(26, 2, 128, 96, "cpu").numpy()
+    w = torch.tensor([0.1, 0.02])
+    res = launch.run(launch.call_each, x, n_space=(2, 2), device="cuda",
+                     timeout_s=300, calls=[
+                         (tv_sp.tv_sharded, (Block(0), w), {}),
+                         (tv_sp.tv_sharded_plain, (Block(0), w), {})])
+    tiles = lambda i: launch.assemble(  # noqa: E731
+        [{"t": r[i][0]} for r in res.results], 1, (2, 2),
+        block_keys=("t",))["t"]
+    dense, it = kernels.tv_chambolle(torch.from_numpy(x).to(dev), w.to(dev))
+    for r in res.results:
+        assert r[0][1].tolist() == r[1][1].tolist() == it.tolist()
+    np.testing.assert_array_equal(tiles(0), tiles(1))
+    _assert_kernel_parity("tv_shard_step", torch.from_numpy(tiles(0)),
+                          dense.cpu())
+
+
+def test_probe_suite_all_ok(dev):
+    """Kernel 13: the 18 capability probes build (one nvcc each) and equal
+    their plain versions."""
+    from mdx_torch.tools import probe_nvcc as PN
+
+    res = PN.run_suite()
+    assert set(res) == set(PN.PROBES)
+    bad = {n: r for n, r in res.items()
+           if r["result"] != "ok" or not r["library_equal"]}
+    assert not bad, bad
+
+
 def test_spatial_wrappers_refuse(dev):
     x = _batch(23, 2, 64, 64, dev)
     lut = _lut_ext(x, 16)

@@ -113,7 +113,7 @@ CASES = {}
 for m in MODES:
     CASES[f"halo_{m}"] = (spatial.halo_rows, (Block(0), 3, 2),
                           {"edge_mode": m})
-CASES["gather"] = (comm.gather_rows, (Block(0),), {})
+CASES["gather"] = (comm.gather_tiles, (Block(0),), {})
 CASES["psum_img"] = (spatial.psum_img, (Block(3),), {})
 CASES["pmax_img"] = (spatial.pmax_img, (Block(3),), {})
 CASES["pq"] = (spatial.pq, (Block(3), QS), {})

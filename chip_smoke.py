@@ -14,6 +14,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    [4,512,512], held to ``mdx_torch.parity.KERNEL_TOL``; TV's per-image
    iteration counts must be equal; the wavelet denoise soft, hard, with a
    mixed soft mask and with ``sigma=None`` through ``denoise_wavelet``.
+   TV's blocked schedule (s iterations a launch): caps 1 .. 2s + 1 with
+   eps = 0 (a stop at every offset of a launch, short last launches), a
+   batch whose images stop in three different launches, and the shapes
+   [2,5,7], [3,33,129] and [2,1024,1100], each with its schedule
+   (iterations a launch, launches, host flag reads).
 4. slice   — ``qa_plan`` with the bench plan and ``qa_deterministic`` on
    [2,512,512], on the card (kernels) against the CPU (plain versions),
    within the tolerances of ``mdx_torch.parity``.
@@ -22,8 +27,12 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    launched and every output must be finite.  Every kernel call of that run
    is recorded and replayed against the plain version on the same inputs
    (TV on the chain's intermediate, as the main path gives it).  Then
-   times: img/s (median of synchronised reps) and each kernel against its
-   plain version at 32x512^2, whose outputs are compared too.
+   times: img/s (median of synchronised reps), the pass's rows ``qa_plan
+   total``, ``image_stats`` and ``op tv_denoise``
+   (``mdx_torch.tools.profile_pass``) and the traced idle share of one
+   ``qa_plan``, and each kernel against its plain version at 32x512^2,
+   whose outputs are compared too (TV: iterations a launch, ms per
+   iteration, host flag reads per solve).
 6. 2048^2  — BASELINE config 2 and the large-slice path:
    1. each kernel against its plain version at [1,2048,2048] (the wavelet
       cases of phase 3 at [2,2048,2048]);
@@ -38,9 +47,10 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       must launch, outputs finite, every kernel call replayed;
    4. config 2's ``apply_plan`` at [1,2048,2048] on the card against the
       CPU, within ``parity.breaches``;
-   5. times: config 2 at 64x2048^2 (ms per batch, img/s, peak memory) and
-      each kernel against its plain version at 16x2048^2, the group the
-      2048^2 path hands each kernel.
+   5. times: config 2 at 64x2048^2 (ms per batch, img/s, peak memory),
+      the pass's rows at 16x2048^2 as in phase 5, and each kernel against
+      its plain version at 16x2048^2, the group the 2048^2 path hands
+      each kernel.
 7. tuning  — ``mdx_torch.core.tuning`` at full size:
    1. ``autotune`` on one 512^2 frame with issues noise and blur (27
       lanes), on one 2048^2 frame (27 lanes in 3 groups of 9) and
@@ -381,6 +391,71 @@ def _wavelet_cases(torch, check, x, label: str) -> None:
                   W.denoise_wavelet_plain(x, soft_mask=masks["mixed"]))
 
 
+def _wavy(torch, seed: int, n: int, h: int, w: int, dev):
+    """A seeded [n,h,w] batch: a smooth pattern plus Gaussian noise, clipped
+    to [0,1] (the card tests' ``_batch``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 0.45 + 0.3 * np.sin(xx / 7.0) * np.cos(yy / 11.0)
+    x = np.clip(base[None] + rng.normal(0, 0.1, (n, h, w)), 0.0, 1.0)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _tv_cases(torch, kernels, check, dev) -> None:
+    """Kernel T's blocked schedule against the plain version (phase 3):
+    counts equal and pixels within KERNEL_TOL in every case."""
+    s = kernels.tv_steps()
+
+    def case(label, x, w, eps=2e-4, max_iter=200):
+        got = kernels.tv_chambolle(x, w, eps, max_iter)
+        solve = dict(kernels.TV_LAST_SOLVE)
+        want = check.plain["tv_chambolle"](x, w, eps, max_iter)
+        check.compare(label, "tv_chambolle", got, want)
+        print(f"  schedule: {solve['steps']} iterations a launch, "
+              f"{solve['launches']} launches, {solve['host_reads']} host "
+              f"flag reads")
+        return got[1].tolist()
+
+    x = _wavy(torch, 6, 2, 32, 32, dev)
+    w2 = torch.full((2,), 0.05, device=dev)
+    for cap in range(1, 2 * s + 2):
+        it = case(f"tv [2,32,32] eps 0 cap {cap} (last launch ends at "
+                  f"offset {(cap - 1) % s})", x, w2, 0.0, cap)
+        _require(it == [cap, cap], f"tv cap {cap}: counts {it}")
+    x = _wavy(torch, 7, 1, 40, 56, dev).repeat(3, 1, 1)
+    it = case("tv [3,40,56] mixed stops", x,
+              torch.tensor([0.01, 0.03, 0.5], device=dev))
+    launches = sorted({(c - 1) // s for c in it})
+    print(f"  stops in launches {launches} of {s} iterations")
+    _require(len(launches) == 3, f"tv mixed stops: launches {launches}")
+    w3 = torch.tensor([0.05, 0.1, 0.02], device=dev)
+    for shape in ((2, 5, 7), (3, 33, 129), (2, 1024, 1100)):
+        label = "tv [" + ",".join(map(str, shape)) + "]"
+        case(label, _wavy(torch, 5, *shape, dev), w3[:shape[0]])
+
+
+def _pass_rows(torch, x, static, dyn, card: str, trace: bool) -> None:
+    """The pass's rows (``tools/profile_pass.py``) at ``x``'s shape, and
+    with ``trace`` the idle share of one traced ``qa_plan``."""
+    from mdx_torch.tools import profile_pass as PP
+
+    label = ",".join(map(str, x.shape))
+    for row, ms in PP.phases(x, static, dyn, PP.REPS,
+                             only=("qa_plan total", "image_stats",
+                                   "op tv_denoise")):
+        print(f"pass [{label}] {row} on {card}: {ms!r} ms (median of "
+              f"{PP.REPS})")
+    if trace:
+        t = PP.traced_pass(x, static, dyn,
+                           PP.ROOT / "build" / "chip_smoke_trace.json")
+        print(f"pass [{label}] traced qa_plan on {card}: wall "
+              f"{t['wall_us'] / 1e3!r} ms, {len(t['kernels'])} device "
+              f"kernels, busy {t['busy_us'] / 1e3!r} ms, idle share "
+              f"{1 - t['busy_us'] / t['wall_us']!r}")
+
+
 def _require_finite(label: str, flat: dict, n: int, hw: int) -> None:
     _require(flat["enhanced"].shape == (n, hw, hw),
              f"{label}: enhanced shape {flat['enhanced'].shape}")
@@ -423,7 +498,16 @@ def _time_kernels(torch, kernels, check, x, params, card: str) -> dict:
         out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by}
         if k == "tv_chambolle":
-            out[k]["iterations"] = outs["kernel"][1].tolist()
+            iters = outs["kernel"][1].tolist()
+            solve = kernels.TV_LAST_SOLVE
+            out[k].update(iterations=iters, steps=solve["steps"],
+                          launches_per_solve=solve["launches"],
+                          host_reads=solve["host_reads"],
+                          ms_per_iteration=ms / max(iters))
+            print(f"  tv [{label}]: {solve['steps']} iterations a launch, "
+                  f"iterations {iters}, {ms / max(iters)!r} ms per "
+                  f"iteration, {solve['launches']} launches, "
+                  f"{solve['host_reads']} host flag reads per solve")
         del outs
     check.require_ok()
     return out
@@ -1021,6 +1105,7 @@ def main() -> int:
     for k, args in _args_for(torch, x4, PLAN_PARAMS).items():
         check.run("[4,512,512]", k, args)
     _wavelet_cases(torch, check, x4, "[4,512,512]")
+    _tv_cases(torch, kernels, check, dev)
     check.require_ok()
     del x4
 
@@ -1079,6 +1164,7 @@ def main() -> int:
         print(f"{label} [{SIZE_N},512,512] on {card}: median {med!r} ms "
               f"of {REPS} reps (min {min(times)!r}, max {max(times)!r}), "
               f"{SIZE_N / med * 1e3!r} img/s")
+    _pass_rows(torch, x32, static, dyn, card, trace=True)
     times_512 = _time_kernels(torch, kernels, check, x32, PLAN_PARAMS, card)
     del x32
     print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s")
@@ -1170,6 +1256,7 @@ def main() -> int:
           f"median {med!r} ms per batch of {REPS} reps (min {min(times)!r}, "
           f"max {max(times)!r}), {CONFIG2_N / med * 1e3!r} img/s, peak "
           f"memory {peak!r} GiB")
+    _pass_rows(torch, x16, static, dyn, card, trace=False)
     times_big = _time_kernels(torch, kernels, check, x16, PLAN_PARAMS, card)
     del x64, x1, x16
     print(f"phase 6: {time.perf_counter() - t6:.1f} s")

@@ -67,9 +67,11 @@ def candidate_grid(issues: list[str]) -> list[dict[str, Any]]:
     return out
 
 
-def _sweep(x: torch.Tensor, cands: list[dict], reps: int, ops, tile_size):
+def _sweep(x: torch.Tensor, cands: list[dict], reps: int, ops, tile_size,
+           tv_mode: str | None):
     """``qa_plan`` over ``x`` [N*K, H, W] with candidate ``cands`` repeated
-    ``reps`` times as the lanes' parameters."""
+    ``reps`` times as the lanes' parameters; ``tv_mode`` as
+    :func:`mdx_torch.ops.tv.resolve_tv_mode` takes it."""
     from mdx_torch.core import qa
     from mdx_torch.core.enhance import PlanDynamic, PlanStatic
 
@@ -78,7 +80,8 @@ def _sweep(x: torch.Tensor, cands: list[dict], reps: int, ops, tile_size):
         return per.repeat(reps).to(x.device)
 
     static = PlanStatic(ops=tuple(ops), tile_size=tile_size, bilateral_d=0,
-                        tv_mode=resolve_tv_mode(), plan_order=tuple(ops))
+                        tv_mode=resolve_tv_mode(tv_mode),
+                        plan_order=tuple(ops))
     dyn = PlanDynamic(
         clahe_clip_limit=vec("clahe_clip_limit"),
         gamma=vec("gamma"),
@@ -114,16 +117,21 @@ def autotune(
     ops: tuple[str, ...] = DEFAULT_OPS,
     tile_size: int = 16,
     device: torch.device | str = "cuda",
+    tv_mode: str | None = None,
 ) -> tuple[EnhancementPlan, np.ndarray, list[IterationRecord]]:
     """Sweep the candidate grid in one batched pass; return the best plan,
     its enhanced image and per-candidate IterationRecords.
 
-    ``image``: [H, W] float32 in [0,1]."""
+    ``image``: [H, W] float32 in [0,1].  ``tv_mode``: "ref" (None) or
+    "fast", the TV cap of a sweep whose ``ops`` hold ``tv_denoise`` (the JAX
+    package reads it from ``MDX_TV_MODE``; the port takes it as an
+    argument)."""
     cands = candidate_grid(issues)
     k = len(cands)
     x = torch.as_tensor(np.asarray(image, np.float32), device=device)
     x = x[None].expand((k,) + tuple(x.shape)).contiguous()
-    enhanced, _flags, validation, score = _sweep(x, cands, 1, ops, tile_size)
+    enhanced, _flags, validation, score = _sweep(x, cands, 1, ops, tile_size,
+                                                 tv_mode)
     plans, records, best = plan_records(
         cands, ops, tile_size, score.cpu().numpy(),
         validation["ssim"].cpu().numpy(), validation["psnr"].cpu().numpy(),
@@ -161,13 +169,14 @@ def autotune_batch(
     ops: tuple[str, ...] = DEFAULT_OPS,
     tile_size: int = 16,
     device: torch.device | str = "cuda",
+    tv_mode: str | None = None,
 ) -> tuple[list[EnhancementPlan], np.ndarray, np.ndarray]:
     """Per-frame autotune over a whole [N,H,W] stack in one batched pass.
 
     Every frame is repeated across the same K-candidate grid (the union
     grid of the batch's issues) as an [N·K] lane stack; a per-frame argmax
-    picks each frame's best plan.  Returns (best plan per frame, enhanced
-    [N,H,W], scores [N,K])."""
+    picks each frame's best plan; ``tv_mode`` as in :func:`autotune`.
+    Returns (best plan per frame, enhanced [N,H,W], scores [N,K])."""
     union_issues = sorted({i for iss in issues_per_image for i in iss})
     cands = candidate_grid(union_issues)
     k = len(cands)
@@ -175,7 +184,7 @@ def autotune_batch(
     x = torch.as_tensor(np.asarray(images, np.float32), device=device)
     x = x.repeat_interleave(k, dim=0)                       # [N·K,H,W]
     enhanced, _flags, _validation, score = _sweep(x, cands, n, ops,
-                                                  tile_size)
+                                                  tile_size, tv_mode)
     scores = score.cpu().numpy().reshape(n, k)
     best = np.argmax(scores, axis=1)                        # [N]
     rows = torch.as_tensor(np.arange(n) * k + best, device=enhanced.device)

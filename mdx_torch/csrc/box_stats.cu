@@ -4,41 +4,79 @@
 //
 // Replaces the TPU kernel mdx/ops/pallas_kernels.py box_stats_tpu /
 // _box_stats_kernel / _k_sep_box, which keeps one whole padded image in
-// VMEM.  A 512^2 image does not fit one SM's shared memory, so here:
-//   1. box_maps_kernel: one block per 32x32 output tile, a 47x47 halo of
-//      the mirror-padded image in shared memory (pad 8 before, 7 after;
-//      the 7-window reads it at offset 5).  Row sums, x1/size, column
-//      sums, x1/size: the order of mdx.ops.filters.box_filter.  Writes the
-//      sqrt(lv7) and lv16 maps.
-//   2. the two-pass (centred) mean and population std of both maps, in
-//      float64, each pass in two stages: box_partial_kernel, one block per
-//      (image, chunk of the maps), sums its chunk in a fixed tree;
-//      box_finalize_kernel, one block per image, sums the image's chunk
-//      sums in a fixed tree.  No float atomics, and the chunks depend only
-//      on the image size, so the result is the same on every run.  (One
-//      block per image would put a group of 4 images at 2048^2 on 4 of
-//      the 132 SMs.)
-// Bound: memory.  Pass 1 reads the image once (halo re-reads hit L2) and
-// writes two maps; pass 2 reads the maps twice.  About 5 full-image f32
-// passes of device memory traffic per image, against the one read of the
-// image the function needs; fusing pass 2's first sweep into pass 1 is
-// the next step.
+// VMEM.  A 512^2 image does not fit one SM's shared memory, so the maps are
+// made per tile and never stored: one pass over x.
+//   1. box_fused_kernel: one block per 32x32 output tile, a 47x47 halo of
+//      the mirror-padded image in shared memory (pad 8 before, 7 after; the
+//      7-window reads it at offset 5).  Row sums, x1/size, column sums,
+//      x1/size: the order of mdx.ops.filters.box_filter, so each pixel's
+//      sqrt(lv7) (a) and lv16 (b) are the plain version's float32 values.
+//      They are reduced in registers and a fixed shared-memory tree to four
+//      float64 partials per block: sum a, sum a^2, sum b, sum b^2.  A
+//      thread sums 4 neighbouring windows (4 rows in the row pass, 4
+//      columns in the column pass) from taps it loads once, each window
+//      still in box_filter's order.
+//   2. box_finalize_kernel: one block per image sums its blocks' partials
+//      in a fixed order and forms mean = sum / n and the population
+//      variance sum^2 / n - mean^2 in float64, each result rounded to
+//      float32 once.  Float64 leaves a relative error of about
+//      1e-16 * mean^2 / var, far inside KERNEL_TOL's 1e-6 (the two-sweep
+//      form, the maps recomputed in a second read of x for centred
+//      deviations, would be the answer to a breach; none is measured).
+// No float atomics, and the blocks depend only on the image size, so the
+// result is the same on every run.
+// Bound: operations (the 7x7 and 16x16 sums of x and x^2 both ways, about
+// 130 float32 operations a pixel) against one read of x; two launches,
+// no maps in device memory (the design before read and wrote about five
+// image-sized float32 passes in five launches).  On an H100 the kernel is
+// bound by its instructions, not bytes: the 4-window blocking took 0.165
+// to 0.142 ms at 32 x 512^2, and finding each padded row's and column's
+// source index once (the mirror's integer remainders only at the image's
+// edges) instead of per cell took it to 0.108 (PERF.md).
 #include "common.cuh"
 
 namespace {
 
 constexpr int BT = 32;          // output tile edge
 constexpr int SP = BT + 15;     // padded tile edge: 8 before, 7 after
-constexpr int RED_T = 256;      // threads of a reduction block
+// row stride of the shared arrays: 49 = 17 (mod 32), so the column pass's
+// 32 lanes, one per row, read 32 different banks
+constexpr int LD = SP + 2;
+constexpr int BOX_T = 256;      // threads of a tile block (32 x 8)
+constexpr int RED_T = 256;      // threads of the finalize block
+constexpr int RR = 4;           // rows a thread sums in the row pass
+constexpr int CC = 4;           // columns a thread sums in the column pass
 
-__global__ void __launch_bounds__(256)
-box_maps_kernel(const float* __restrict__ x, float* __restrict__ lv7s,
-                float* __restrict__ lv16, int h, int w) {
-    __shared__ float s[SP][SP + 1];
-    __shared__ float r16[BT][SP + 1];
-    __shared__ float r16q[BT][SP + 1];
-    __shared__ float r7[BT][SP + 1];
-    __shared__ float r7q[BT][SP + 1];
+// The mirror-padded source index (mdx::sym_idx) of i, which is i itself
+// inside the image.
+__device__ __forceinline__ int pad_idx(int i, int n) {
+    return (unsigned)i < (unsigned)n ? i : mdx::sym_idx(i, n);
+}
+
+// Each window sum in box_filter's order (the first tap, then the others
+// one by one), for n outputs whose windows start at v[i], i < n: the
+// taps are loaded once for all of them.
+template <int N, int TAPS>
+__device__ __forceinline__ void window_sums(const float (&v)[N + TAPS - 1],
+                                            float (&acc)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        float a = v[i];
+#pragma unroll
+        for (int t = 1; t < TAPS; ++t) a = a + v[i + t];
+        acc[i] = a;
+    }
+}
+
+__global__ void __launch_bounds__(BOX_T)
+box_fused_kernel(const float* __restrict__ x, double* __restrict__ partials,
+                 int h, int w) {
+    __shared__ float s[SP][LD];
+    __shared__ float r16[BT][LD];
+    __shared__ float r16q[BT][LD];
+    __shared__ float r7[BT][LD];
+    __shared__ float r7q[BT][LD];
+    __shared__ double sh[BOX_T];
 
     const int img = blockIdx.z;
     const int i0 = blockIdx.y * BT;
@@ -46,151 +84,138 @@ box_maps_kernel(const float* __restrict__ x, float* __restrict__ lv7s,
     const size_t plane = (size_t)h * w;
     const float* xi = x + img * plane;
     const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nth = blockDim.x * blockDim.y;
 
-    for (int k = tid; k < SP * SP; k += nth) {
-        const int a = k / SP, b = k % SP;
-        const int gi = mdx::sym_idx(i0 + a - 8, h);
-        const int gj = mdx::sym_idx(j0 + b - 8, w);
-        s[a][b] = xi[(size_t)gi * w + gj];
+    // the padded tile: a thread's two source columns once, then a source
+    // row per padded row (the mirror only at the image's edges)
+    const int b1 = threadIdx.x + 32;
+    const int gj0 = pad_idx(j0 + (int)threadIdx.x - 8, w);
+    const int gj1 = b1 < SP ? pad_idx(j0 + b1 - 8, w) : 0;
+    for (int a = threadIdx.y; a < SP; a += BOX_T / 32) {
+        const float* row = xi + (size_t)pad_idx(i0 + a - 8, h) * w;
+        s[a][threadIdx.x] = row[gj0];
+        if (b1 < SP) s[a][b1] = row[gj1];
     }
     __syncthreads();
 
     const float inv16 = (float)(1.0 / 16.0);
     const float inv7 = (float)(1.0 / 7.0);
-    // row pass (along H) over every padded column
-    for (int k = tid; k < BT * SP; k += nth) {
-        const int a = k / SP, b = k % SP;
-        float v = s[a][b];
-        float acc = v, accq = v * v;
-        for (int t = 1; t < 16; ++t) {
-            v = s[a + t][b];
-            acc = acc + v;
-            accq = accq + v * v;
+    // row pass (along H) over every padded column: RR output rows a thread
+    for (int k = tid; k < (BT / RR) * SP; k += BOX_T) {
+        const int a0 = (k / SP) * RR, b = k % SP;
+        float v[RR + 15], q[RR + 15];
+#pragma unroll
+        for (int t = 0; t < RR + 15; ++t) {
+            v[t] = s[a0 + t][b];
+            q[t] = v[t] * v[t];
         }
-        r16[a][b] = acc * inv16;
-        r16q[a][b] = accq * inv16;
-        v = s[a + 5][b];
-        acc = v;
-        accq = v * v;
-        for (int t = 1; t < 7; ++t) {
-            v = s[a + 5 + t][b];
-            acc = acc + v;
-            accq = accq + v * v;
+        float m16[RR], q16[RR];
+        window_sums<RR, 16>(v, m16);
+        window_sums<RR, 16>(q, q16);
+        float v7[RR + 6], q7[RR + 6];
+#pragma unroll
+        for (int t = 0; t < RR + 6; ++t) {
+            v7[t] = v[t + 5];
+            q7[t] = q[t + 5];
         }
-        r7[a][b] = acc * inv7;
-        r7q[a][b] = accq * inv7;
+        float m7[RR], qq7[RR];
+        window_sums<RR, 7>(v7, m7);
+        window_sums<RR, 7>(q7, qq7);
+#pragma unroll
+        for (int i = 0; i < RR; ++i) {
+            r16[a0 + i][b] = m16[i] * inv16;
+            r16q[a0 + i][b] = q16[i] * inv16;
+            r7[a0 + i][b] = m7[i] * inv7;
+            r7q[a0 + i][b] = qq7[i] * inv7;
+        }
     }
     __syncthreads();
 
-    // column pass (along W) and the local variances
-    for (int k = tid; k < BT * BT; k += nth) {
-        const int a = k / BT, c = k % BT;
-        const int i = i0 + a, j = j0 + c;
-        if (i >= h || j >= w) continue;
-        float m = r16[a][c], mq = r16q[a][c];
-        for (int t = 1; t < 16; ++t) {
-            m = m + r16[a][c + t];
-            mq = mq + r16q[a][c + t];
-        }
-        m = m * inv16;
-        mq = mq * inv16;
-        const float v16 = fmaxf(mq - m * m, 0.0f);
-        float m7 = r7[a][c + 5], m7q = r7q[a][c + 5];
-        for (int t = 1; t < 7; ++t) {
-            m7 = m7 + r7[a][c + 5 + t];
-            m7q = m7q + r7q[a][c + 5 + t];
-        }
-        m7 = m7 * inv7;
-        m7q = m7q * inv7;
-        const float v7 = fmaxf(m7q - m7 * m7, 0.0f);
-        const size_t o = img * plane + (size_t)i * w + j;
-        lv7s[o] = sqrtf(v7);
-        lv16[o] = v16;
+    // column pass (along W): lane = output row, CC output columns a
+    // thread; the local variances and their float64 sums
+    const int a = threadIdx.x, c0 = threadIdx.y * CC;
+    float m[CC], mq[CC], m7[CC], m7q[CC];
+    {
+        float v[CC + 15];
+#pragma unroll
+        for (int t = 0; t < CC + 15; ++t) v[t] = r16[a][c0 + t];
+        window_sums<CC, 16>(v, m);
+#pragma unroll
+        for (int t = 0; t < CC + 15; ++t) v[t] = r16q[a][c0 + t];
+        window_sums<CC, 16>(v, mq);
+    }
+    {
+        float v[CC + 6];
+#pragma unroll
+        for (int t = 0; t < CC + 6; ++t) v[t] = r7[a][c0 + 5 + t];
+        window_sums<CC, 7>(v, m7);
+#pragma unroll
+        for (int t = 0; t < CC + 6; ++t) v[t] = r7q[a][c0 + 5 + t];
+        window_sums<CC, 7>(v, m7q);
+    }
+    double sa = 0.0, saa = 0.0, sb = 0.0, sbb = 0.0;
+#pragma unroll
+    for (int i = 0; i < CC; ++i) {
+        if (i0 + a >= h || j0 + c0 + i >= w) continue;
+        const float mm = m[i] * inv16, mmq = mq[i] * inv16;
+        const float v16 = fmaxf(mmq - mm * mm, 0.0f);
+        const float n7 = m7[i] * inv7, n7q = m7q[i] * inv7;
+        const double v7s = (double)sqrtf(fmaxf(n7q - n7 * n7, 0.0f));
+        sa += v7s;
+        saa += v7s * v7s;
+        sb += (double)v16;
+        sbb += (double)v16 * (double)v16;
+    }
+    sa = mdx::block_sum<double, BOX_T>(sa, sh);
+    saa = mdx::block_sum<double, BOX_T>(saa, sh);
+    sb = mdx::block_sum<double, BOX_T>(sb, sh);
+    sbb = mdx::block_sum<double, BOX_T>(sbb, sh);
+    if (tid == 0) {
+        const size_t blk = (size_t)img * gridDim.x * gridDim.y
+                           + blockIdx.y * gridDim.x + blockIdx.x;
+        double* p = partials + 4 * blk;
+        p[0] = sa;
+        p[1] = saa;
+        p[2] = sb;
+        p[3] = sbb;
     }
 }
 
-// Pass 0: the sums of both maps over one chunk; pass 1: the sums of their
-// squared deviations from the means.  partials: [n, nchunk, 2].
-__global__ void __launch_bounds__(RED_T)
-box_partial_kernel(const float* __restrict__ lv7s,
-                   const float* __restrict__ lv16,
-                   const float* __restrict__ means,
-                   double* __restrict__ partials, int hw, int nchunk,
-                   int pass) {
-    __shared__ double sh[RED_T];
-    const int img = blockIdx.y, chunk = blockIdx.x;
-    const float* a = lv7s + (size_t)img * hw;
-    const float* b = lv16 + (size_t)img * hw;
-    const int len = (hw + nchunk - 1) / nchunk;
-    const int lo = chunk * len;
-    const int hi = min(lo + len, hw);
-    double sa = 0.0, sb = 0.0;
-    if (pass == 0) {
-        for (int k = lo + threadIdx.x; k < hi; k += RED_T) {
-            sa += a[k];
-            sb += b[k];
-        }
-    } else {
-        const float mean7 = means[2 * img], mean16 = means[2 * img + 1];
-        for (int k = lo + threadIdx.x; k < hi; k += RED_T) {
-            const float da = a[k] - mean7;
-            const float db = b[k] - mean16;
-            sa += (double)(da * da);
-            sb += (double)(db * db);
-        }
-    }
-    sa = mdx::block_sum<double, RED_T>(sa, sh);
-    sb = mdx::block_sum<double, RED_T>(sb, sh);
-    if (threadIdx.x == 0) {
-        const size_t o = ((size_t)img * nchunk + chunk) * 2;
-        partials[o] = sa;
-        partials[o + 1] = sb;
-    }
-}
-
-// Pass 0: means [n, 2] (lv7s, lv16); pass 1: out [n, 3].
+// The image's four sums over its blocks in a fixed order → out [n, 3]:
+// std(sqrt(lv7)), mean(lv16), std(lv16) (population std).
 __global__ void __launch_bounds__(RED_T)
 box_finalize_kernel(const double* __restrict__ partials,
-                    float* __restrict__ means, float* __restrict__ out,
-                    int hw, int nchunk, int pass) {
+                    float* __restrict__ out, int hw, int nblk) {
     __shared__ double sh[RED_T];
-    const int img = blockIdx.x;
-    const double* p = partials + (size_t)img * nchunk * 2;
-    double sa = 0.0, sb = 0.0;
-    for (int k = threadIdx.x; k < nchunk; k += RED_T) {
-        sa += p[2 * k];
-        sb += p[2 * k + 1];
+    const double* p = partials + (size_t)blockIdx.x * nblk * 4;
+    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int k = threadIdx.x; k < nblk; k += RED_T) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += p[4 * k + e];
     }
-    sa = mdx::block_sum<double, RED_T>(sa, sh);
-    sb = mdx::block_sum<double, RED_T>(sb, sh);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        acc[e] = mdx::block_sum<double, RED_T>(acc[e], sh);
     if (threadIdx.x != 0) return;
-    if (pass == 0) {
-        means[2 * img] = (float)(sa / hw);
-        means[2 * img + 1] = (float)(sb / hw);
-    } else {
-        out[img * 3 + 0] = (float)sqrt(sa / hw);
-        out[img * 3 + 1] = means[2 * img + 1];
-        out[img * 3 + 2] = (float)sqrt(sb / hw);
-    }
+    const double mean_a = acc[0] / hw, mean_b = acc[2] / hw;
+    const double var_a = fmax(acc[1] / hw - mean_a * mean_a, 0.0);
+    const double var_b = fmax(acc[3] / hw - mean_b * mean_b, 0.0);
+    float* o = out + blockIdx.x * 3;
+    o[0] = (float)sqrt(var_a);
+    o[1] = (float)mean_b;
+    o[2] = (float)sqrt(var_b);
 }
 
 }  // namespace
 
-// lv7s, lv16: [n, h, w] scratch maps; partials: [n, nchunk, 2] float64 and
-// means: [n, 2] float32 scratch; out: [n, 3].  All allocated by the caller.
-extern "C" int mdx_box_stats(const float* x, float* lv7s, float* lv16,
-                             double* partials, float* means, float* out,
-                             int n, int h, int w, int nchunk, void* stream) {
+// partials: [n, nblk, 4] float64 scratch with nblk = ceil(h/32) *
+// ceil(w/32); out: [n, 3].  Both allocated by the caller.
+extern "C" int mdx_box_stats(const float* x, double* partials, float* out,
+                             int n, int h, int w, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((w + BT - 1) / BT, (h + BT - 1) / BT, n);
-    box_maps_kernel<<<grid, dim3(32, 8), 0, st>>>(x, lv7s, lv16, h, w);
-    const int hw = h * w;
-    for (int pass = 0; pass < 2; ++pass) {
-        box_partial_kernel<<<dim3(nchunk, n), RED_T, 0, st>>>(
-            lv7s, lv16, means, partials, hw, nchunk, pass);
-        box_finalize_kernel<<<n, RED_T, 0, st>>>(partials, means, out, hw,
-                                                 nchunk, pass);
-    }
+    box_fused_kernel<<<grid, dim3(32, BOX_T / 32), 0, st>>>(x, partials, h,
+                                                            w);
+    box_finalize_kernel<<<n, RED_T, 0, st>>>(partials, out, h * w,
+                                             grid.x * grid.y);
     return (int)cudaGetLastError();
 }

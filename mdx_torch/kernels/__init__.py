@@ -82,27 +82,20 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# pixels of each map per block of box stats' reduction passes
-_BOX_CHUNK = 4096
-
-
 def box_stats(x: torch.Tensor):
     """(std(sqrt(lv7)), mean(lv16), std(lv16)) per image of [N,H,W] —
     see ``csrc/box_stats.cu``; plain version
-    ``mdx_torch.core.metrics._lv_box_stats_plain``."""
+    ``mdx_torch.core.metrics._lv_box_stats_plain``.  Two launches; no
+    image-sized scratch (four float64 sums per 32 x 32 tile)."""
     n, h, w = _image(x)
-    nchunk = -(-h * w // _BOX_CHUNK)
+    nblk = -(-h // 32) * -(-w // 32)
     lib = library()
     with torch.cuda.device(x.device):
-        lv7s = torch.empty_like(x)
-        lv16 = torch.empty_like(x)
-        partials = torch.empty((n, nchunk, 2), dtype=torch.float64,
+        partials = torch.empty((n, nblk, 4), dtype=torch.float64,
                                device=x.device)
-        means = torch.empty((n, 2), dtype=torch.float32, device=x.device)
         out = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-        _ok(lib.mdx_box_stats(x.data_ptr(), lv7s.data_ptr(), lv16.data_ptr(),
-                              partials.data_ptr(), means.data_ptr(),
-                              out.data_ptr(), n, h, w, nchunk, _stream()),
+        _ok(lib.mdx_box_stats(x.data_ptr(), partials.data_ptr(),
+                              out.data_ptr(), n, h, w, _stream()),
             "box_stats")
     LAUNCHES["box_stats"] += 1
     return out[:, 0], out[:, 1], out[:, 2]
@@ -198,7 +191,16 @@ def clahe_remap_ext(x: torch.Tensor, lut_ext: torch.Tensor,
 
 
 # iterations between the host's reads of the per-image active flags
-_TV_CHECK_EVERY = 8
+_TV_CHECK_EVERY = 16
+# the schedule of the last tv_chambolle call: iterations a launch, step
+# launches, host reads of the active flags
+TV_LAST_SOLVE: dict[str, int] = {}
+
+
+def tv_steps() -> int:
+    """The iterations one launch of kernel T runs in shared memory: the
+    constant ``TV_S`` of ``csrc/tv.cu``."""
+    return library().mdx_tv_blocked_steps()
 
 
 def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
@@ -207,34 +209,53 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
     (out, iterations [N] int32) — see ``csrc/tv.cu``; plain version
     ``mdx_torch.ops.tv.tv_chambolle_plain``.
 
-    One launch pair per iteration; images that have stopped skip their
-    blocks, and the host reads the active flags every few iterations."""
+    Each launch runs :func:`tv_steps` iterations on 64 x 64 windows in
+    shared memory and reads the dual from one buffer of a ping-pong pair,
+    writing the other; stopped images skip their blocks and keep their last
+    launch's input dual, from which one launch after the loop rebuilds their
+    output.  The host reads the active flags every ``_TV_CHECK_EVERY``
+    iterations."""
     n, h, w = _image(x)
     _check(weight, "weight", (n,), device=x.device)
+    max_iter = max(int(max_iter), 1)
     lib = library()
+    s = lib.mdx_tv_blocked_steps()
+    tile = 64 - 2 * s
     dev = x.device
     with torch.cuda.device(dev):
-        p_cur = torch.zeros((n, 2, h, w), dtype=torch.float32, device=dev)
-        p_next = torch.empty_like(p_cur)
+        bufs = (torch.empty((n, 2, h, w), dtype=torch.float32, device=dev),
+                torch.empty((n, 2, h, w), dtype=torch.float32, device=dev))
         out = torch.empty_like(x)
-        nblk = -(-w // 32) * -(-h // 32)
-        partials = torch.empty((n, nblk, 2), dtype=torch.float64, device=dev)
+        nblk = -(-h // tile) * -(-w // tile)
+        partials = torch.empty((n, nblk, s, 2), dtype=torch.float64,
+                               device=dev)
         e0 = torch.empty(n, dtype=torch.float32, device=dev)
         e_prev = torch.empty_like(e0)
         active = torch.ones(n, dtype=torch.int32, device=dev)
         iters = torch.zeros(n, dtype=torch.int32, device=dev)
+        base = torch.zeros(n, dtype=torch.int32, device=dev)
         stream = _stream()
-        for i in range(max(int(max_iter), 1)):
-            if i and i % _TV_CHECK_EVERY == 0 and not bool(active.any()):
-                break
-            _ok(lib.mdx_tv_iteration(
-                x.data_ptr(), p_cur.data_ptr(), p_next.data_ptr(),
-                out.data_ptr(), partials.data_ptr(), weight.data_ptr(),
-                e0.data_ptr(), e_prev.data_ptr(), active.data_ptr(),
-                iters.data_ptr(), n, h, w, int(i == 0), float(eps), stream),
-                "tv_chambolle")
-            p_cur, p_next = p_next, p_cur
+        a = launches = reads = 0
+        while a < max_iter:
+            if a and a % _TV_CHECK_EVERY == 0:
+                reads += 1
+                if not bool(active.any()):
+                    break
+            m = min(s, max_iter - a)
+            _ok(lib.mdx_tv_blocked_step(
+                x.data_ptr(), bufs[launches % 2].data_ptr(),
+                bufs[(launches + 1) % 2].data_ptr(), partials.data_ptr(),
+                weight.data_ptr(), e0.data_ptr(), e_prev.data_ptr(),
+                active.data_ptr(), iters.data_ptr(), base.data_ptr(), n, h,
+                w, a, m, float(eps), stream), "tv_chambolle")
+            a += m
+            launches += 1
+        _ok(lib.mdx_tv_blocked_rebuild(
+            x.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            iters.data_ptr(), base.data_ptr(), weight.data_ptr(),
+            out.data_ptr(), n, h, w, stream), "tv_chambolle")
     LAUNCHES["tv_chambolle"] += 1
+    TV_LAST_SOLVE.update(steps=s, launches=launches, host_reads=reads)
     return out, iters
 
 

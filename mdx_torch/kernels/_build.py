@@ -33,15 +33,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argument types of every C entry point (all return cudaGetLastError())
+# argument types of every C entry point (all return cudaGetLastError(),
+# apart from mdx_tv_blocked_steps: kernel T's iterations a launch)
 SIGNATURES = {
-    "mdx_box_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_box_stats": (_P, _P, _P, _I, _I, _I, _P),
     "mdx_unsharp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mdx_clahe": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_clahe_luts": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_clahe_remap_ext": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "mdx_tv_iteration": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _F, _P),
+    "mdx_tv_blocked_steps": (),
+    "mdx_tv_blocked_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _P),
+    "mdx_tv_blocked_rebuild": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mdx_tv_shard_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mdx_tv_shard_finalize": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),

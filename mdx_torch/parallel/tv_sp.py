@@ -25,8 +25,8 @@ so extra iterations change no output and no iteration count.
 On a CUDA tensor each iteration is TPU kernel 12's port,
 ``kernels.tv_shard_step`` (``csrc/tv.cu``), whose partials this module sums
 over ``space`` before ``kernels.tv_shard_finalize`` applies the stop rule;
-as the dense TV wrapper, the host reads the flags every
-``kernels._TV_CHECK_EVERY`` iterations.  On a CPU tensor
+the host reads the flags (a collective over all ranks) every
+``_CHECK_EVERY`` iterations.  On a CPU tensor
 :func:`tv_sharded_plain` runs, the port of the JAX layer's 1-D XLA body.
 Both return (out, per-image iteration counts) and stop on the same
 iterations.
@@ -41,6 +41,8 @@ from mdx_torch.ops.filters import as_n
 from mdx_torch.parallel import comm
 
 _TAU = 0.25  # 1/(2·ndim), ndim = 2
+# iterations between the kernel loop's reads of the stop flags over all ranks
+_CHECK_EVERY = 8
 
 
 def tv_shard_step_plain(x, p_in, p_out, out, active, weight, up_p0, dn_x,
@@ -154,7 +156,7 @@ def solve_steps(x, weight, mesh, eps, max_iter, step, finalize):
     # p = 0 at iteration 0
     up = dn_p0 = dn_p1 = lf_p1 = rt_p0 = rt_p1 = None
     for i in range(max(int(max_iter), 1)):
-        if (i and i % kernels._TV_CHECK_EVERY == 0
+        if (i and i % _CHECK_EVERY == 0
                 and not comm.any_all(active, mesh)):
             break
         if i:

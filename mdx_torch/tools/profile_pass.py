@@ -52,7 +52,7 @@ def _our_kernels() -> set[str]:
 
 
 def _family(name: str, ours: set[str]) -> str:
-    if any(f"{k}(" in name for k in ours):
+    if any(f"{k}(" in name or f"{k}<" in name for k in ours):
         return "mdx_torch kernels"
     for fam, keys in FAMILIES:
         if any(k in name for k in keys):
@@ -72,7 +72,10 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times) * 1e3
 
 
-def phases(x, static, dyn, reps: int) -> list[tuple[str, float]]:
+def phases(x, static, dyn, reps: int,
+           only=None) -> list[tuple[str, float]]:
+    """(label, ms) per phase; ``only``: the labels to time (the chain still
+    runs each op once, so every op gets its real input)."""
     from mdx_torch.core import enhance as E
     from mdx_torch.core import metrics as M
     from mdx_torch.core import qa
@@ -81,48 +84,44 @@ def phases(x, static, dyn, reps: int) -> list[tuple[str, float]]:
     from mdx_torch.ops import wavelet as W
     from mdx_torch.tools import all_ops_masks
 
-    rows = [("qa_plan total", _median_ms(lambda: qa.qa_plan(x, static, dyn),
-                                         reps)),
-            ("image_stats", _median_ms(lambda: M.image_stats(x), reps)),
-            ("  estimate_sigma", _median_ms(lambda: W.estimate_sigma(x), reps)),
-            ("  percentiles x4", _median_ms(
-                lambda: M._percentiles(x, [5.0, 25.0, 75.0, 95.0]), reps)),
-            ("  box stats", _median_ms(lambda: M._lv_box_stats(x), reps))]
+    rows = []
+
+    def timed(label, fn):
+        if only is None or label in only:
+            rows.append((label, _median_ms(fn, reps)))
+
+    timed("qa_plan total", lambda: qa.qa_plan(x, static, dyn))
+    timed("image_stats", lambda: M.image_stats(x))
+    timed("  estimate_sigma", lambda: W.estimate_sigma(x))
+    timed("  percentiles x4",
+          lambda: M._percentiles(x, [5.0, 25.0, 75.0, 95.0]))
+    timed("  box stats", lambda: M._lv_box_stats(x))
     masks = all_ops_masks(x.shape[0], x.device)
     out = x
     for op in (o for o in E.OP_ORDER if o in static.ops):
         def run(op=op, inp=out):
             return E._run_chain(inp, (op,), static, dyn, masks,
                                 dyn.unsharp_amount)
-        rows.append((f"op {op}", _median_ms(run, reps)))
+        timed(f"op {op}", run)
         if op == "denoise":
             sig = W.mad_sigma_from_hh(W.dwt2(out, "db1")[1][2]).contiguous()
             soft = torch.ones(out.shape[0], dtype=torch.bool,
                               device=out.device)
             lv = W.default_levels(out.shape[-2:])
-            rows += [
-                ("  wavelet_denoise kernel, sigma given", _median_ms(
-                    lambda inp=out: kernels.wavelet_denoise(inp, sig, soft,
-                                                            lv), reps)),
-                ("  denoise_wavelet_plain, sigma given", _median_ms(
-                    lambda inp=out: W.denoise_wavelet_plain(
-                        inp, sig, wavelet_levels=lv, soft_mask=soft),
-                    reps))]
+            timed("  wavelet_denoise kernel, sigma given",
+                  lambda inp=out: kernels.wavelet_denoise(inp, sig, soft, lv))
+            timed("  denoise_wavelet_plain, sigma given",
+                  lambda inp=out: W.denoise_wavelet_plain(
+                      inp, sig, wavelet_levels=lv, soft_mask=soft))
         out = run()
     out = torch.clamp(out, 0.0, 1.0)
     stats = M.image_stats(x)
-    rows += [
-        ("guard halo (edge ratio)",
-         _median_ms(lambda: M.compute_edge_ratio(out), reps)),
-        ("guard noise (2x estimate_sigma)",
-         _median_ms(lambda: E._noise_amp(x, out), reps)),
-        ("guard over-processing (niqe)",
-         _median_ms(lambda: M.compute_niqe(out), reps)),
-        ("validate (image_stats + ssim + psnr)",
-         _median_ms(lambda: validate(x, out, stats_before=stats), reps)),
-        ("qa_deterministic total",
-         _median_ms(lambda: qa.qa_deterministic(x), reps)),
-    ]
+    timed("guard halo (edge ratio)", lambda: M.compute_edge_ratio(out))
+    timed("guard noise (2x estimate_sigma)", lambda: E._noise_amp(x, out))
+    timed("guard over-processing (niqe)", lambda: M.compute_niqe(out))
+    timed("validate (image_stats + ssim + psnr)",
+          lambda: validate(x, out, stats_before=stats))
+    timed("qa_deterministic total", lambda: qa.qa_deterministic(x))
     return rows
 
 

@@ -1,17 +1,28 @@
 """Each CUDA kernel of the tree it is run in, against its plain version.
 
     python -m mdx_torch.tools.time_kernels [--n 4] [--hw 2048] [--reps 20]
+        [--data noise|bench] [--only box_stats,tv_chambolle]
 
-Times every kernel named in ``mdx_torch.kernels.LAUNCHES`` on one
-``[n, hw, hw]`` float32 batch of uniform noise (seed 0), with CUDA events
-(mean of ``--reps`` launches after a warm-up; TV 3 reps), in the order
-plain, kernel, kernel, plain, and prints one JSON line per kernel: kernel
-and plain ms, max|kernel - plain|, and the card's ``name, power.limit``.
+Times every kernel named in ``mdx_torch.kernels.LAUNCHES`` (or the
+``--only`` ones) on one ``[n, hw, hw]`` float32 batch — uniform noise (seed
+0) or ``--data bench``, the bench batch ``mdx_torch.tools.make_batch`` —
+with CUDA events (mean of ``--reps`` launches after a warm-up; TV 3 reps),
+in the order plain, kernel, kernel, plain, and prints one JSON line per
+kernel: kernel and plain ms, max|kernel - plain|, and the card's ``name,
+power.limit``; for TV also the iteration counts, ms per iteration (the
+kernel's ms over the batch's largest count) and, where the tree's wrapper
+reports it, its schedule (iterations a launch, launches, host flag
+reads).
 
 It imports only what every tree of the port has had (the kernels, the op
-modules and their plain versions), so it also times an older checkout:
-copy this file into that checkout's ``mdx_torch/tools/`` and run it there,
-in one call with this tree's run, to compare two versions of a kernel.
+modules and their plain versions, ``tools.make_batch``), so it also times an
+older checkout: copy this file into that checkout's ``mdx_torch/tools/``
+and run it there, in one call with this tree's run, to compare two versions
+of a kernel.  For the parent commit:
+
+    git archive <parent> | tar -x -C build/parent
+    cp mdx_torch/tools/time_kernels.py build/parent/mdx_torch/tools/
+    (cd build/parent && python -m mdx_torch.tools.time_kernels ...)
 """
 
 from __future__ import annotations
@@ -82,6 +93,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--hw", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--data", choices=("noise", "bench"), default="noise")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernel names (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -89,21 +103,34 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.random((args.n, args.hw, args.hw),
-                                    dtype=np.float32)).cuda()
+    if args.data == "bench":
+        from mdx_torch.tools import make_batch
+
+        x = torch.from_numpy(make_batch(args.n, args.hw)).cuda()
+    else:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.random((args.n, args.hw, args.hw),
+                                        dtype=np.float32)).cuda()
+    only = [k for k in args.only.split(",") if k]
     for k, (kargs, plain) in _cases(x).items():
+        if only and k not in only:
+            continue
         kern = getattr(kernels, k)
         reps = 3 if k == "tv_chambolle" else args.reps
         p1 = _event_ms(lambda: plain(*kargs), reps)
         k1 = _event_ms(lambda: kern(*kargs), reps)
         k2 = _event_ms(lambda: kern(*kargs), reps)
         p2 = _event_ms(lambda: plain(*kargs), reps)
-        err = _max_abs(kern(*kargs), plain(*kargs))
-        print(json.dumps({"kernel": k, "shape": list(x.shape),
-                          "ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
-                          "plain_ms": (p1 + p2) / 2, "max_abs_err": err,
-                          "card": card}), flush=True)
+        got = kern(*kargs)
+        row = {"kernel": k, "shape": list(x.shape), "data": args.data,
+               "ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+               "plain_ms": (p1 + p2) / 2,
+               "max_abs_err": _max_abs(got, plain(*kargs)), "card": card}
+        if k == "tv_chambolle":
+            row["iterations"] = got[1].tolist()
+            row["ms_per_iteration"] = row["ms"] / max(row["iterations"])
+            row.update(getattr(kernels, "TV_LAST_SOLVE", {}))
+        print(json.dumps(row), flush=True)
     return 0
 
 

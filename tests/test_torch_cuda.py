@@ -61,6 +61,16 @@ def test_box_stats_kernel(dev, shape):
                           M._lv_box_stats_plain(x))
 
 
+@pytest.mark.parametrize("shape", [(2, 512, 512), (2, 33, 129)])
+def test_box_stats_kernel_near_flat(dev, shape):
+    # variances of a few float32 ulps: the one-pass float64 moments against
+    # the plain version's float32 std
+    x = 0.5 + 1e-3 * (_batch(27, *shape, dev) - 0.45)
+    x[1] = 0.25
+    _assert_kernel_parity("box_stats", kernels.box_stats(x),
+                          M._lv_box_stats_plain(x))
+
+
 @pytest.mark.parametrize("shape", [(3, 64, 80), (3, 33, 129), (2, 5, 7),
                                    (2, 512, 512)])
 def test_unsharp_kernel(dev, shape):
@@ -83,24 +93,52 @@ def test_clahe_kernel(dev, shape, tile):
     _assert_kernel_parity("clahe", got, C.clahe_plain(x, clip, tile))
 
 
-@pytest.mark.parametrize("shape", [(3, 48, 64), (3, 100, 36), (3, 256, 256)])
+@pytest.mark.parametrize("shape", [(3, 48, 64), (3, 100, 36), (3, 256, 256),
+                                   (2, 5, 7), (3, 33, 129), (2, 1024, 1100)])
 def test_tv_kernel_pixels_and_iterations(dev, shape):
     x = _batch(5, *shape, dev)
-    w = torch.tensor([0.05, 0.1, 0.02], device=dev)
+    w = torch.tensor([0.05, 0.1, 0.02], device=dev)[:shape[0]]
     got, it_k = kernels.tv_chambolle(x, w)
     want, it_p = T.tv_chambolle_plain(x, w)
     assert it_k.tolist() == it_p.tolist()
     _assert_kernel_parity("tv_chambolle", got, want)
+    assert kernels.TV_LAST_SOLVE == _tv_schedule(it_p.tolist(),
+                                                 kernels.tv_steps())
+
+
+def _tv_schedule(counts, steps, max_iter=200):
+    """The TV wrapper's loop for these counts: it reads the flags every 16
+    iterations and stops at the first read after the last image stopped."""
+    end = min(16 * -(-max(counts) // 16), max_iter)
+    return {"steps": steps, "launches": -(-end // steps),
+            "host_reads": len(range(16, min(end + 1, max_iter), 16))}
 
 
 def test_tv_kernel_iteration_cap(dev):
+    # eps = 0 never stops early: caps 1 .. 2s + 1 end the last launch at
+    # every offset, and every cap that is not a multiple of s runs a short
+    # last launch
     x = _batch(6, 2, 32, 32, dev)
     w = torch.full((2,), 0.05, device=dev)
-    for cap in (1, 5, 17):
+    for cap in (*range(1, 2 * kernels.tv_steps() + 2), 17):
         got, it = kernels.tv_chambolle(x, w, 0.0, cap)
         want, it_p = T.tv_chambolle_plain(x, w, 0.0, cap)
         assert it.tolist() == [cap, cap] == it_p.tolist()
         _assert_kernel_parity("tv_chambolle", got, want)
+
+
+def test_tv_kernel_mixed_stops(dev):
+    # one batch whose images stop in different launches (8, 17 and 32
+    # iterations, tests/test_torch_tv_blocked.py): each image's output comes
+    # from the dual buffer of its own last launch
+    x = _batch(7, 1, 40, 56, dev).repeat(3, 1, 1)
+    w = torch.tensor([0.01, 0.03, 0.5], device=dev)
+    got, it_k = kernels.tv_chambolle(x, w)
+    want, it_p = T.tv_chambolle_plain(x, w)
+    assert it_k.tolist() == it_p.tolist()
+    s = kernels.tv_steps()
+    assert len({(c - 1) // s for c in it_p.tolist()}) == 3
+    _assert_kernel_parity("tv_chambolle", got, want)
 
 
 @pytest.mark.parametrize("shape", [(2, 256, 256), (3, 129, 77)])

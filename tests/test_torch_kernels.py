@@ -213,8 +213,9 @@ def test_build_flags_and_library_name():
         "box_stats.cu", "unsharp.cu", "clahe.cu", "tv.cu", "bilateral.cu",
         "wavelet.cu", "common.cuh"}
     assert set(_build.SIGNATURES) == {
-        "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_iteration",
-        "mdx_bilateral", "mdx_wavelet_analysis", "mdx_wavelet_thresholds",
+        "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_blocked_steps",
+        "mdx_tv_blocked_step", "mdx_tv_blocked_rebuild", "mdx_bilateral",
+        "mdx_wavelet_analysis", "mdx_wavelet_thresholds",
         "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
         "mdx_tv_shard_step", "mdx_tv_shard_finalize"}
 

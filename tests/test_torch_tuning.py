@@ -128,3 +128,88 @@ def test_autotune_batch_vs_jax(noisy_image, low_contrast_image):
         noisy_image, ["noise", "low_contrast"], device="cpu")
     np.testing.assert_array_equal(enh[0], single_img)
     assert plans[0].params == single_plan.params
+
+
+# ------------------------------------------------------------ the TV mode
+# A sweep whose ops hold tv_denoise: the JAX package takes the TV mode from
+# MDX_TV_MODE, the port from the ``tv_mode`` argument.  Every candidate has
+# tv_denoise_weight 0, so apply_plan masks TV's output away and the mode
+# changes the work (the cap on TV's iterations), not the result.
+TV_OPS = TT.DEFAULT_OPS + ("tv_denoise",)
+
+
+def _spy_tv_cap(monkeypatch, seen):
+    """Record the ``max_iter`` each TV call of the port's chain receives."""
+    from mdx_torch.core import enhance as TE
+
+    inner = TE._tv_chambolle
+
+    def rec(x, weight, eps=2e-4, max_iter=200):
+        seen.append(max_iter)
+        return inner(x, weight, eps=eps, max_iter=max_iter)
+
+    monkeypatch.setattr(TE, "_tv_chambolle", rec)
+
+
+@pytest.mark.parametrize("tv_mode,cap", [(None, 200), ("ref", 200),
+                                         ("fast", 40), (" FAST ", 40)])
+def test_autotune_tv_mode_caps_tv(monkeypatch, tv_mode, cap):
+    seen = []
+    _spy_tv_cap(monkeypatch, seen)
+    img = _noisy_blurred()[:32, :32]
+    TT.autotune(img, ["noise"], ops=TV_OPS, device="cpu", tv_mode=tv_mode)
+    TT.autotune_batch(np.stack([img, img.T]), [["noise"], ["blur"]],
+                      ops=TV_OPS, device="cpu", tv_mode=tv_mode)
+    assert seen == [cap, cap]
+
+
+@pytest.mark.parametrize("call", ["autotune", "autotune_batch"])
+def test_autotune_unknown_tv_mode_raises(call):
+    img = _noisy_blurred()[:16, :16]
+    args = ((img, ["noise"]) if call == "autotune"
+            else (img[None], [["noise"]]))
+    with pytest.raises(ValueError, match="tv_mode"):
+        getattr(TT, call)(*args, ops=TV_OPS, device="cpu", tv_mode="slow")
+
+
+def test_autotune_fast_tv_vs_jax(monkeypatch):
+    monkeypatch.setenv("MDX_TV_MODE", "fast")
+    img = _noisy_blurred()
+    issues = ["noise", "blur"]
+    seen = {}
+    _spy_scores(monkeypatch, TT, seen)
+    _spy_scores(monkeypatch, JT, seen)
+    plan, enh, recs = TT.autotune(img, issues, ops=TV_OPS, device="cpu",
+                                  tv_mode="fast")
+    j_plan, j_enh, j_recs = JT.autotune(img, issues, ops=TV_OPS)
+    got, want = seen[TT.__name__], seen[JT.__name__]
+    np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    assert int(np.argmax(got)) == int(np.argmax(want))
+    _records_equal(recs, j_recs)
+    assert dataclasses.asdict(plan.params) == j_plan.params.model_dump()
+    np.testing.assert_allclose(enh, np.asarray(j_enh), rtol=0,
+                               atol=parity.PIXEL_ATOL)
+
+
+def test_autotune_batch_fast_tv_vs_jax(monkeypatch, noisy_image):
+    monkeypatch.setenv("MDX_TV_MODE", "fast")
+    imgs = np.stack([noisy_image, _noisy_blurred()])
+    issues = [["noise"], ["blur"]]
+    plans, enh, scores = TT.autotune_batch(imgs, issues, ops=TV_OPS,
+                                           device="cpu", tv_mode="fast")
+    j_plans, j_enh, j_scores = JT.autotune_batch(imgs, issues, ops=TV_OPS)
+    # parity.SCORE_ATOL as in test_autotune_batch_vs_jax: the noisy frame's
+    # scores differ from JAX's by 3.1e-4 with or without tv_denoise in ops
+    np.testing.assert_allclose(scores, np.asarray(j_scores), rtol=0,
+                               atol=parity.SCORE_ATOL)
+    # the mode changes the work, not the result: TV's output is masked away
+    _, enh_no_tv, scores_no_tv = TT.autotune_batch(imgs, issues,
+                                                   device="cpu")
+    np.testing.assert_array_equal(scores, scores_no_tv)
+    np.testing.assert_array_equal(enh, enh_no_tv)
+    np.testing.assert_array_equal(np.argmax(scores, 1),
+                                  np.argmax(np.asarray(j_scores), 1))
+    for a, b in zip(plans, j_plans):
+        assert dataclasses.asdict(a.params) == b.params.model_dump()
+    np.testing.assert_allclose(enh, np.asarray(j_enh), rtol=0,
+                               atol=parity.PIXEL_ATOL)

@@ -13,7 +13,13 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    wavelet denoise) against its plain PyTorch version on the card at
    [4,512,512], held to ``mdx_torch.parity.KERNEL_TOL``; TV's per-image
    iteration counts must be equal; the wavelet denoise soft, hard, with a
-   mixed soft mask and with ``sigma=None`` through ``denoise_wavelet``.
+   mixed soft mask and with ``sigma=None`` through ``denoise_wavelet``;
+   its coarse stages at 512^2 and 2048^2, a non-square shape, one- and
+   three-level stages, zero sigma and a flat image, the transform pair
+   bit-equal to the plain version's with sigma 0, two runs bit-equal.
+   CLAHE at tile sizes 8, 12, 16 and 32, extents that are not multiples of
+   the tile, single-tile images and adversarial histograms, its LUT stage
+   too, two runs bit-equal.
    TV's blocked schedule (s iterations a launch): caps 1 .. 2s + 1 with
    eps = 0 (a stop at every offset of a launch, short last launches), a
    batch whose images stop in three different launches, and the shapes
@@ -389,6 +395,91 @@ def _wavelet_cases(torch, check, x, label: str) -> None:
                   "wavelet_denoise",
                   W.denoise_wavelet(x, soft_mask=masks["mixed"]),
                   W.denoise_wavelet_plain(x, soft_mask=masks["mixed"]))
+
+
+def _repeat_equal(torch, label: str, fn) -> None:
+    """A kernel call run twice on the same inputs gives equal bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    _require(torch.equal(a, b), f"{label}: two runs differ")
+    print(f"repeat {label}: two runs bit-equal")
+
+
+def _clahe_cases(torch, kernels, check, dev) -> None:
+    """Kernel C (phase 3) on tile sizes 8, 12, 16, 32, extents that are not
+    multiples of the tile, single-tile images and adversarial histograms
+    (every pixel in one bin, half the image clipped, flat): the kernel and
+    its LUT stage against their plain versions, two runs bit-equal."""
+    from mdx_torch.ops import clahe as C
+
+    clip = torch.tensor([0.01, 0.02, 0.05], device=dev)
+    for shape, t in (((3, 72, 60), 12), ((3, 128, 96), 32), ((3, 37, 83), 8),
+                     ((3, 16, 16), 16), ((3, 60, 52), 16), ((3, 4, 4), 16),
+                     ((3, 512, 512), 16), ((3, 2048, 2048), 16)):
+        for data in ("wavy", "adversarial"):
+            x = _wavy(torch, 29, *shape, "cpu")
+            if data == "adversarial":
+                n, h, w = shape
+                x[0] = 0.3
+                x[1, : h // 2] = -0.5
+                x[1, h // 2:, : w // 3] = 1.7
+                x[2] = 0.5
+                x[2, h // 3: h // 3 + 8, w // 3: w // 3 + 8] = 0.99
+            x = x.to(dev)
+            label = "[" + ",".join(map(str, shape)) + f"] t {t} {data}"
+            check.run(label, "clahe", (x, clip, t))
+            _repeat_equal(torch, f"clahe {label}",
+                          lambda x=x, t=t: kernels.clahe(x, clip, t))
+            if shape[1] % t == 0 and shape[2] % t == 0:
+                check.compare(f"{label} LUT stage", "clahe",
+                              kernels.clahe_luts(x, clip, t),
+                              C.clahe_luts_plain(torch.clamp(x, 0.0, 1.0),
+                                                 clip, t))
+
+
+def _wavelet_edge_cases(torch, kernels, check, dev) -> None:
+    """Kernel 10 (phase 3) on the coarse stages at 512^2 (16 x 16, one
+    level) and 2048^2 (64 x 64, three), a non-square 5 + 2, one-level and
+    three-level stages alone: with sigma 0 the transform pair equals the
+    plain version bit for bit; sigma given and sigma None (through
+    ``denoise_wavelet``) within KERNEL_TOL and bit-equal on two runs; a
+    zero sigma and a flat image."""
+    from mdx_torch.ops import wavelet as W
+
+    for shape, levels in (((2, 512, 512), 6), ((1, 2048, 2048), 8),
+                          ((2, 256, 512), 7), ((2, 6, 10), 1),
+                          ((2, 24, 40), 3), ((2, 64, 128), 6)):
+        x = _wavy(torch, 30, *shape, dev)
+        n = shape[0]
+        mask = torch.arange(n, device=dev) % 2 == 0
+        label = "[" + ",".join(map(str, shape)) + f"] levels {levels}"
+        zero = torch.zeros(n, device=dev)
+        got = kernels.wavelet_denoise(x, zero, mask, levels)
+        want = W.denoise_wavelet_plain(x, zero, wavelet_levels=levels,
+                                       soft_mask=mask)
+        check.compare(f"{label} sigma 0", "wavelet_denoise", got, want)
+        _require(torch.equal(got, want),
+                 f"wavelet {label}: transform not bit-equal to plain")
+        sigma = torch.linspace(0.03, 0.09, n, device=dev)
+        check.run(f"{label} mixed", "wavelet_denoise",
+                  (x, sigma, mask, levels))
+        _repeat_equal(torch, f"wavelet {label} sigma given",
+                      lambda x=x, s=sigma, m=mask, lv=levels:
+                      kernels.wavelet_denoise(x, s, m, lv))
+        check.compare(f"{label} sigma=None via denoise_wavelet",
+                      "wavelet_denoise",
+                      W.denoise_wavelet(x, wavelet_levels=levels,
+                                        soft_mask=mask),
+                      W.denoise_wavelet_plain(x, wavelet_levels=levels,
+                                              soft_mask=mask))
+        _repeat_equal(torch, f"wavelet {label} sigma None",
+                      lambda x=x, m=mask, lv=levels: W.denoise_wavelet(
+                          x, wavelet_levels=lv, soft_mask=m))
+    x = _wavy(torch, 14, 3, 64, 64, dev)
+    x[1] = 0.5
+    check.run("[3,64,64] zero sigma, flat image", "wavelet_denoise",
+              (x, torch.tensor([0.0, 0.05, 0.05], device=dev),
+               torch.tensor([True, False, True], device=dev), 3))
 
 
 def _wavy(torch, seed: int, n: int, h: int, w: int, dev):
@@ -1105,6 +1196,8 @@ def main() -> int:
     for k, args in _args_for(torch, x4, PLAN_PARAMS).items():
         check.run("[4,512,512]", k, args)
     _wavelet_cases(torch, check, x4, "[4,512,512]")
+    _wavelet_edge_cases(torch, kernels, check, dev)
+    _clahe_cases(torch, kernels, check, dev)
     _tv_cases(torch, kernels, check, dev)
     check.require_ok()
     del x4

@@ -364,9 +364,41 @@ def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,
     return out
 
 
-# levels a block of the wavelet kernel runs on its tile (a 2^5 = 32 x 32
-# tile); the levels past it run as further stages on the tiles' LL image
+# levels a stage of the wavelet kernel runs on its tiles (at most a
+# 2^5 = 32 x 32 tile); the levels past it run as further stages on the
+# tiles' LL image
 _WAVELET_TILE_LEVELS = 5
+# threads of a wavelet block, and the pixels across its row of tiles
+_WAVELET_THREADS, _WAVELET_REGION_W = 256, 128
+_ALIGN = 256
+
+
+def wavelet_geometry(m: int) -> dict[str, int]:
+    """The layout of a stage of ``m`` levels in ``csrc/wavelet.cu``
+    (``Geo<M>``): levels in registers ``R``, patch side ``P``, lanes of a
+    tile ``G``, tile side ``T``, tiles across ``TBX`` and down ``TBY`` a
+    block, rows of ``TBY`` tiles an analysis block walks ``LOOP``."""
+    r = 2 if m >= 2 else 1
+    g = 1 << (2 * (m - r))
+    t = 1 << m
+    tbx = _WAVELET_REGION_W // t
+    return {"R": r, "P": 1 << r, "G": g, "T": t, "TBX": tbx,
+            "TBY": _WAVELET_THREADS // g // tbx, "LOOP": 4 if m == 5 else 1}
+
+
+def wavelet_stages(h: int, w: int, levels: int) -> list[tuple]:
+    """(h, w, m, blocks) of each stage of a ``levels``-deep denoise of an
+    [h, w] image: stages of at most ``_WAVELET_TILE_LEVELS`` levels, each on
+    the LL image of the one before."""
+    stages = []
+    while levels:
+        m = min(levels, _WAVELET_TILE_LEVELS)
+        geo = wavelet_geometry(m)
+        blocks = (-(-(w >> m) // geo["TBX"])
+                  * -(-(h >> m) // (geo["TBY"] * geo["LOOP"])))
+        stages.append((h, w, m, blocks))
+        h, w, levels = h >> m, w >> m, levels - m
+    return stages
 
 
 def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
@@ -378,10 +410,12 @@ def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
     ``csrc/wavelet.cu``; plain version
     ``mdx_torch.ops.wavelet.denoise_wavelet_plain``.
 
-    Per stage of at most ``_WAVELET_TILE_LEVELS`` levels: an analysis
-    launch on 2^m x 2^m tiles (its output, the tiles' LL image, is the next
-    stage's input), then, from the coarsest stage down, a threshold launch
-    and a synthesis launch that puts the stage above's denoised LL back."""
+    Two launches a stage (:func:`wavelet_stages`): an analysis launch down
+    the stages (its output, the tiles' LL image, is the next stage's input;
+    its last block per image writes the stage's band means), then, from the
+    coarsest stage up, a synthesis launch that derives the thresholds from
+    those means and sigma and puts the stage above's denoised LL back.  One
+    workspace holds every temporary; one memset clears its tickets."""
     n, h, w = _image(x)
     _check(soft, "soft", (n,), dtype=torch.bool, device=x.device)
     if sigma is not None:
@@ -392,47 +426,60 @@ def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
     if h % (1 << levels) or w % (1 << levels):
         raise ValueError(f"wavelet kernel: extents {h}x{w} not divisible "
                          f"by 2^{levels}")
+    if x.data_ptr() % 16:                  # the patches load as float4 rows
+        x = x.clone()
+    stages = wavelet_stages(h, w, levels)
+    last = len(stages) - 1
+    # the workspace: per stage partials [n, 3m, blocks] float64 and band
+    # means [n, 3m]; per stage but the last its LL image (the next stage's
+    # input) and that image denoised (the next stage's synthesis output);
+    # the tickets [stages, n]; the finest HH when sigma is estimated
+    size = 0
+
+    def carve(nbytes: int) -> int:
+        nonlocal size
+        off = size
+        size += -(-nbytes // _ALIGN) * _ALIGN
+        return off
+
+    regions = []
+    for s, (ch, cw, m, blocks) in enumerate(stages):
+        llb = 4 * n * (ch >> m) * (cw >> m)
+        regions.append({"partials": carve(8 * n * 3 * m * blocks),
+                        "dvar": carve(4 * n * 3 * m),
+                        "ll": carve(llb) if s < last else None,
+                        "den": carve(llb) if s < last else None})
+    tickets = carve(4 * n * len(stages))
+    hh_off = carve(4 * n * (h // 2) * (w // 2)) if sigma is None else None
     lib = library()
     dev = x.device
     with torch.cuda.device(dev):
         stream = _stream()
-        stages = []
-        cur, left = x, levels
-        hh = (torch.empty((n, h // 2, w // 2), dtype=torch.float32,
-                          device=dev) if sigma is None else None)
-        while left:
-            m = min(left, _WAVELET_TILE_LEVELS)
-            ch, cw = cur.shape[1], cur.shape[2]
-            t = 1 << m
-            nblk = (ch // t) * (cw // t)
-            ll = torch.empty((n, ch // t, cw // t), dtype=torch.float32,
-                             device=dev)
-            partials = torch.empty((n, nblk, 3 * m), dtype=torch.float64,
-                                   device=dev)
-            first = hh is not None and not stages
+        ws = torch.empty(size, dtype=torch.uint8, device=dev)
+        out = torch.empty_like(x)
+        base = ws.data_ptr()
+        at = lambda off: None if off is None else base + off  # noqa: E731
+        src = x.data_ptr()
+        for s, ((ch, cw, m, blocks), reg) in enumerate(zip(stages, regions)):
             _ok(lib.mdx_wavelet_analysis(
-                cur.data_ptr(), ll.data_ptr(), partials.data_ptr(),
-                hh.data_ptr() if first else None, n, ch, cw, m, stream),
-                "wavelet_denoise")
-            stages.append((cur, m, partials, nblk))
-            cur, left = ll, left - m
+                src, at(reg["ll"]), at(reg["partials"]), at(reg["dvar"]),
+                at(tickets) + 4 * n * s, n * len(stages) if s == 0 else 0,
+                at(hh_off) if s == 0 else None, n, ch, cw, m, blocks,
+                stream), "wavelet_denoise")
+            src = at(reg["ll"])
         if sigma is None:
             from mdx_torch.ops.wavelet import mad_sigma_from_hh
 
+            hh = ws[hh_off:hh_off + 4 * n * (h // 2) * (w // 2)].view(
+                torch.float32).view(n, h // 2, w // 2)
             sigma = mad_sigma_from_hh(hh).contiguous()
-        denoised = None             # the stage above's denoised LL
-        for cur, m, partials, nblk in reversed(stages):
-            ch, cw = cur.shape[1], cur.shape[2]
-            thr = torch.empty((n, 3 * m), dtype=torch.float32, device=dev)
-            _ok(lib.mdx_wavelet_thresholds(
-                partials.data_ptr(), sigma.data_ptr(), thr.data_ptr(), n,
-                nblk, m, ch, cw, stream), "wavelet_denoise")
-            out = torch.empty_like(cur)
+        for s in range(last, -1, -1):
+            ch, cw, m, _ = stages[s]
             _ok(lib.mdx_wavelet_synthesis(
-                cur.data_ptr(),
-                denoised.data_ptr() if denoised is not None else None,
-                thr.data_ptr(), soft.data_ptr(), out.data_ptr(), n, ch, cw,
-                m, stream), "wavelet_denoise")
-            denoised = out
+                x.data_ptr() if s == 0 else at(regions[s - 1]["ll"]),
+                at(regions[s]["den"]), at(regions[s]["dvar"]),
+                sigma.data_ptr(), soft.data_ptr(),
+                out.data_ptr() if s == 0 else at(regions[s - 1]["den"]),
+                n, ch, cw, m, stream), "wavelet_denoise")
     LAUNCHES["wavelet_denoise"] += 1
-    return denoised
+    return out

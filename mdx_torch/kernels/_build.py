@@ -49,9 +49,9 @@ SIGNATURES = {
                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mdx_tv_shard_finalize": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mdx_wavelet_analysis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mdx_wavelet_thresholds": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mdx_wavelet_synthesis": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_wavelet_analysis": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _I, _P),
+    "mdx_wavelet_synthesis": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

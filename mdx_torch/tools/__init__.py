@@ -8,6 +8,7 @@ Run each from the root of a checkout:
     python -m mdx_torch.tools.sweep_knee     # qa_plan time and memory per group size
     python -m mdx_torch.tools.bench_config2  # BASELINE config 2: 64x2048^2
     python -m mdx_torch.tools.time_kernels   # each kernel against its plain version
+    python -m mdx_torch.tools.profile_kernels  # kernels 10 and C launch by launch
     python -m mdx_torch.tools.tune_sweep     # ms per autotune sweep
     python -m mdx_torch.tools.spatial_check  # the row-sharded path on k ranks
 

@@ -93,6 +93,44 @@ def test_clahe_kernel(dev, shape, tile):
     _assert_kernel_parity("clahe", got, C.clahe_plain(x, clip, tile))
 
 
+def _adversarial(n, h, w, device):
+    """Image 0: every pixel in one bin; 1: half the image clipped below 0 and
+    above 1; 2: flat at a bin edge with one bright square
+    (tests/test_torch_clahe_sched.py)."""
+    x = _batch(28, n, h, w, "cpu")
+    x[0] = 0.3
+    if n > 1:
+        x[1, : h // 2] = -0.5
+        x[1, h // 2:, : w // 3] = 1.7
+    if n > 2:
+        x[2] = 0.5
+        x[2, h // 3: h // 3 + 8, w // 3: w // 3 + 8] = 0.99
+    return x.to(device)
+
+
+@pytest.mark.parametrize("shape,tile", [((3, 72, 60), 12), ((3, 128, 96), 32),
+                                        ((3, 37, 83), 8), ((3, 16, 16), 16),
+                                        ((3, 60, 52), 16), ((3, 4, 4), 16),
+                                        ((3, 2048, 2048), 16)])
+@pytest.mark.parametrize("data", ["wavy", "adversarial"])
+def test_clahe_kernel_tiles_and_repeats(dev, shape, tile, data):
+    # tile sizes 8, 12, 16, 32, extents that are not multiples of the tile,
+    # single-tile images, adversarial histograms; the LUT stage and the
+    # remap against their plain versions, and two runs bit-equal
+    x = (_batch(29, *shape, dev) if data == "wavy"
+         else _adversarial(*shape, dev))
+    clip = torch.tensor([0.01, 0.02, 0.05], device=dev)
+    got = kernels.clahe(x, clip, tile)
+    assert torch.equal(got, kernels.clahe(x, clip, tile))
+    _assert_kernel_parity("clahe", got, C.clahe_plain(x, clip, tile))
+    n, h, w = shape
+    if h % tile == 0 and w % tile == 0:
+        luts = kernels.clahe_luts(x, clip, tile)
+        assert torch.equal(luts, kernels.clahe_luts(x, clip, tile))
+        _assert_kernel_parity("clahe", luts, C.clahe_luts_plain(
+            torch.clamp(x, 0.0, 1.0), clip, tile))
+
+
 @pytest.mark.parametrize("shape", [(3, 48, 64), (3, 100, 36), (3, 256, 256),
                                    (2, 5, 7), (3, 33, 129), (2, 1024, 1100)])
 def test_tv_kernel_pixels_and_iterations(dev, shape):
@@ -193,6 +231,36 @@ def test_wavelet_kernel(dev, shape, levels, soft, given_sigma):
     assert kernels.LAUNCHES["wavelet_denoise"] == 1
     _assert_kernel_parity("wavelet_denoise", got, W.denoise_wavelet_plain(
         x, sigma, wavelet_levels=levels, soft_mask=mask))
+
+
+@pytest.mark.parametrize("shape,levels", [((2, 512, 512), 6),
+                                          ((1, 2048, 2048), 8),
+                                          ((2, 256, 512), 7), ((2, 6, 10), 1),
+                                          ((2, 24, 40), 3), ((2, 64, 128), 6)])
+def test_wavelet_kernel_exact_transform_and_repeats(dev, shape, levels):
+    # the coarse stages at 512^2 (16 x 16, one level) and 2048^2 (64 x 64,
+    # three), a non-square 5 + 2, the 2 x 2 patches of a one-level stage:
+    # with sigma 0 (thresholds 0) the kernel's transform pair equals the
+    # plain version's bit for bit; sigma given and sigma None repeat
+    # bit for bit and stay within KERNEL_TOL
+    x = _batch(30, *shape, dev)
+    n = shape[0]
+    mask = torch.arange(n, device=dev) % 2 == 0
+    zero = torch.zeros(n, device=dev)
+    assert torch.equal(
+        kernels.wavelet_denoise(x, zero, mask, levels),
+        W.denoise_wavelet_plain(x, zero, wavelet_levels=levels,
+                                soft_mask=mask))
+    sigma = torch.linspace(0.03, 0.09, n, device=dev)
+    got = kernels.wavelet_denoise(x, sigma, mask, levels)
+    assert torch.equal(got, kernels.wavelet_denoise(x, sigma, mask, levels))
+    _assert_kernel_parity("wavelet_denoise", got, W.denoise_wavelet_plain(
+        x, sigma, wavelet_levels=levels, soft_mask=mask))
+    got = W.denoise_wavelet(x, wavelet_levels=levels, soft_mask=mask)
+    assert torch.equal(got, W.denoise_wavelet(x, wavelet_levels=levels,
+                                              soft_mask=mask))
+    _assert_kernel_parity("wavelet_denoise", got, W.denoise_wavelet_plain(
+        x, wavelet_levels=levels, soft_mask=mask))
 
 
 def test_wavelet_zero_sigma_and_flat_image(dev):

@@ -215,8 +215,7 @@ def test_build_flags_and_library_name():
     assert set(_build.SIGNATURES) == {
         "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_blocked_steps",
         "mdx_tv_blocked_step", "mdx_tv_blocked_rebuild", "mdx_bilateral",
-        "mdx_wavelet_analysis", "mdx_wavelet_thresholds",
-        "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
+        "mdx_wavelet_analysis", "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
         "mdx_tv_shard_step", "mdx_tv_shard_finalize"}
 
 

@@ -25,6 +25,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    batch whose images stop in three different launches, and the shapes
    [2,5,7], [3,33,129] and [2,1024,1100], each with its schedule
    (iterations a launch, launches, host flag reads).
+   Unsharp at every support r_eff 0 .. 12 (and above), 1x1, 1xW, Hx1,
+   sub-tile and non-square images, NaN and +inf pixels beyond a tile edge
+   and NaN taps; bilateral at d = 1 .. 9 on heights and widths of 1 and 2,
+   per-image sigmas, sigma 0 and NaN pixels: both bit-equal to their plain
+   versions (NaN in the same places) and on two runs.
 4. slice   — ``qa_plan`` with the bench plan and ``qa_deterministic`` on
    [2,512,512], on the card (kernels) against the CPU (plain versions),
    within the tolerances of ``mdx_torch.parity``.
@@ -104,7 +109,7 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    (exactly where the TPU tool checks ``array_equal``, to ``allclose``
    where it does); time per launch (CUDA events, and the device time from
    a profiler trace) against its bound, the plain version and one PyTorch
-   call.
+   call (CUDA events, and its device time from a trace).
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -170,9 +175,9 @@ TUNE_SCORE_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations per pixel each kernel's function needs, counted from
-# its arithmetic (TV: per pixel and iteration; bilateral: 8 per window tap,
-# the exp counted as one, plus 2): box stats 7x7 and 16x16 sums of x and
-# x^2 both ways, scales, variances, sqrt, and the two reduction passes;
+# its arithmetic (TV: per pixel and iteration; bilateral: see _bound): box
+# stats 7x7 and 16x16 sums of x and x^2 both ways, scales, variances, sqrt,
+# and the two reduction passes;
 # unsharp 25-tap rows and columns and the combine; CLAHE the bin index,
 # the clipped LUT per bin (256 bins per 16x16 tile) and the 4-LUT blend;
 # wavelet denoise, over all levels (each level works on a quarter of the
@@ -265,7 +270,13 @@ def _bound(torch, name: str, args, result) -> tuple[float, str]:
     else:
         moved += 4 * px + (4 * n if name == "tv_chambolle" else 0)
     if name == "bilateral":
-        ops = px * (8 * args[1] ** 2 + 2)
+        # the weights a pixel needs: wgt_{-o}(p) = wgt_o(p - o) bit for bit,
+        # so (d^2 + 1) / 2 of them (the forward offsets and the centre) at 5
+        # operations each (difference, square, scale, exp, times the spatial
+        # weight); then 3 a tap (w * s and the two sums) and the final add and
+        # divide
+        d2 = args[1] ** 2
+        ops = px * (5 * (d2 + 1) // 2 + 3 * d2 + 2)
     elif name == "tv_chambolle":
         ops = h * w * int(result[1].sum()) * OPS_PER_PIXEL[name]
     else:
@@ -492,6 +503,98 @@ def _wavy(torch, seed: int, n: int, h: int, w: int, dev):
     base = 0.45 + 0.3 * np.sin(xx / 7.0) * np.cos(yy / 11.0)
     x = np.clip(base[None] + rng.normal(0, 0.1, (n, h, w)), 0.0, 1.0)
     return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _exact(torch, check, label: str, name: str, got, want) -> None:
+    """A kernel's output equal to its plain version's bit for bit, NaN in the
+    same places (the non-finite cases, which ``KernelCheck.compare`` cannot
+    hold: NaN - NaN is NaN); max|d| over the finite values goes to the
+    kernel's row."""
+    torch.cuda.synchronize()
+    nan_p = torch.isnan(want)
+    same = (torch.equal(torch.isnan(got), nan_p)
+            and torch.equal(got[~nan_p], want[~nan_p]))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got[fin].double() - want[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    check.errs[name] = max(check.errs[name], err)
+    print(f"kernel parity {label} {name}: max|d| {err!r} over finite values, "
+          f"{int(nan_p.sum())} NaN in plain, bit-equal {same}")
+    if not same:
+        check.failed.append(f"{label} {name}: not bit-equal (max|d| {err!r})")
+
+
+# every r_eff = floor(4 sigma + 0.5) from 0 to 12, and one above 12
+UNSHARP_SIGMAS = [0.0, 0.1, 0.25, 0.5, 0.8, 1.0, 1.25, 1.5, 1.75, 2.0, 2.25,
+                  2.5, 2.75, 3.0, 3.5]
+
+
+def _unsharp_cases(torch, kernels, check, dev) -> None:
+    """Kernel U (phase 3): every r_eff from 0 to 12 and one above (the
+    support sized from the taps) at 150x300, 512^2, 1x200 and 150x1; 1x1,
+    images smaller than a tile and non-square ones; NaN and +inf pixels 5
+    to 12 beyond a tile edge (past the support of radius 1.0 and 0.8) and
+    NaN taps, through the 25-tap path; each equal to the plain version bit
+    for bit, two runs bit-equal."""
+    from mdx_torch.ops import filters as F
+
+    n = len(UNSHARP_SIGMAS)
+    rad = torch.tensor(UNSHARP_SIGMAS, device=dev)
+    amt = torch.linspace(0.3, 1.5, n, device=dev)
+    for h, w in ((150, 300), (512, 512), (1, 200), (150, 1), (1, 1),
+                 (20, 30), (150, 140)):
+        x = _wavy(torch, 31, n, h, w, dev)
+        label = f"[{n},{h},{w}] every support"
+        _exact(torch, check, label, "unsharp", kernels.unsharp(x, rad, amt),
+               F.unsharp_mask_plain(x, rad, amt))
+        _repeat_equal(torch, f"unsharp {label}",
+                      lambda x=x: kernels.unsharp(x, rad, amt))
+    rad3 = torch.tensor([1.0, 0.8, float("nan")], device=dev)
+    amt3 = torch.tensor([0.6, 1.0, 0.6], device=dev)
+    for value in (float("nan"), float("inf")):
+        x = _wavy(torch, 32, 3, 150, 300, "cpu")
+        for img, i, j in ((0, 30, 133), (0, 75, 200), (1, 100, 119),
+                          (1, 149, 299), (0, 10, 10), (2, 70, 70)):
+            x[img, i, j] = value
+        x = x.to(dev)
+        label = f"[3,150,300] {value} pixels, NaN taps"
+        got = kernels.unsharp(x, rad3, amt3)
+        _exact(torch, check, label, "unsharp", got,
+               F.unsharp_mask_plain(x, rad3, amt3))
+        _exact(torch, check, label + " second run", "unsharp", got,
+               kernels.unsharp(x, rad3, amt3))
+
+
+def _bilateral_cases(torch, kernels, check, dev) -> None:
+    """Kernel 5 (phase 3): d = 1, 3, 5, 7 and 9 on heights and widths of 1
+    and 2 (reflection with n = 1 and 2), a non-square shape and 512^2 with
+    per-image sigmas; sigma_color 0, sigma_space 0 and NaN pixels; each
+    equal to the plain version bit for bit, two runs bit-equal."""
+    from mdx_torch.ops import bilateral as B
+
+    for d in (1, 3, 5, 7, 9):
+        for shape in ((1, 1, 40), (1, 40, 1), (1, 2, 37), (1, 37, 2),
+                      (1, 1, 1), (1, 2, 2), (3, 129, 77), (2, 512, 512)):
+            x = _wavy(torch, 33, *shape, dev)
+            n = shape[0]
+            sc = torch.linspace(0.03, 0.2, n, device=dev)
+            ss = torch.linspace(0.05, 0.5, n, device=dev)
+            label = "[" + ",".join(map(str, shape)) + f"] d {d}"
+            _exact(torch, check, label, "bilateral",
+                   kernels.bilateral(x, d, sc, ss),
+                   B.bilateral_plain(x, d, sc, ss))
+        x = _wavy(torch, 34, 4, 150, 140, "cpu")
+        x[2, 33, 40] = float("nan")
+        x[2, 0, 0] = float("nan")
+        x = x.to(dev)
+        sc = torch.tensor([0.0, 0.07, 0.05, 0.2], device=dev)
+        ss = torch.tensor([0.05, 0.0, 0.3, 0.5], device=dev)
+        label = f"[4,150,140] d {d} sigma 0, NaN pixels"
+        got = kernels.bilateral(x, d, sc, ss)
+        _exact(torch, check, label, "bilateral", got,
+               B.bilateral_plain(x, d, sc, ss))
+        _exact(torch, check, label + " second run", "bilateral", got,
+               kernels.bilateral(x, d, sc, ss))
 
 
 def _tv_cases(torch, kernels, check, dev) -> None:
@@ -860,26 +963,34 @@ DEVICE_FUNCTIONS = {"clahe_luts": ("clahe_lut_kernel",),
                                       "tv_block_sums_kernel")}
 
 
-def _device_ms(torch, fn, reps: int, names) -> float | None:
-    """Device time per call of the kernels named ``names`` over ``reps``
-    calls, from a ``torch.profiler`` trace of the card (None where the
-    trace shows no device time): the CUDA-event time of a call also holds
-    its wrapper's host work whenever that is longer than the kernel."""
+def _device_ms(torch, fn, reps: int, names=None,
+               tries: int = 3) -> float | None:
+    """Device time per call of the kernels named ``names`` (None: every
+    operation on the device) over ``reps`` calls, from a ``torch.profiler``
+    trace of the card: the CUDA-event time of a call also holds its
+    wrapper's host work whenever that is longer than the kernel.  A trace
+    can lose the records of a call of a microsecond or less (it then holds
+    only the host's side); such a trace is taken again, up to ``tries``
+    times, and None is returned if none shows device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    us = sum(getattr(e, "device_time_total", 0) or 0
-             for e in events if any(n in e.key for n in names))
-    if not us:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = sum(getattr(e, "device_time_total", 0) or 0 for e in events
+                 if (any(n in e.key for n in names) if names
+                     else e.device_type == DeviceType.CUDA))
+        if us:
+            return us / reps / 1e3
         print(f"  no device time for {names} in the trace; its device "
               f"events: {[e.key[:60] for e in events][:12]}")
-    return us / reps / 1e3 if us else None
+    return None
 
 
 def _time_spatial_kernels(torch, kernels, check, x, card: str,
@@ -1124,16 +1235,33 @@ def _phase_probe(torch, card: str) -> dict:
         t["device_ms"] = _device_ms(
             torch, lambda name=name, x=x: PN.launch(name, built[name], x), 20,
             ("k(float const*, float*)",))
+        # the PyTorch call's device time: every device operation of the call
+        # in the trace (its kernels' names vary with the call)
+        t["library_device_ms"] = _device_ms(
+            torch, lambda name=name, x=x: PN.LIBRARY[name](x), 20)
         print(f"time probe {name} on {card}: kernel {t['ms']!r} ms a launch "
               f"(device {t['device_ms']!r}), plain {t['plain_ms']!r}, one "
-              f"PyTorch call {t['library_ms']!r}, bound {t['bound_ms']!r} ms "
+              f"PyTorch call {t['library_ms']!r} (device "
+              f"{t['library_device_ms']!r}), bound {t['bound_ms']!r} ms "
               f"({t['bound_by']})")
         by_probe[name] = dict(t, launches=launches[name],
                               registers=res[name]["registers"],
                               max_abs_err=res[name]["max_abs_err"])
-    total = lambda key: sum(t[key] for t in by_probe.values())  # noqa: E731
+    def total(key):
+        """The sum over the probes; None if the trace missed any of them."""
+        vals = [t[key] for t in by_probe.values()]
+        return None if None in vals else sum(vals)
+
     by_ops = sum(t["bound_ms"] for t in by_probe.values()
                  if t["bound_by"] == "operations")
+    unmeasured = [n for n, t in by_probe.items()
+                  if t["device_ms"] is None or t["library_device_ms"] is None]
+    slower = [n for n, t in by_probe.items() if n not in unmeasured
+              and t["device_ms"] > t["library_device_ms"]]
+    print(f"probes slower than their PyTorch call on the device: {slower} "
+          f"(device {total('device_ms')!r} ms against "
+          f"{total('library_device_ms')!r} ms over the 18; no device time in "
+          f"the trace for {unmeasured})")
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     return {
         "name": "capability_probe", "route": "cuda",
@@ -1143,12 +1271,13 @@ def _phase_probe(torch, card: str) -> dict:
         "launches_by_path": {"probe_suite": sum(launches.values())},
         "max_abs_err": max(t["max_abs_err"] for t in by_probe.values()),
         "shape": "18 probes on [8,128], [16,256] and [256,512] aranges",
-        "ms": total("ms"), "device_ms": sum(
-            t["device_ms"] or 0.0 for t in by_probe.values()),
+        "ms": total("ms"), "device_ms": total("device_ms"),
         "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": "operations" if by_ops * 2 > total("bound_ms")
         else "bytes",
-        "library_ms": total("library_ms"), "by_probe": by_probe}
+        "library_ms": total("library_ms"),
+        "library_device_ms": total("library_device_ms"),
+        "by_probe": by_probe}
 
 
 def main() -> int:
@@ -1199,6 +1328,8 @@ def main() -> int:
     _wavelet_edge_cases(torch, kernels, check, dev)
     _clahe_cases(torch, kernels, check, dev)
     _tv_cases(torch, kernels, check, dev)
+    _unsharp_cases(torch, kernels, check, dev)
+    _bilateral_cases(torch, kernels, check, dev)
     check.require_ok()
     del x4
 

@@ -1,8 +1,10 @@
-"""Per-launch device times of the wavelet denoise (kernel 10) and CLAHE
-(kernel C) wrappers, from a ``torch.profiler`` trace of the card.
+"""Per-launch device times of the wavelet denoise (kernel 10), CLAHE
+(kernel C), unsharp (kernel U) and bilateral (kernel 5) wrappers, from a
+``torch.profiler`` trace of the card.
 
     python -m mdx_torch.tools.profile_kernels [--n 32] [--hw 512]
-        [--reps 20] [--only wavelet_sigma,wavelet_none,clahe]
+        [--reps 20] [--only wavelet_sigma,wavelet_none,clahe,unsharp,
+        bilateral]
 
 On the bench batch (``mdx_torch.tools.make_batch``) it runs each case
 ``--reps`` times after a warm-up and prints, per case:
@@ -20,7 +22,10 @@ On the bench batch (``mdx_torch.tools.make_batch``) it runs each case
 Cases: ``wavelet_sigma`` — ``kernels.wavelet_denoise`` with the MAD sigma
 given, soft, default levels; ``wavelet_none`` — the same with
 ``sigma=None`` (the wrapper estimates sigma from the kernel's finest HH);
-``clahe`` — ``kernels.clahe`` at clip 0.02, tile 16.
+``clahe`` — ``kernels.clahe`` at clip 0.02, tile 16; ``unsharp`` —
+``kernels.unsharp`` at the bench radius 1.0 and amount 0.6 (the taps'
+PyTorch launches are the call's other device operations); ``bilateral`` —
+``kernels.bilateral`` at d = 5, both sigmas 0.05.
 
 It imports only what every tree of the port has had since the wavelet
 kernel, so it also profiles an older checkout: copy it into that
@@ -39,7 +44,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
-CASES = ("wavelet_sigma", "wavelet_none", "clahe")
+CASES = ("wavelet_sigma", "wavelet_none", "clahe", "unsharp", "bilateral")
 _DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -56,7 +61,7 @@ def _short(name: str) -> str:
     """A kernel's name without its return type, namespace and argument
     list, with its template arguments."""
     name = name.replace("(anonymous namespace)::", "").split("(")[0]
-    return name.split(" ")[-1][:80]
+    return name.removeprefix("void ").strip()[:80]
 
 
 def _case_fn(case: str, x: torch.Tensor):
@@ -64,9 +69,16 @@ def _case_fn(case: str, x: torch.Tensor):
     from mdx_torch.ops import wavelet as W
 
     n = x.shape[0]
+    full = lambda v: torch.full((n,), v, device=x.device)  # noqa: E731
     if case == "clahe":
-        clip = torch.full((n,), 0.02, device=x.device)
+        clip = full(0.02)
         return lambda: kernels.clahe(x, clip, 16)
+    if case == "unsharp":
+        rad, amt = full(1.0), full(0.6)
+        return lambda: kernels.unsharp(x, rad, amt)
+    if case == "bilateral":
+        sc = full(0.05)
+        return lambda: kernels.bilateral(x, 5, sc, sc)
     soft = torch.ones(n, dtype=torch.bool, device=x.device)
     levels = W.default_levels(x.shape[-2:])
     sigma = (W.mad_sigma_from_hh(W.dwt2(x, "db1")[1][2]).contiguous()

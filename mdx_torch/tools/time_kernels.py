@@ -2,6 +2,7 @@
 
     python -m mdx_torch.tools.time_kernels [--n 4] [--hw 2048] [--reps 20]
         [--data noise|bench] [--only box_stats,tv_chambolle]
+        [--bilateral-d 5]
 
 Times every kernel named in ``mdx_torch.kernels.LAUNCHES`` (or the
 ``--only`` ones) on one ``[n, hw, hw]`` float32 batch — uniform noise (seed
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 
-def _cases(x: torch.Tensor) -> dict:
+def _cases(x: torch.Tensor, bilateral_d: int = 5) -> dict:
     """{kernel name: (args, plain version)} for the kernels of this tree."""
     from mdx_torch import kernels
     from mdx_torch.core import metrics as M
@@ -52,7 +53,7 @@ def _cases(x: torch.Tensor) -> dict:
     if "bilateral" in kernels.LAUNCHES:
         from mdx_torch.ops import bilateral as B
 
-        cases["bilateral"] = ((x, 5, full(0.05), full(0.05)),
+        cases["bilateral"] = ((x, bilateral_d, full(0.05), full(0.05)),
                               B.bilateral_plain)
     if "wavelet_denoise" in kernels.LAUNCHES:
         from mdx_torch.ops import wavelet as W
@@ -96,6 +97,8 @@ def main(argv=None) -> int:
     ap.add_argument("--data", choices=("noise", "bench"), default="noise")
     ap.add_argument("--only", default="",
                     help="comma-separated kernel names (default: all)")
+    ap.add_argument("--bilateral-d", type=int, default=5,
+                    help="the bilateral window (odd, 1 to 9)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -112,7 +115,7 @@ def main(argv=None) -> int:
         x = torch.from_numpy(rng.random((args.n, args.hw, args.hw),
                                         dtype=np.float32)).cuda()
     only = [k for k in args.only.split(",") if k]
-    for k, (kargs, plain) in _cases(x).items():
+    for k, (kargs, plain) in _cases(x, args.bilateral_d).items():
         if only and k not in only:
             continue
         kern = getattr(kernels, k)
@@ -126,6 +129,8 @@ def main(argv=None) -> int:
                "ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
                "plain_ms": (p1 + p2) / 2,
                "max_abs_err": _max_abs(got, plain(*kargs)), "card": card}
+        if k == "bilateral":
+            row["d"] = args.bilateral_d
         if k == "tv_chambolle":
             row["iterations"] = got[1].tolist()
             row["ms_per_iteration"] = row["ms"] / max(row["iterations"])

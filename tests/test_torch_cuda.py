@@ -72,7 +72,9 @@ def test_box_stats_kernel_near_flat(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(3, 64, 80), (3, 33, 129), (2, 5, 7),
-                                   (2, 512, 512)])
+                                   (2, 512, 512), (2, 1, 1), (2, 1, 200),
+                                   (2, 150, 1), (2, 20, 30), (2, 150, 300),
+                                   (2, 150, 140), (2, 1024, 1100)])
 def test_unsharp_kernel(dev, shape):
     x = _batch(2, *shape, dev)
     n = shape[0]
@@ -80,6 +82,47 @@ def test_unsharp_kernel(dev, shape):
     amt = torch.linspace(0.3, 1.5, n, device=dev)
     _assert_kernel_parity("unsharp", kernels.unsharp(x, rad, amt),
                           F.unsharp_mask_plain(x, rad, amt))
+
+
+def _equal_nan(got, want):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+# every r_eff = floor(4 sigma + 0.5) from 0 to 12, and one above 12
+# (tests/test_torch_unsharp_sched.py)
+UNSHARP_SIGMAS = [0.0, 0.1, 0.25, 0.5, 0.8, 1.0, 1.25, 1.5, 1.75, 2.0, 2.25,
+                  2.5, 2.75, 3.0, 3.5]
+
+
+@pytest.mark.parametrize("shape", [(150, 300), (512, 512), (1, 200),
+                                   (150, 1)])
+def test_unsharp_kernel_every_support(dev, shape):
+    n = len(UNSHARP_SIGMAS)
+    x = _batch(20, n, *shape, dev)
+    rad = torch.tensor(UNSHARP_SIGMAS, device=dev)
+    amt = torch.linspace(0.3, 1.5, n, device=dev)
+    got = kernels.unsharp(x, rad, amt)
+    assert torch.equal(got, F.unsharp_mask_plain(x, rad, amt))
+    assert torch.equal(got, kernels.unsharp(x, rad, amt))
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+def test_unsharp_kernel_non_finite(dev, value):
+    # pixels 5 to 12 beyond a tile edge (row 64, column 128), past the
+    # support of radius 1.0 (r_eff 4) and 0.8 (3), and NaN taps (radius NaN)
+    x = _batch(21, 3, 150, 300, "cpu")
+    for img, i, j in ((0, 30, 133), (0, 75, 200), (1, 100, 119),
+                      (1, 149, 299), (0, 10, 10), (2, 70, 70)):
+        x[img, i, j] = value
+    x = x.to(dev)
+    rad = torch.tensor([1.0, 0.8, float("nan")], device=dev)
+    amt = torch.tensor([0.6, 1.0, 0.6], device=dev)
+    got = kernels.unsharp(x, rad, amt)
+    want = F.unsharp_mask_plain(x, rad, amt)
+    assert bool(torch.isnan(want).any())
+    _equal_nan(got, want)
+    _equal_nan(got, kernels.unsharp(x, rad, amt))
 
 
 @pytest.mark.parametrize("shape,tile", [((2, 96, 80), 16), ((2, 64, 48), 8),
@@ -179,8 +222,10 @@ def test_tv_kernel_mixed_stops(dev):
     _assert_kernel_parity("tv_chambolle", got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 256), (3, 129, 77)])
-@pytest.mark.parametrize("d", [3, 5, 9])
+@pytest.mark.parametrize("shape", [(2, 256, 256), (3, 129, 77), (1, 1, 40),
+                                   (1, 40, 1), (1, 2, 37), (1, 37, 2),
+                                   (1, 1, 1), (1, 2, 2), (2, 512, 512)])
+@pytest.mark.parametrize("d", [3, 5, 9, 1, 7])
 def test_bilateral_kernel(dev, shape, d):
     x = _batch(10, *shape, dev)
     n = shape[0]
@@ -192,6 +237,23 @@ def test_bilateral_kernel(dev, shape, d):
     _assert_kernel_parity("bilateral", B.bilateral(x, d, sc, ss),
                           B.bilateral_plain(x, d, sc, ss))
     assert kernels.LAUNCHES["bilateral"] == 1
+
+
+@pytest.mark.parametrize("d", [1, 3, 5, 7, 9])
+def test_bilateral_kernel_exact(dev, d):
+    # per-image sigmas, sigma_color 0 (NaN everywhere), sigma_space 0, NaN
+    # pixels inside and at a corner; two runs bit-equal
+    x = _batch(22, 4, 150, 140, "cpu")
+    x[2, 33, 40] = float("nan")
+    x[2, 0, 0] = float("nan")
+    x = x.to(dev)
+    sc = torch.tensor([0.0, 0.07, 0.05, 0.2], device=dev)
+    ss = torch.tensor([0.05, 0.0, 0.3, 0.5], device=dev)
+    got = kernels.bilateral(x, d, sc, ss)
+    want = B.bilateral_plain(x, d, sc, ss)
+    assert bool(torch.isnan(want[0]).all())
+    _equal_nan(got, want)
+    _equal_nan(got, kernels.bilateral(x, d, sc, ss))
 
 
 @pytest.mark.parametrize("d", [0, -3])

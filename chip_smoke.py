@@ -85,36 +85,49 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    refuses two ranks on one device), launched with every counter reset:
    ``qa_plan_spatial``'s body with the bench plan and ``qa_spatial``'s with
    denoise, CLAHE, TV and the noise guard; kernels 11 (``clahe_remap_ext``)
-   and 12 (``tv_shard_step``) must launch on every rank, outputs finite;
-   every call of kernels 11 and 12 and of kernel C's LUT stage
-   (``clahe_luts``, the local LUTs) on rank 0 replayed against its plain
-   version and the whole sharded TV solve run through the kernels and plain with
-   equal iteration counts; the gathered frame against k = 1 and against the
+   and 12 (``tv_shard_step``, the blocked sharded TV step: s iterations a
+   launch from s-wide halo slabs, then one rebuild) must launch on every
+   rank, outputs finite; every call of kernels 11 and 12 (its blocked
+   launches and its rebuild) and of kernel C's LUT stage (``clahe_luts``,
+   the local LUTs) on rank 0 replayed against its plain version and the
+   whole sharded TV solve run through the kernels and plain with equal
+   iteration counts, its schedule printed (iterations a launch, step
+   launches, at most ceil(iterations / s) + 1, flag reads, host round
+   trips a solve) and its times taken
+   (``mdx_torch.tools.time_tv_shard.rank_solves``); kernel 12's schedule
+   cases at k = 4 against the plain solve, bit for bit with equal counts
+   (caps 1 .. 2s + 1, images that stop in different launches, blocks
+   thinner than s); the gathered frame against k = 1 and against the
    dense ``qa_plan`` on the card within ``parity.breaches``, guard and pass
    flags equal; ms per ``qa_plan_spatial`` call (median of 5 synchronised
    reps in the ranks) with the backend and the host round trips per call;
-   kernels 11 and 12 and the LUT stage against their plain versions at
-   the shard shape [1,512,2048] and at [1,2048,2048], with their bounds.
+   kernels 11 and 12 (a launch and the rebuild) and the LUT stage against
+   their plain versions at the shard shape [1,512,2048] and at
+   [1,2048,2048], with their bounds.
 10. tiles  — the 2-D tile layout on the same frame: ``rank_check`` on a
    (sy, sx) = (2, 2) grid of four ranks on the one card over gloo, with
    phase 9's requirements (kernels 11, 12 and C's LUT stage launched on
    every rank, rank 0's calls replayed, the whole 2-D TV solve kernels vs
-   plain with equal counts, within ``parity.breaches`` of the dense
-   ``qa_plan``), and against phase 9's k = 4 row blocks (flags equal);
-   ms per call, host round trips, launch wall; kernels 11 and 12 (its
-   column-halo form) and the LUT stage at the tile [1,1024,1024].
+   plain with equal counts and its schedule and times, the schedule cases
+   on the grid, within ``parity.breaches`` of the dense ``qa_plan``), and
+   against phase 9's k = 4 row blocks (flags equal); ms per call, host
+   round trips, launch wall; kernels 11 and 12 (with column slabs) and the
+   LUT stage at the tile [1,1024,1024].
 11. probe  — kernel 13, the capability probe (``mdx_torch.tools.probe_nvcc``,
    the counterpart of ``tools/probe_mosaic.py``): 18 probes, one nvcc each,
    all started together, every one ``ok`` and equal to its plain version
    (exactly where the TPU tool checks ``array_equal``, to ``allclose``
-   where it does); time per launch (CUDA events, and the device time from
-   a profiler trace) against its bound, the plain version and one PyTorch
-   call (CUDA events, and its device time from a trace).
+   where it does; ``iota_select_matmul_deinterleave`` bit for bit, and its
+   device time printed against its PyTorch call's); time per launch (CUDA
+   events, and the device time from a profiler trace) against its bound,
+   the plain version and one PyTorch call (CUDA events, and its device
+   time from a trace).
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
 the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
-``by_size``, and the LUT stage's times under the CLAHE row's ``by_size``;
+``by_size`` (kernel 12: a launch of s iterations, the rebuild and a whole
+solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
 launches per path of phases 5-11, summed over the ranks in phases 9-10);
@@ -184,10 +197,10 @@ F32_OPS_PER_S = 67e12
 # pixels of the one before, 4/3 in all): analysis 6 per pixel (24 per 2x2
 # quad) -> 8, the bands' squares and sums 1.5 -> 2, the soft shrink 3 -> 4
 # and synthesis 6 -> 8; the sharded CLAHE remap the bin index (4), the two
-# tile coordinates and their weights (10) and the 4-LUT blend (11); one
-# sharded TV step the dense TV iteration's 23; CLAHE's LUT stage alone the
-# bin index and its count (5) and the clip, redistribution, scan and scale
-# of 256 bins per 16x16 tile (6).
+# tile coordinates and their weights (10) and the 4-LUT blend (11); a
+# sharded TV iteration the dense TV iteration's 23 (per pixel and
+# iteration); CLAHE's LUT stage alone the bin index and its count (5) and
+# the clip, redistribution, scan and scale of 256 bins per 16x16 tile (6).
 OPS_PER_PIXEL = {"box_stats": 130, "unsharp": 103, "clahe": 47,
                  "tv_chambolle": 23, "wavelet_denoise": 22,
                  "clahe_remap_ext": 25, "tv_shard_step": 23,
@@ -910,9 +923,12 @@ def _phase_ingest(torch, kernels, parity, paths: dict, card: str,
 def _spatial_args(torch, name: str, x, two_d: bool = False):
     """A recorded wrapper's arguments on a block ``x`` as the sharded path
     hands them over: the LUT stage at the check's clip limit and tile; the
-    block's own LUTs with edge copies as the halo; one TV iteration of an
-    interior block with neighbour rows (and, ``two_d``, an interior tile's
-    neighbour columns), every image active."""
+    block's own LUTs with edge copies as the halo; kernel 12 on an interior
+    block (the middle row block of three; ``two_d``: the middle tile of a
+    3 x 3 grid, with column slabs) with s-wide slabs: a launch of s
+    iterations with every image active, and the rebuild of an image whose
+    last launch was odd with s - 1 iterations left."""
+    from mdx_torch import kernels
     from mdx_torch.parallel import clahe_sp
 
     n, h, w = x.shape
@@ -924,73 +940,77 @@ def _spatial_args(torch, name: str, x, two_d: bool = False):
         lut = torch.cat([lut[:, :1], lut, lut[:, -1:]], dim=1)
         lut = torch.cat([lut[:, :, :1], lut, lut[:, :, -1:]], dim=2)
         return (x, lut.contiguous(), 16)
-    small = lambda *shape: 0.05 * torch.randn(  # noqa: E731
-        *shape, device=x.device, generator=g)
-    cols = ((small(n, h + 1), x[:, :, -1].contiguous(), small(n, h + 1),
-             small(n, h), False) if two_d else (None, None, None, None, True))
-    return (x, small(n, 2, h, w), torch.empty((n, 2, h, w), device=x.device),
-            torch.empty_like(x),
-            torch.ones(n, dtype=torch.int32, device=x.device),
-            torch.full((n,), 0.05, device=x.device), small(n, w),
-            x[:, -1].contiguous(), small(n, w), small(n, w), False, *cols)
+    s = kernels.tv_steps()
+
+    def small(*shape):
+        return 0.05 * torch.randn(*shape, device=x.device, generator=g)
+
+    def slabs(planes, level):
+        return (level + small(n, planes, s, w), level + small(n, planes, s, w),
+                *((level + small(n, planes, h + 2 * s, s),) * 2 if two_d
+                  else (None, None)))
+
+    geo = (3 * h, 3 * w if two_d else w, h, w if two_d else 0, s)
+    weight = torch.full((n,), 0.05, device=x.device)
+    if name == "tv_shard_step":
+        return (x, small(n, 2, h, w), torch.empty((n, 2, h, w),
+                                                   device=x.device),
+                torch.ones(n, dtype=torch.int32, device=x.device), weight,
+                slabs(1, 0.5), slabs(2, 0.0), geo, s)
+    base = torch.full((n,), s, dtype=torch.int32, device=x.device)
+    return (x, small(n, 2, h, w), small(n, 2, h, w), base + s, base, weight,
+            slabs(1, 0.5), slabs(2, 0.0), slabs(2, 0.0), geo, s)
 
 
-def _spatial_bound(name: str, args) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") of one recorded wrapper's call:
-    the LUT stage reads x and writes the LUT grid; kernel 11 reads x and the
-    LUT grid and writes out; kernel 12 reads x, p, the four halo rows and
-    any halo columns and writes p, out and the [N,2] sums."""
+def _tensor_bytes(torch, args) -> int:
+    """Bytes of the tensors among ``args``, in tuples (slab sets) too."""
+    return sum(a.numel() * a.element_size() if torch.is_tensor(a)
+               else _tensor_bytes(torch, a) if isinstance(a, tuple) else 0
+               for a in args)
+
+
+def _spatial_bound(torch, name: str, args) -> tuple[float, str, float]:
+    """(least ms, "bytes" or "operations", kernel 12's old bound) of one
+    recorded wrapper's call: the LUT stage reads x and writes the LUT grid;
+    kernel 11 reads x and the LUT grid and writes out; a launch of kernel 12
+    reads x, p and the slabs and writes p and the sums, against 23
+    operations a pixel and iteration (counted as kernel T's bound); its
+    rebuild reads x, one dual buffer and the slabs and writes out, with
+    its s - 1 iterations.  The old bound: a launch an iteration, 24 bytes a
+    pixel and iteration (None for the others)."""
     n, h, w = args[0].shape
     px = n * h * w
+    old = None
     if name == "clahe_luts":
         t = args[2]
         moved = 4 * px + 4 * 256 * n * -(-h // t) * -(-w // t)
+        ops = px * OPS_PER_PIXEL[name]
     elif name == "clahe_remap_ext":
         moved = 8 * px + args[1].numel() * 4
-    else:
-        moved = 24 * px + 4 * 4 * n * w + 16 * n + sum(
-            4 * a.numel() for a in args[11:15] if a is not None)
+        ops = px * OPS_PER_PIXEL[name]
+    elif name == "tv_shard_step":
+        m = args[-1]
+        moved = _tensor_bytes(torch, args) + 16 * n * m
+        ops = px * m * OPS_PER_PIXEL[name]
+        old = 24 * px * m / HBM_BYTES_PER_S * 1e3
+    else:         # the rebuild: x, p_odd and their slabs in, out written
+        r = int((args[3] - 1 - args[4]).max())
+        moved = _tensor_bytes(torch, args[:1] + args[2:3] + args[6:7]
+                              + args[8:9]) + 4 * px
+        ops = px * r * OPS_PER_PIXEL["tv_shard_step"]
+        old = 24 * px * r / HBM_BYTES_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = px * OPS_PER_PIXEL[name] / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", old)
 
 
 # the device functions of the recorded wrappers (csrc/clahe.cu, csrc/tv.cu)
 DEVICE_FUNCTIONS = {"clahe_luts": ("clahe_lut_kernel",),
                     "clahe_remap_ext": ("clahe_remap_ext_kernel",),
-                    "tv_shard_step": ("tv_step_kernel",
-                                      "tv_block_sums_kernel")}
-
-
-def _device_ms(torch, fn, reps: int, names=None,
-               tries: int = 3) -> float | None:
-    """Device time per call of the kernels named ``names`` (None: every
-    operation on the device) over ``reps`` calls, from a ``torch.profiler``
-    trace of the card: the CUDA-event time of a call also holds its
-    wrapper's host work whenever that is longer than the kernel.  A trace
-    can lose the records of a call of a microsecond or less (it then holds
-    only the host's side); such a trace is taken again, up to ``tries``
-    times, and None is returned if none shows device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        us = sum(getattr(e, "device_time_total", 0) or 0 for e in events
-                 if (any(n in e.key for n in names) if names
-                     else e.device_type == DeviceType.CUDA))
-        if us:
-            return us / reps / 1e3
-        print(f"  no device time for {names} in the trace; its device "
-              f"events: {[e.key[:60] for e in events][:12]}")
-    return None
+                    "tv_shard_step": ("tv_blk_step_kernel",
+                                      "tv_blk_rank_sums_kernel"),
+                    "tv_shard_rebuild": ("tv_blk_rebuild_kernel",)}
 
 
 def _time_spatial_kernels(torch, kernels, check, x, card: str,
@@ -1001,6 +1021,7 @@ def _time_spatial_kernels(torch, kernels, check, x, card: str,
     kernels' device time from a profiler trace.  ``two_d``: kernel 12 with
     halo columns, as an interior tile of a 2-D grid runs it."""
     from mdx_torch.tools import spatial_check as SC
+    from mdx_torch.tools import device_ms
 
     label = "x".join(map(str, x.shape)) + (" tile" if two_d else "")
     out = {}
@@ -1020,13 +1041,19 @@ def _time_spatial_kernels(torch, kernels, check, x, card: str,
         k2 = _sync_ms(torch, kern, 20)
         p2 = _sync_ms(torch, plain, 20)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        bound_ms, bound_by = _spatial_bound(k, args)
-        dev_ms = _device_ms(torch, kern, 20, DEVICE_FUNCTIONS[k])
+        bound_ms, bound_by, old = _spatial_bound(torch, k, args)
+        dev_ms = device_ms(kern, 20, DEVICE_FUNCTIONS[k])
         print(f"time [{label}] {k} on {card}: kernel {ms!r} ms "
               f"({k1!r}, {k2!r}; device {dev_ms!r} ms), plain {plain_ms!r} "
-              f"ms ({p1!r}, {p2!r}), bound {bound_ms!r} ms ({bound_by})")
+              f"ms ({p1!r}, {p2!r}), bound {bound_ms!r} ms ({bound_by})"
+              + ("" if old is None else f", a launch an iteration's bound "
+                 f"{old!r} ms"))
         out[k] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by}
+        if old is not None:
+            out[k].update(iterations=(args[-1] if k == "tv_shard_step" else
+                                      int((args[3] - 1 - args[4]).max())),
+                          bound_per_step_ms=old)
     check.require_ok()
     return out
 
@@ -1108,6 +1135,17 @@ def _spatial_run(torch, kernels, parity, check, paths: dict, card: str, x,
         _require(it_k == it_p, f"tv solve {label}: iteration counts")
         _require(tv["max_abs_err"] <= parity.KERNEL_TOL[
             "tv_shard_step"][1], f"tv solve {label}: kernel vs plain")
+        sched = tv["schedule"]
+        steps, n_launch = int(sched["steps"]), int(sched["launches"])
+        print(f"tv solve rank {rank} {label}: {steps} iterations a launch, "
+              f"{n_launch} step launches + 1 rebuild for {max(it_k)} "
+              f"iterations, {int(sched['host_reads'])} flag reads, "
+              f"{int(sched['round_trips'])} host round trips a solve")
+        _require(n_launch <= -(-max(it_k) // steps) + 1,
+                 f"tv solve {label}: {n_launch} step launches")
+    r0["tv_solve_summary"] = _solve_summary(res, r0["tv_timing"])
+    print(f"tv solve times rank 0 {label} on {card}: "
+          f"{json.dumps(r0['tv_solve_summary'])}")
     bad = parity.breaches(flat, want, tv_ran=True)
     print(f"qa_plan_spatial {label} vs dense qa_plan on the card: "
           f"enhanced max|d| {parity.max_abs(flat, want, 'enhanced')!r}, "
@@ -1126,6 +1164,70 @@ def _spatial_run(torch, kernels, parity, check, paths: dict, card: str, x,
     return flat, qa_enh, r0
 
 
+def _solve_summary(res, timing) -> dict:
+    """Rank 0's sharded TV solve times (``time_tv_shard.summary``)."""
+    from mdx_torch.tools import time_tv_shard
+
+    layout = ("x".join(map(str, res.n_space))
+              if isinstance(res.n_space, tuple) else str(res.n_space))
+    return time_tv_shard.summary(timing, layout, res.backend)
+
+
+# kernel 12's schedule cases: weights of three copies of one frame that stop
+# in three different launches of both parities (the dense plain version on
+# the CPU counts 12, 30 and 40 iterations on the clipped 2048^2 frame:
+# launches 2, 7 and 9 at s = 4)
+MIX_W = (0.01, 0.03, 0.5)
+
+
+def _tv_schedule_cases(torch, kernels, parity, x, n_space, label: str):
+    """Kernel 12 against the plain sharded solve on ``n_space`` (one
+    launch, gloo, every call on every rank): caps 1 .. 2s + 1 with eps = 0
+    on the frame (a stop at every offset of a launch, short last launches),
+    three copies of it with ``MIX_W`` (images stopping in different
+    launches), and an [2, 8, 6] corner of it (blocks and tiles thinner than
+    s: 2 or 3 iterations a launch); pixels within ``KERNEL_TOL`` (and
+    printed: the design is exact) and counts equal on every rank."""
+    import numpy as np
+
+    from mdx_torch.parallel import launch, tv_sp
+    from mdx_torch.parallel.launch import Block
+
+    s = kernels.tv_steps()
+    y = np.clip(x, 0.0, 1.0)
+    inputs = (y, np.repeat(y, 3, axis=0),
+              np.repeat(y[:, :8, :6], 2, axis=0).copy())
+    caps = range(1, 2 * s + 2)
+    cases = [((Block(0), 0.05), dict(eps=0.0, max_iter=c)) for c in caps]
+    cases += [((Block(1), torch.tensor(MIX_W)), {}),
+              ((Block(2), 0.05), {})]
+    calls = [c for args, kw in cases for c in (
+        (tv_sp.tv_sharded, args, kw), (tv_sp.tv_sharded_plain, args, kw))]
+    t0 = time.perf_counter()
+    res = launch.run(launch.call_each, inputs, n_space=n_space,
+                     device="cuda", timeout_s=900, calls=calls)
+    err = 0.0
+    for r in res.results:
+        for i in range(0, len(calls), 2):
+            (got, it_k), (want, it_p) = r[i], r[i + 1]
+            _require(it_k.tolist() == it_p.tolist(),
+                     f"tv schedule {label} case {i // 2}: counts "
+                     f"{it_k.tolist()} vs {it_p.tolist()}")
+            err = max(err, float(np.abs(got - want).max()))
+        for i, cap in enumerate(caps):
+            _require(r[2 * i][1].tolist() == [cap],
+                     f"tv schedule {label}: cap {cap}")
+    mix = res.results[0][-4][1].tolist()
+    print(f"tv schedule cases {label} ({res.backend}): caps 1..{2 * s + 1}, "
+          f"mixed stops {mix} (launches {[(c - 1) // s for c in mix]}), "
+          f"thin blocks {res.results[0][-2][1].tolist()}: kernel vs plain "
+          f"max|d| {err!r}, counts equal ({time.perf_counter() - t0:.1f} s)")
+    _require(len({(c - 1) // s for c in mix}) > 1,
+             f"tv schedule {label}: the mixed case stops in one launch")
+    _require(err <= parity.KERNEL_TOL["tv_shard_step"][1],
+             f"tv schedule {label}: kernel vs plain max|d| {err!r}")
+
+
 def _against(label: str, parity, a: tuple, b: tuple) -> None:
     """Two sharded runs of the same frame (``_spatial_run``'s results):
     the plan and qa frames within ``parity.breaches``, flags equal."""
@@ -1139,8 +1241,10 @@ def _against(label: str, parity, a: tuple, b: tuple) -> None:
         if not np.array_equal(ra[key], rb[key]):
             bad.append(f"{key}: {ra[key].tolist()} vs {rb[key].tolist()}")
     print(f"{label}: plan enhanced max|d| "
-          f"{parity.max_abs(fa, fb, 'enhanced')!r}, qa enhanced max|d| "
-          f"{float(np.abs(qa_a - qa_b).max())!r}, breaches {len(bad)}")
+          f"{parity.max_abs(fa, fb, 'enhanced')!r} (bit-equal "
+          f"{bool(np.array_equal(fa['enhanced'], fb['enhanced']))}), qa "
+          f"enhanced max|d| {float(np.abs(qa_a - qa_b).max())!r}, breaches "
+          f"{len(bad)}")
     for line in bad:
         print("  " + line)
     _require(not bad, f"{label} differ")
@@ -1162,13 +1266,17 @@ def _phase_spatial(torch, kernels, parity, check, paths: dict, card: str,
     runs = {k: _spatial_run(torch, kernels, parity, check, paths, card, x, k,
                             want) for k in (1, SPATIAL_K)}
     _against(f"k={SPATIAL_K} vs k=1", parity, runs[SPATIAL_K], runs[1])
+    _tv_schedule_cases(torch, kernels, parity, x, SPATIAL_K,
+                       f"k={SPATIAL_K}")
 
     xd = torch.from_numpy(x).to(dev)
     hs = SPATIAL_SIZE // SPATIAL_K
-    times = {f"1x{hs}x{SPATIAL_SIZE}": _time_spatial_kernels(
+    shard, whole = f"1x{hs}x{SPATIAL_SIZE}", f"1x{SPATIAL_SIZE}x{SPATIAL_SIZE}"
+    times = {shard: _time_spatial_kernels(
                  torch, kernels, check, xd[:, :hs].contiguous(), card),
-             f"1x{SPATIAL_SIZE}x{SPATIAL_SIZE}": _time_spatial_kernels(
-                 torch, kernels, check, xd, card)}
+             whole: _time_spatial_kernels(torch, kernels, check, xd, card)}
+    times[shard]["tv_shard_solve"] = runs[SPATIAL_K][2]["tv_solve_summary"]
+    times[whole]["tv_shard_solve"] = runs[1][2]["tv_solve_summary"]
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
     return times, runs
 
@@ -1191,10 +1299,14 @@ def _phase_tiles(torch, kernels, parity, check, paths: dict, card: str,
     sy, sx = SPATIAL_2D
     _against(f"layout {sy}x{sx} vs k={SPATIAL_K} row blocks", parity, tiles,
              runs[SPATIAL_K])
+    _tv_schedule_cases(torch, kernels, parity, x, SPATIAL_2D,
+                       f"layout {sy}x{sx}")
     hs, ws = SPATIAL_SIZE // sy, SPATIAL_SIZE // sx
     xt = torch.from_numpy(x[:, :hs, :ws].copy()).to(dev)
-    times = {f"1x{hs}x{ws} tile": _time_spatial_kernels(
-        torch, kernels, check, xt, card, two_d=True)}
+    tile = f"1x{hs}x{ws} tile"
+    times = {tile: _time_spatial_kernels(torch, kernels, check, xt, card,
+                                         two_d=True)}
+    times[tile]["tv_shard_solve"] = tiles[2]["tv_solve_summary"]
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     return times
 
@@ -1203,6 +1315,7 @@ def _phase_probe(torch, card: str) -> dict:
     """Phase 11: kernel 13, the capability probe (module doc) → its row of
     the kernels line."""
     from mdx_torch.tools import probe_nvcc as PN
+    from mdx_torch.tools import device_ms
 
     t11 = time.perf_counter()
     t0 = time.perf_counter()
@@ -1227,18 +1340,24 @@ def _phase_probe(torch, card: str) -> dict:
            or not r["library_equal"] or launches[n] < 1]
     _require(not bad, f"probes not ok: {bad}")
     dev = torch.device("cuda", 0)
+    # the select matmul keeps one term of each sum, of integer values: it is
+    # exact, though the TPU tool checks it with allclose
+    sel = "iota_select_matmul_deinterleave"
+    x = PN.probe_input(sel, dev)
+    _require(torch.equal(PN.launch(sel, built[sel], x),
+                         PN.plain_output(sel, x)), f"{sel}: not bit-equal")
     for name in res:
         x = PN.probe_input(name, dev)
         t = PN.time_probe(name, built[name], x)
         # every probe's kernel is `k`; the CUDA-event time of a launch also
         # holds the ctypes wrapper's host work
-        t["device_ms"] = _device_ms(
-            torch, lambda name=name, x=x: PN.launch(name, built[name], x), 20,
+        t["device_ms"] = device_ms(
+            lambda name=name, x=x: PN.launch(name, built[name], x), 20,
             ("k(float const*, float*)",))
         # the PyTorch call's device time: every device operation of the call
         # in the trace (its kernels' names vary with the call)
-        t["library_device_ms"] = _device_ms(
-            torch, lambda name=name, x=x: PN.LIBRARY[name](x), 20)
+        t["library_device_ms"] = device_ms(
+            lambda name=name, x=x: PN.LIBRARY[name](x), 20)
         print(f"time probe {name} on {card}: kernel {t['ms']!r} ms a launch "
               f"(device {t['device_ms']!r}), plain {t['plain_ms']!r}, one "
               f"PyTorch call {t['library_ms']!r} (device "
@@ -1258,6 +1377,9 @@ def _phase_probe(torch, card: str) -> dict:
                   if t["device_ms"] is None or t["library_device_ms"] is None]
     slower = [n for n, t in by_probe.items() if n not in unmeasured
               and t["device_ms"] > t["library_device_ms"]]
+    t = by_probe[sel]
+    print(f"{sel}: device {t['device_ms']!r} ms against its PyTorch call's "
+          f"{t['library_device_ms']!r} ms")
     print(f"probes slower than their PyTorch call on the device: {slower} "
           f"(device {total('device_ms')!r} ms against "
           f"{total('library_device_ms')!r} ms over the 18; no device time in "
@@ -1503,6 +1625,12 @@ def main() -> int:
     shard = f"1x{SPATIAL_SIZE // SPATIAL_K}x{SPATIAL_SIZE}"
     for k in SPATIAL_KERNELS:
         at = times_spatial[shard][k]
+        by_size = {s: t[k] for s, t in times_spatial.items()}
+        if k == "tv_shard_step":
+            by_size.update({f"{s} {part}": t[part]
+                            for s, t in times_spatial.items()
+                            for part in ("tv_shard_rebuild",
+                                         "tv_shard_solve")})
         rows.append({
             "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k],
@@ -1512,8 +1640,12 @@ def main() -> int:
             "max_abs_err": check.errs[k], "shape": shard,
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": None,
-            "by_size": {s: t[k] for s, t in times_spatial.items()}})
+            "library_ms": None, "by_size": by_size,
+            **({"design": "temporally blocked: s iterations a launch on "
+                          "the dense kernel's windows from s-wide halo "
+                          "slabs, one all-reduce a launch, one rebuild a "
+                          "solve (ms: a launch of s iterations)"}
+               if k == "tv_shard_step" else {})})
     for k in DENSE_KERNELS:
         big = times_big[k]
         by_size = {shape_512: times_512[k], shape_big: big}

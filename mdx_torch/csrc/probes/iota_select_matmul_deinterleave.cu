@@ -1,10 +1,13 @@
 // in v [256, 512] -> out [256, 256] = v @ S_e + v @ S_o, S_e[j][q] =
 // (j == 2q), S_o[j][q] = (j == 2q + 1): the column de-interleave as two
-// products with selection matrices built from indices in the kernel.  A
-// tiled float32 product on the SIMT cores: 16 x 16 output tiles, 16-deep
-// slices of v in shared memory (padded to 17), S from the indices.  It is
-// exact: one term of each sum is non-zero and the arange values (below
-// 2^17) are integers.  A TF32 tensor-core product would keep 10 bits of
+// products with selection matrices.  Column q of S_e keeps one term of row
+// i of v, v[i][2q], and column q of S_o one, v[i][2q + 1], so a thread
+// reads only those: one float4 load (v[i][2q .. 2q + 3], coalesced across
+// the warp) gives the kept terms of outputs q and q + 1, written as one
+// float2.  No shared memory, no loop over the 512-deep products (their
+// other 510 terms are zeros).  It is exact, and equal to the full product:
+// the arange values (below 2^17) are integers, and each sum has one
+// non-zero term.  A TF32 tensor-core product would keep 10 bits of
 // mantissa and round values above 2048 by up to 1/2048 of their size, far
 // past the check's rtol 1e-5: on Hopper that is the twin of the TPU's
 // one-pass bf16 matmul (the CLAHE remap incident), so this probe stays in
@@ -13,22 +16,13 @@
 
 __global__ void __launch_bounds__(256) k(const float* __restrict__ in,
                                          float* __restrict__ out) {
-    __shared__ float vt[16][17];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int i = blockIdx.y * 16 + ty, q = blockIdx.x * 16 + tx;
-    float e = 0.0f, o = 0.0f;
-    for (int k0 = 0; k0 < 512; k0 += 16) {
-        vt[ty][tx] = in[i * 512 + k0 + tx];
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < 16; ++kk) {
-            const int j = k0 + kk;
-            e += vt[ty][kk] * (j == 2 * q ? 1.0f : 0.0f);
-            o += vt[ty][kk] * (j == 2 * q + 1 ? 1.0f : 0.0f);
-        }
-        __syncthreads();
-    }
-    out[i * 256 + q] = e + o;
+    const int t = blockIdx.x * 256 + threadIdx.x;   // [256 rows][128 pairs]
+    const int i = t >> 7, q = (t & 127) * 2;
+    const float4 v = reinterpret_cast<const float4*>(in + i * 512)[q >> 1];
+    const float e0 = v.x * 1.0f, o0 = v.y * 1.0f;   // S_e[2q][q], S_o[2q+1][q]
+    const float e1 = v.z * 1.0f, o1 = v.w * 1.0f;
+    reinterpret_cast<float2*>(out + i * 256)[q >> 1] = make_float2(e0 + o0,
+                                                                   e1 + o1);
 }
 
-MDX_PROBE_ENTRY(k, dim3(16, 16), dim3(16, 16))
+MDX_PROBE_ENTRY(k, 128, 256)

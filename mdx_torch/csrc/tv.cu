@@ -57,164 +57,44 @@
 // 48 KB a launch gets without cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
 // TPU kernel 12 (mdx/parallel/tv_sp.py _tv_sharded_banded, whose body is
-// pallas_kernels.py _tv_band_step) is the same iteration on one row block
-// of a spatially-sharded image (mdx_torch/parallel/tv_sp.py).  The step
-// kernel takes the block's halo rows (TvHalo): the previous block's last p0
-// row for the divergence at row 0, and the next block's first x, p0 and p1
-// rows, from which the last row's forward difference gets the next row of
-// out; null rows are zeros, and glast (the block holds the global bottom
-// row) zeroes that difference, as at the dense image's edge.  With no rows
-// and glast = 1 it is one iteration of the whole image (the dense solve's
-// form before the blocked kernels, a launch pair per iteration).  Per
-// iteration mdx_tv_shard_step runs the step and sums the block's partials in
-// a fixed order to [N, 2] float64; the caller adds those over the row
-// blocks (torch.distributed) and mdx_tv_shard_finalize applies the stop
-// rule that the dense finalize applies (one __device__ function for both)
-// to the global sums.  The TPU kernel's per-band snapshot of the halo rows
-// (its bands ran in order and wrote in place) is not needed: the step reads
-// p_in and writes p_out.  Bound: memory, 24 bytes a pixel an iteration plus
-// four rows.
-//
-// On a 2-D grid of tiles (mdx/parallel/tv_sp.py with col_axis, an XLA body
-// on the TPU: its banded kernel is 1-D only) the same step takes column
-// halos too: the left tile's last p1 column (the divergence at column 0)
-// and the right tile's first x, p0 and p1 columns, from which the last
-// column's forward difference gets the next column of out; grlast (the
-// tile holds the global right column) zeroes that difference.  Two corners
-// enter: the right tile's row 0 of out needs p0 from the tile above it
-// (up-right), and the next row's out at column 0 needs p1 from the tile
-// below the left one (down-left).  The caller exchanges rows first and then
-// the columns of the row-extended state, so lf_p1 holds h + 1 values (row h
-// from the tile below the left one) and rt_p0 holds h + 1 (index 0 from the
-// tile above the right one): the corners come with the columns, no diagonal
-// message and no second launch.  Dense and row-block calls pass null column
-// halos and grlast = 1, which is the code they ran before.
+// pallas_kernels.py _tv_band_step, one launch an iteration on a row band)
+// is the same iteration on one row block, or one tile of a 2-D grid, of a
+// spatially-sharded image (mdx_torch/parallel/tv_sp.py).  Here it runs on
+// the same step body as the dense solve, temporally blocked in the same
+// way: the windows are placed in global image coordinates (TvGeo: the
+// global size, the block's origin in it), and a window's cells outside the
+// block come from halo slabs (TvSlabs) of the neighbouring blocks, hw <= S
+// rows above and below and hw columns left and right of the row-extended
+// block (the corners come with the columns: rows are exchanged first, then
+// the columns of the row-extended block, so no message goes diagonally).
+// Cells outside the image are zeros and are never updated, as in the dense
+// kernel, and the forward differences are 0 at the image's last row and
+// column.  A launch of m <= hw steps needs nothing further away: the dual
+// at a cell after a step depends on the dual within one cell of it, so the
+// block's own cells are exact after m steps from a halo of m, and so are
+// each step's energies over them.  Per launch of kernel 12:
+//   1. tv_blk_step_kernel (the dense kernel's) on the block's windows with
+//      the slabs of p_a (exchanged by the caller once a launch) and of x
+//      (once a solve), writing the block's p_{a+m} and the partials;
+//   2. tv_blk_rank_sums_kernel: the block's sums of each step, the
+//      partials summed over the windows in a fixed order → [n, m, 2];
+//   3. the caller adds those over the tile group (one all-reduce a launch)
+//      and tv_blk_finalize_kernel walks the m global energies with the stop
+//      rule (the dense finalize, fed with one "block": the global sums).
+// After the loop tv_blk_rebuild_kernel rebuilds out from each image's base
+// launch as in the dense solve; the slabs it reads are those of the
+// image's buffer (the caller keeps a slab set per buffer of the ping-pong
+// pair: a stopped image's dual and its neighbours' copies of it stay as
+// they were, since stops are decided on global sums and every rank skips
+// the image from then on).  A dense call is the case of no slabs and a
+// block that is the whole image.  Bound: as the dense solve, 20 bytes a
+// pixel a launch plus the slabs (5 an iteration at S = 4, against 24 for
+// the launch an iteration the TPU kernel runs).
 #include "common.cuh"
 
 namespace {
 
-constexpr int TT = 32;        // tile edge
-constexpr int TROWS = 8;      // block is 32 x 8 threads, 4 rows each
-constexpr int NT = TT * TROWS;
 constexpr int FIN_T = 256;
-
-// The rows next to the array that the stencil reads: [n, w] each, null for
-// zeros.  glast: the array's last row is the image's bottom row.  The
-// columns next to it (2-D tiles), null for zeros: lf_p1 [n, h + 1] (rows
-// 0 .. h), rt_x and rt_p1 [n, h], rt_p0 [n, h + 1] (rows -1 .. h - 1).
-// grlast: the array's last column is the image's right column.
-struct TvHalo {
-    const float* up_p0;
-    const float* dn_x;
-    const float* dn_p0;
-    const float* dn_p1;
-    int glast;
-    const float* lf_p1;
-    const float* rt_x;
-    const float* rt_p0;
-    const float* rt_p1;
-    int grlast;
-};
-
-// d = -(p0 + p1) + (p0 above) + (p1 left), in the plain version's order
-__device__ __forceinline__ float tv_dval(float p0c, float p1c, float above,
-                                         float left) {
-    float d = -(p0c + p1c);
-    d = d + above;
-    d = d + left;
-    return d;
-}
-
-__device__ __forceinline__ float row_at(const float* __restrict__ r, int j) {
-    return r ? r[j] : 0.0f;
-}
-
-__device__ __forceinline__ float tv_d(const float* __restrict__ p0,
-                                      const float* __restrict__ p1, int i,
-                                      int j, int w,
-                                      const float* __restrict__ up,
-                                      const float* __restrict__ lf) {
-    const size_t k = (size_t)i * w + j;
-    return tv_dval(p0[k], p1[k],
-                   i > 0 ? p0[k - w] : row_at(up, j),
-                   j > 0 ? p1[k - 1] : row_at(lf, i));
-}
-
-__global__ void __launch_bounds__(NT)
-tv_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
-               float* __restrict__ p_out, float* __restrict__ out,
-               double* __restrict__ partials, const int* __restrict__ active,
-               const float* __restrict__ weight, int h, int w, TvHalo halo) {
-    __shared__ double sh[NT];
-    const int img = blockIdx.z;
-    if (!active[img]) return;  // uniform over the block
-
-    const size_t plane = (size_t)h * w;
-    const float* xi = x + img * plane;
-    const float* p0 = p_in + img * 2 * plane;
-    const float* p1 = p0 + plane;
-    float* q0 = p_out + img * 2 * plane;
-    float* q1 = q0 + plane;
-    float* oi = out + img * plane;
-    const size_t ro = (size_t)img * w;
-    const float* up = halo.up_p0 ? halo.up_p0 + ro : nullptr;
-    const float* dnx = halo.dn_x ? halo.dn_x + ro : nullptr;
-    const float* dn0 = halo.dn_p0 ? halo.dn_p0 + ro : nullptr;
-    const float* dn1 = halo.dn_p1 ? halo.dn_p1 + ro : nullptr;
-    const size_t co = (size_t)img * h;
-    const float* lf = halo.lf_p1 ? halo.lf_p1 + co + img : nullptr;
-    const float* rtx = halo.rt_x ? halo.rt_x + co : nullptr;
-    const float* rt0 = halo.rt_p0 ? halo.rt_p0 + co + img : nullptr;
-    const float* rt1 = halo.rt_p1 ? halo.rt_p1 + co : nullptr;
-    const float wgt = weight[img];
-    const float tau = 0.25f;
-
-    double sd = 0.0, sn = 0.0;
-    const int j = blockIdx.x * TT + threadIdx.x;
-    for (int r = 0; r < TT / TROWS; ++r) {
-        const int i = blockIdx.y * TT + threadIdx.y + r * TROWS;
-        if (i >= h || j >= w) continue;
-        const size_t k = (size_t)i * w + j;
-        const float d = tv_d(p0, p1, i, j, w, up, lf);
-        const float o = xi[k] + d;
-        float gy;
-        if (i < h - 1) {
-            gy = (xi[k + w] + tv_d(p0, p1, i + 1, j, w, up, lf)) - o;
-        } else if (halo.glast) {
-            gy = 0.0f;
-        } else {  // the next block's first row of out
-            const float ddn = tv_dval(row_at(dn0, j), row_at(dn1, j), p0[k],
-                                      j > 0 ? row_at(dn1, j - 1)
-                                            : row_at(lf, h));
-            gy = (row_at(dnx, j) + ddn) - o;
-        }
-        float gx;
-        if (j < w - 1) {
-            gx = (xi[k + 1] + tv_d(p0, p1, i, j + 1, w, up, lf)) - o;
-        } else if (halo.grlast) {
-            gx = 0.0f;
-        } else {  // the right tile's first column of out (rt_p0 from row -1)
-            const float drt = tv_dval(row_at(rt0, i + 1), row_at(rt1, i),
-                                      row_at(rt0, i), p1[k]);
-            gx = (row_at(rtx, i) + drt) - o;
-        }
-        const float norm = sqrtf(gy * gy + gx * gx);
-        sd += (double)(d * d);
-        sn += (double)norm;
-        const float scale = norm * tau / wgt + 1.0f;
-        q0[k] = (p0[k] - tau * gy) / scale;
-        q1[k] = (p1[k] - tau * gx) / scale;
-        oi[k] = o;
-    }
-    sd = mdx::block_sum<double, NT>(sd, sh);
-    sn = mdx::block_sum<double, NT>(sn, sh);
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-        const size_t blk = (size_t)img * gridDim.x * gridDim.y
-                           + blockIdx.y * gridDim.x + blockIdx.x;
-        partials[2 * blk] = sd;
-        partials[2 * blk + 1] = sn;
-    }
-}
 
 // An image's (sum d^2, sum |grad out|) from its blocks' partials, in a
 // fixed order: block k's pair at pi[stride * k], pi[stride * k + 1].  Every
@@ -232,8 +112,7 @@ __device__ __forceinline__ void tv_sum_partials(
     b = mdx::block_sum<double, FIN_T>(b, sh);
 }
 
-// The stop rule of tv_chambolle_xla on an image's global sums, shared by the
-// dense (blocked) finalize and the sharded one.
+// The stop rule of tv_chambolle_xla on an image's global sums.
 __device__ __forceinline__ void tv_stop_rule(
         int img, double a, double b, const float* __restrict__ weight,
         float* __restrict__ e0, float* __restrict__ e_prev,
@@ -254,37 +133,14 @@ __device__ __forceinline__ void tv_stop_rule(
     }
 }
 
-// The block's sums of an active image → sums[img] (float64 [n, 2]).
-__global__ void __launch_bounds__(FIN_T)
-tv_block_sums_kernel(const double* __restrict__ partials, int nblk,
-                     const int* __restrict__ active,
-                     double* __restrict__ sums) {
-    __shared__ double sh[FIN_T];
-    const int img = blockIdx.x;
-    if (!active[img]) return;
-    double a, b;
-    tv_sum_partials(partials + (size_t)img * nblk * 2, nblk, 2, sh, a, b);
-    if (threadIdx.x != 0) return;
-    sums[2 * img] = a;
-    sums[2 * img + 1] = b;
+// d = -(p0 + p1) + (p0 above) + (p1 left), in the plain version's order
+__device__ __forceinline__ float tv_dval(float p0c, float p1c, float above,
+                                         float left) {
+    float d = -(p0c + p1c);
+    d = d + above;
+    d = d + left;
+    return d;
 }
-
-// The stop rule on the global sums, one thread per image.
-__global__ void tv_shard_finalize_kernel(const double* __restrict__ sums,
-                                         const float* __restrict__ weight,
-                                         float* __restrict__ e0,
-                                         float* __restrict__ e_prev,
-                                         int* __restrict__ active,
-                                         int* __restrict__ iters, int n,
-                                         int first, float eps, float size) {
-    const int img = blockIdx.x * blockDim.x + threadIdx.x;
-    if (img >= n || !active[img]) return;
-    tv_stop_rule(img, sums[2 * img], sums[2 * img + 1], weight, e0, e_prev,
-                 active, iters, first, eps, size);
-}
-
-
-// ---- the blocked dense solve (kernel T) ----------------------------------
 
 constexpr int TV_S = 4;                 // iterations a launch (see above)
 constexpr int BW = 64;                  // window edge: tile + S-cell halos
@@ -300,25 +156,81 @@ constexpr int BC = BW / BX;             // window columns a thread covers
 constexpr size_t BSMEM = 3 * BW * BW * sizeof(float)
                          + (size_t)TV_S * BNWARP * 2 * sizeof(double);
 
+// The block the kernels work on: its extents h x w, the image's gh x gw,
+// the block's first row and column in the image, and the width hw of the
+// halo slabs.  The dense solve: the whole image, no slabs.
+struct TvGeo {
+    int h, w;
+    int gh, gw;
+    int row0, col0;
+    int hw;
+};
+
+// The halo slabs of one array of c planes an image, each null for zeros:
+// up and dn [n, c, hw, w] (the hw rows above and below the block), lf and
+// rt [n, c, h + 2 hw, hw] (the hw columns left and right of the
+// row-extended block, corners included).
+struct TvSlabs {
+    const float* up;
+    const float* dn;
+    const float* lf;
+    const float* rt;
+};
+
+// Plane `pl` (image * c + channel) of an array at the block's cell (r, c)
+// in block coordinates: the block's own value (a: the plane, [h, w]) or
+// the slab's; 0 beyond the slabs.
+__device__ __forceinline__ float tv_fetch(const float* __restrict__ a,
+                                          const TvSlabs& sl, size_t pl,
+                                          const TvGeo& g, int r, int c) {
+    if (c >= 0 && c < g.w) {
+        if (r >= 0 && r < g.h) return a[(size_t)r * g.w + c];
+        if (r < 0)
+            return r >= -g.hw && sl.up
+                       ? sl.up[(pl * g.hw + (r + g.hw)) * g.w + c] : 0.0f;
+        return r < g.h + g.hw && sl.dn
+                   ? sl.dn[(pl * g.hw + (r - g.h)) * g.w + c] : 0.0f;
+    }
+    if (r < -g.hw || r >= g.h + g.hw) return 0.0f;
+    const size_t row = pl * (g.h + 2 * g.hw) + (r + g.hw);
+    if (c < 0)
+        return c >= -g.hw && sl.lf ? sl.lf[row * g.hw + (c + g.hw)] : 0.0f;
+    return c < g.w + g.hw && sl.rt ? sl.rt[row * g.hw + (c - g.w)] : 0.0f;
+}
+
 // One window's state: the thread's cells (row ty + BY * u, column
-// tx + BX * v of the window) in registers, p0, p1 and out shared.
+// tx + BX * v of the window) in registers, p0, p1 and out shared.  The
+// step reads only these fields: it is bound by its instructions under a
+// cap of 40 registers.
 struct TvWin {
     float* p0;
     float* p1;
     float* o;
     double* wsum;           // [TV_S][BNWARP][2]
     int gi0, gj0;           // the window's origin in the image
-    int h, w;
+    int gh, gw;             // the image
     float wgt;
 };
 
 // Load x of the thread's cells into xr and the dual p (null: p = 0) into
-// the window; zeros outside the image.  Sets the in-image and owned masks.
+// the window, each from the block or (SLABS) its slabs; zeros outside the
+// image.  Sets the in-image and owned masks (owned: the window's tile, in
+// the block).  The dense solve's block is the image, so it compiles without
+// the slab lookup; the sharded solve's windows inside the block (most of
+// them; the test is uniform over the block) skip it too.  The lookup on
+// every cell made kernel T 25 % slower (PERF.md section 6).
+template <bool SLABS>
 __device__ __forceinline__ void tv_blk_load(
-        const TvWin& win, const float* __restrict__ x,
-        const float* __restrict__ p, float (&xr)[BR][BC], unsigned& inimg,
-        unsigned& owned) {
-    const size_t plane = (size_t)win.h * win.w;
+        const TvWin& win, const TvGeo& g, int img,
+        const float* __restrict__ x, const TvSlabs& xs,
+        const float* __restrict__ p, const TvSlabs& ps, float (&xr)[BR][BC],
+        unsigned& inimg, unsigned& owned) {
+    const size_t plane = (size_t)g.h * g.w;
+    const float* xi = x + img * plane;
+    const float* pi = p ? p + img * 2 * plane : nullptr;
+    const int li0 = win.gi0 - g.row0, lj0 = win.gj0 - g.col0;
+    const bool inside = li0 >= 0 && li0 + BW <= g.h && lj0 >= 0
+                        && lj0 + BW <= g.w;
     inimg = 0u;
     owned = 0u;
 #pragma unroll
@@ -326,16 +238,27 @@ __device__ __forceinline__ void tv_blk_load(
 #pragma unroll
         for (int v = 0; v < BC; ++v) {
             const int r = threadIdx.y + BY * u, c = threadIdx.x + BX * v;
+            const int li = li0 + r, lj = lj0 + c;
             const int gi = win.gi0 + r, gj = win.gj0 + c;
             const int q = r * BW + c;
             const int bit = u * BC + v;
-            const bool in = gi >= 0 && gi < win.h && gj >= 0 && gj < win.w;
-            const size_t g = (size_t)gi * win.w + gj;
-            xr[u][v] = in ? x[g] : 0.0f;
-            win.p0[q] = in && p ? p[g] : 0.0f;
-            win.p1[q] = in && p ? p[plane + g] : 0.0f;
+            const bool in = gi >= 0 && gi < g.gh && gj >= 0 && gj < g.gw;
+            if (!SLABS || inside) {
+                const size_t l = (size_t)li * g.w + lj;
+                xr[u][v] = in ? xi[l] : 0.0f;
+                win.p0[q] = in && pi ? pi[l] : 0.0f;
+                win.p1[q] = in && pi ? pi[plane + l] : 0.0f;
+            } else {
+                xr[u][v] = in ? tv_fetch(xi, xs, img, g, li, lj) : 0.0f;
+                win.p0[q] = in && pi ? tv_fetch(pi, ps, 2 * img, g, li, lj)
+                                     : 0.0f;
+                win.p1[q] = in && pi ? tv_fetch(pi + plane, ps, 2 * img + 1,
+                                                g, li, lj)
+                                     : 0.0f;
+            }
             if (in) inimg |= 1u << bit;
-            if (in && r >= TV_S && r < BW - TV_S && c >= TV_S && c < BW - TV_S)
+            if (li >= 0 && li < g.h && lj >= 0 && lj < g.w && r >= TV_S
+                && r < BW - TV_S && c >= TV_S && c < BW - TV_S)
                 owned |= 1u << bit;
         }
     }
@@ -367,8 +290,9 @@ __device__ __forceinline__ void tv_blk_step(const TvWin& win, int k,
         }
     }
     __syncthreads();
-    // (ii) the differences of out, the norm and the update of p on the
-    // image's cells where out below and to the right is still valid
+    // (ii) the differences of out (0 at the image's last row and column),
+    // the norm and the update of p on the image's cells where out below and
+    // to the right is still valid
 #pragma unroll
     for (int u = 0; u < BR; ++u) {
 #pragma unroll
@@ -379,9 +303,9 @@ __device__ __forceinline__ void tv_blk_step(const TvWin& win, int k,
                 continue;
             const int q = r * BW + c;
             const float o = win.o[q];
-            const float gy = win.gi0 + r < win.h - 1 ? win.o[q + BW] - o
+            const float gy = win.gi0 + r < win.gh - 1 ? win.o[q + BW] - o
                                                       : 0.0f;
-            const float gx = win.gj0 + c < win.w - 1 ? win.o[q + 1] - o
+            const float gx = win.gj0 + c < win.gw - 1 ? win.o[q + 1] - o
                                                       : 0.0f;
             const float norm = sqrtf(gy * gy + gx * gx);
             if (ENERGY && (owned >> (u * BC + v) & 1u)) sn += (double)norm;
@@ -406,38 +330,39 @@ __device__ __forceinline__ void tv_blk_step(const TvWin& win, int k,
     __syncthreads();
 }
 
-__device__ __forceinline__ TvWin tv_blk_window(float* sm, int h, int w,
+__device__ __forceinline__ TvWin tv_blk_window(float* sm, const TvGeo& g,
                                                float wgt) {
     TvWin win;
     win.p0 = sm;
     win.p1 = sm + BW * BW;
     win.o = sm + 2 * BW * BW;
     win.wsum = reinterpret_cast<double*>(sm + 3 * BW * BW);
-    win.gi0 = blockIdx.y * BT - TV_S;
-    win.gj0 = blockIdx.x * BT - TV_S;
-    win.h = h;
-    win.w = w;
+    win.gi0 = g.row0 + blockIdx.y * BT - TV_S;
+    win.gj0 = g.col0 + blockIdx.x * BT - TV_S;
+    win.gh = g.gh;
+    win.gw = g.gw;
     win.wgt = wgt;
     return win;
 }
 
-// m <= TV_S iterations from p_a (p_in; null at a = 0) on the active
-// images: writes p_{a+m} of the owned tiles to p_out and each step's partial
-// sums to partials [n, nblk, TV_S, 2].
+// m <= TV_S iterations from p_a (p_in and its slabs ps; null p_in at
+// a = 0) on the active images: writes p_{a+m} of the owned tiles to p_out
+// and each step's partial sums to partials [n, nblk, TV_S, 2].
+template <bool SLABS>
 __global__ void __launch_bounds__(BNT, 3)
 tv_blk_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
                    float* __restrict__ p_out, double* __restrict__ partials,
                    const int* __restrict__ active,
-                   const float* __restrict__ weight, int h, int w, int m) {
+                   const float* __restrict__ weight, TvGeo g, TvSlabs xs,
+                   TvSlabs ps, int m) {
     extern __shared__ __align__(16) float tv_sm[];
     const int img = blockIdx.z;
     if (!active[img]) return;  // uniform over the block
-    const size_t plane = (size_t)h * w;
-    const TvWin win = tv_blk_window(tv_sm, h, w, weight[img]);
+    const size_t plane = (size_t)g.h * g.w;
+    const TvWin win = tv_blk_window(tv_sm, g, weight[img]);
     float xr[BR][BC];
     unsigned inimg, owned;
-    tv_blk_load(win, x + img * plane,
-                p_in ? p_in + img * 2 * plane : nullptr, xr, inimg, owned);
+    tv_blk_load<SLABS>(win, g, img, x, xs, p_in, ps, xr, inimg, owned);
     for (int k = 0; k < m; ++k) tv_blk_step<true>(win, k, xr, inimg, owned);
 
     float* q0 = p_out + img * 2 * plane;
@@ -447,9 +372,10 @@ tv_blk_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
         for (int v = 0; v < BC; ++v) {
             if (!(owned >> (u * BC + v) & 1u)) continue;
             const int r = threadIdx.y + BY * u, c = threadIdx.x + BX * v;
-            const size_t g = (size_t)(win.gi0 + r) * w + (win.gj0 + c);
-            q0[g] = win.p0[r * BW + c];
-            q0[plane + g] = win.p1[r * BW + c];
+            const size_t l = (size_t)(win.gi0 - g.row0 + r) * g.w
+                             + (win.gj0 - g.col0 + c);
+            q0[l] = win.p0[r * BW + c];
+            q0[plane + l] = win.p1[r * BW + c];
         }
     }
     const int tid = threadIdx.y * BX + threadIdx.x;
@@ -464,12 +390,34 @@ tv_blk_step_kernel(const float* __restrict__ x, const float* __restrict__ p_in,
     }
 }
 
+// The block's sums of each of a launch's m steps, one block per active
+// image: the windows' partials summed in a fixed order → sums [n, m, 2].
+__global__ void __launch_bounds__(FIN_T)
+tv_blk_rank_sums_kernel(const double* __restrict__ partials, int nblk,
+                        const int* __restrict__ active,
+                        double* __restrict__ sums, int m) {
+    __shared__ double sh[FIN_T];
+    const int img = blockIdx.x;
+    if (!active[img]) return;
+    const double* pi = partials + (size_t)img * nblk * TV_S * 2;
+    for (int k = 0; k < m; ++k) {
+        double a, b;
+        tv_sum_partials(pi + 2 * k, nblk, 2 * TV_S, sh, a, b);
+        if (threadIdx.x == 0) {
+            sums[((size_t)img * m + k) * 2] = a;
+            sums[((size_t)img * m + k) * 2 + 1] = b;
+        }
+    }
+}
+
 // The stop rule over a launch's m steps, one block per active image: the
 // base a of the launch is recorded, the steps' energies walked in order
-// until the image stops.
+// until the image stops.  partials [n, nblk, stride, 2]: the dense solve's
+// windows (stride TV_S), or the sharded solve's global sums (nblk 1,
+// stride m).
 __global__ void __launch_bounds__(FIN_T)
 tv_blk_finalize_kernel(const double* __restrict__ partials, int nblk,
-                       const float* __restrict__ weight,
+                       int stride, const float* __restrict__ weight,
                        float* __restrict__ e0, float* __restrict__ e_prev,
                        int* __restrict__ active, int* __restrict__ iters,
                        int* __restrict__ base, int a, int m, float eps,
@@ -479,10 +427,10 @@ tv_blk_finalize_kernel(const double* __restrict__ partials, int nblk,
     const int img = blockIdx.x;
     if (!active[img]) return;
     if (threadIdx.x == 0) base[img] = a;
-    const double* pi = partials + (size_t)img * nblk * TV_S * 2;
+    const double* pi = partials + (size_t)img * nblk * stride * 2;
     for (int k = 0; k < m; ++k) {
         double sd, sn;
-        tv_sum_partials(pi + 2 * k, nblk, 2 * TV_S, sh, sd, sn);
+        tv_sum_partials(pi + 2 * k, nblk, 2 * stride, sh, sd, sn);
         if (threadIdx.x == 0) {
             tv_stop_rule(img, sd, sn, weight, e0, e_prev, active, iters,
                          a + k == 0, eps, size);
@@ -494,8 +442,10 @@ tv_blk_finalize_kernel(const double* __restrict__ partials, int nblk,
 }
 
 // out = x + div p_{t-1} per image: p_a from the buffer its base a names
-// (p_even for even a / TV_S, p_odd for odd; zeros at a = 0), r = t - 1 - a
-// steps, then the divergence on the owned tile.
+// (p_even and its slabs for even a / ms, p_odd for odd; zeros at a = 0;
+// ms: the steps of a full launch), r = t - 1 - a steps, then the
+// divergence on the owned tile.
+template <bool SLABS>
 __global__ void __launch_bounds__(BNT)
 tv_blk_rebuild_kernel(const float* __restrict__ x,
                       const float* __restrict__ p_even,
@@ -503,22 +453,27 @@ tv_blk_rebuild_kernel(const float* __restrict__ x,
                       const int* __restrict__ iters,
                       const int* __restrict__ base,
                       const float* __restrict__ weight,
-                      float* __restrict__ out, int h, int w) {
+                      float* __restrict__ out, TvGeo g, TvSlabs xs,
+                      TvSlabs ps_even, TvSlabs ps_odd, int ms) {
     extern __shared__ __align__(16) float tv_sm[];
     const int img = blockIdx.z;
-    const size_t plane = (size_t)h * w;
     const int a = base[img];
     const int r_steps = iters[img] - 1 - a;
-    const float* p = a == 0 ? nullptr
-                            : ((a / TV_S) % 2 ? p_odd : p_even)
-                                  + img * 2 * plane;
-    const TvWin win = tv_blk_window(tv_sm, h, w, weight[img]);
+    const bool odd = (a / ms) % 2;
+    const float* p = a == 0 ? nullptr : (odd ? p_odd : p_even);
+    // chosen member by member: a reference to one of the two parameter
+    // structs would put a copy of it on the stack
+    const TvSlabs ps{odd ? ps_odd.up : ps_even.up,
+                     odd ? ps_odd.dn : ps_even.dn,
+                     odd ? ps_odd.lf : ps_even.lf,
+                     odd ? ps_odd.rt : ps_even.rt};
+    const TvWin win = tv_blk_window(tv_sm, g, weight[img]);
     float xr[BR][BC];
     unsigned inimg, owned;
-    tv_blk_load(win, x + img * plane, p, xr, inimg, owned);
+    tv_blk_load<SLABS>(win, g, img, x, xs, p, ps, xr, inimg, owned);
     for (int k = 0; k < r_steps; ++k)
         tv_blk_step<false>(win, k, xr, inimg, owned);
-    float* oi = out + img * plane;
+    float* oi = out + img * (size_t)g.h * g.w;
 #pragma unroll
     for (int u = 0; u < BR; ++u) {
 #pragma unroll
@@ -528,7 +483,8 @@ tv_blk_rebuild_kernel(const float* __restrict__ x,
             const int q = r * BW + c;
             const float d = tv_dval(win.p0[q], win.p1[q], win.p0[q - BW],
                                     win.p1[q - 1]);
-            oi[(size_t)(win.gi0 + r) * w + (win.gj0 + c)] = xr[u][v] + d;
+            oi[(size_t)(win.gi0 - g.row0 + r) * g.w + (win.gj0 - g.col0 + c)]
+                = xr[u][v] + d;
         }
     }
 }
@@ -542,53 +498,52 @@ cudaError_t tv_blk_smem_attr(const void* kernel) {
                                 (int)BSMEM);
 }
 
-dim3 tv_blk_grid(int n, int h, int w) {
-    return dim3((w + BT - 1) / BT, (h + BT - 1) / BT, n);
+dim3 tv_blk_grid(int n, const TvGeo& g) {
+    return dim3((g.w + BT - 1) / BT, (g.h + BT - 1) / BT, n);
+}
+
+TvGeo tv_dense(int h, int w) { return TvGeo{h, w, h, w, 0, 0, 0}; }
+
+constexpr TvSlabs NO_SLABS{nullptr, nullptr, nullptr, nullptr};
+
+template <bool SLABS>
+cudaError_t tv_blk_launch_step(const float* x, const float* p_in,
+                               float* p_out, double* partials,
+                               const int* active, const float* weight,
+                               const TvGeo& g, const TvSlabs& xs,
+                               const TvSlabs& ps, int n, int a, int m,
+                               cudaStream_t st) {
+    const cudaError_t e = tv_blk_smem_attr(
+        reinterpret_cast<const void*>(tv_blk_step_kernel<SLABS>));
+    if (e != cudaSuccess) return e;
+    tv_blk_step_kernel<SLABS><<<tv_blk_grid(n, g), dim3(BX, BY), BSMEM, st>>>(
+        x, a == 0 ? nullptr : p_in, p_out, partials, active, weight, g, xs,
+        ps, m);
+    return cudaGetLastError();
+}
+
+template <bool SLABS>
+cudaError_t tv_blk_launch_rebuild(const float* x, const float* p_even,
+                                  const float* p_odd, const int* iters,
+                                  const int* base, const float* weight,
+                                  float* out, const TvGeo& g,
+                                  const TvSlabs& xs, const TvSlabs& ps_even,
+                                  const TvSlabs& ps_odd, int n, int ms,
+                                  cudaStream_t st) {
+    const cudaError_t e = tv_blk_smem_attr(
+        reinterpret_cast<const void*>(tv_blk_rebuild_kernel<SLABS>));
+    if (e != cudaSuccess) return e;
+    tv_blk_rebuild_kernel<SLABS><<<tv_blk_grid(n, g), dim3(BX, BY), BSMEM,
+                                   st>>>(
+        x, p_even, p_odd, iters, base, weight, out, g, xs, ps_even, ps_odd,
+        ms);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-// One Chambolle iteration on a row block or tile (kernel 12): the step
-// with the block's halo rows (each [n, w] or null for zeros) and halo
-// columns (lf_p1, rt_p0 [n, h + 1], rt_x, rt_p1 [n, h], or null), then the
-// block's sums of each active image into sums [n, 2] float64 (inactive
-// images' rows are left as they are).  partials: [n, nblk, 2] float64
-// scratch.
-extern "C" int mdx_tv_shard_step(const float* x, const float* p_in,
-                                 float* p_out, float* out, double* partials,
-                                 double* sums, const int* active,
-                                 const float* weight, const float* up_p0,
-                                 const float* dn_x, const float* dn_p0,
-                                 const float* dn_p1, const float* lf_p1,
-                                 const float* rt_x, const float* rt_p0,
-                                 const float* rt_p1, int n, int h, int w,
-                                 int glast, int grlast, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    dim3 grid((w + TT - 1) / TT, (h + TT - 1) / TT, n);
-    const TvHalo halo{up_p0, dn_x, dn_p0, dn_p1, glast,
-                      lf_p1, rt_x, rt_p0, rt_p1, grlast};
-    tv_step_kernel<<<grid, dim3(TT, TROWS), 0, st>>>(x, p_in, p_out, out,
-                                                      partials, active,
-                                                      weight, h, w, halo);
-    tv_block_sums_kernel<<<n, FIN_T, 0, st>>>(partials, grid.x * grid.y,
-                                              active, sums);
-    return (int)cudaGetLastError();
-}
-
-// The stop rule on the global sums [n, 2] (the blocks' sums added over the
-// row blocks); size is the global H * W.
-extern "C" int mdx_tv_shard_finalize(const double* sums, const float* weight,
-                                     float* e0, float* e_prev, int* active,
-                                     int* iters, int n, int first, float eps,
-                                     float size, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    tv_shard_finalize_kernel<<<(n + 127) / 128, 128, 0, st>>>(
-        sums, weight, e0, e_prev, active, iters, n, first, eps, size);
-    return (int)cudaGetLastError();
-}
-
-// The iterations one launch of kernel T runs (TV_S), for the wrapper's
-// partials and ping-pong buffers.
+// The iterations one launch runs (TV_S), for the wrappers' partials and
+// ping-pong buffers.
 extern "C" int mdx_tv_blocked_steps() { return TV_S; }
 
 // Kernel T's launch of steps a .. a + m - 1 (m <= TV_S) on every active
@@ -605,15 +560,15 @@ extern "C" int mdx_tv_blocked_step(const float* x, const float* p_in,
                                    int m, float eps, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (m < 1 || m > TV_S) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = tv_blk_smem_attr(
-        reinterpret_cast<const void*>(tv_blk_step_kernel));
+    const TvGeo g = tv_dense(h, w);
+    const cudaError_t e = tv_blk_launch_step<false>(
+        x, p_in, p_out, partials, active, weight, g, NO_SLABS, NO_SLABS, n,
+        a, m, st);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid = tv_blk_grid(n, h, w);
-    tv_blk_step_kernel<<<grid, dim3(BX, BY), BSMEM, st>>>(
-        x, a == 0 ? nullptr : p_in, p_out, partials, active, weight, h, w, m);
+    const dim3 grid = tv_blk_grid(n, g);
     tv_blk_finalize_kernel<<<n, FIN_T, 0, st>>>(
-        partials, grid.x * grid.y, weight, e0, e_prev, active, iters, base, a,
-        m, eps, (float)h * (float)w);
+        partials, grid.x * grid.y, TV_S, weight, e0, e_prev, active, iters,
+        base, a, m, eps, (float)h * (float)w);
     return (int)cudaGetLastError();
 }
 
@@ -625,11 +580,70 @@ extern "C" int mdx_tv_blocked_rebuild(const float* x, const float* p_even,
                                       const int* base, const float* weight,
                                       float* out, int n, int h, int w,
                                       void* stream) {
+    return (int)tv_blk_launch_rebuild<false>(
+        x, p_even, p_odd, iters, base, weight, out, tv_dense(h, w),
+        NO_SLABS, NO_SLABS, NO_SLABS, n, TV_S,
+        static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 12's launch of m <= hw <= TV_S steps on a block [n, h, w] at
+// (row0, col0) of a gh x gw image: the blocked step from p_in (null at
+// a = 0) with the slabs of x (xu, xd [n, 1, hw, w]; xl, xr [n, 1, h + 2 hw,
+// hw]) and of p_in (pu .. pr, the same with 2 planes), each null for zeros,
+// into p_out; then the block's sums of each step → sums [n, m, 2] float64
+// (inactive images' rows left as they are).  partials: [n, nblk, TV_S, 2]
+// float64 scratch.
+extern "C" int mdx_tv_shard_blocked_step(
+        const float* x, const float* p_in, float* p_out, double* partials,
+        double* sums, const int* active, const float* weight,
+        const float* xu, const float* xd, const float* xl, const float* xr,
+        const float* pu, const float* pd, const float* pl, const float* pr,
+        int n, int h, int w, int gh, int gw, int row0, int col0, int hw,
+        int m, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const cudaError_t e = tv_blk_smem_attr(
-        reinterpret_cast<const void*>(tv_blk_rebuild_kernel));
+    if (m < 1 || m > TV_S || hw < 0 || hw > TV_S)
+        return (int)cudaErrorInvalidValue;
+    const TvGeo g{h, w, gh, gw, row0, col0, hw};
+    const cudaError_t e = tv_blk_launch_step<true>(
+        x, p_in, p_out, partials, active, weight, g, TvSlabs{xu, xd, xl, xr},
+        TvSlabs{pu, pd, pl, pr}, n, p_in ? 1 : 0, m, st);
     if (e != cudaSuccess) return (int)e;
-    tv_blk_rebuild_kernel<<<tv_blk_grid(n, h, w), dim3(BX, BY), BSMEM, st>>>(
-        x, p_even, p_odd, iters, base, weight, out, h, w);
+    const dim3 grid = tv_blk_grid(n, g);
+    tv_blk_rank_sums_kernel<<<n, FIN_T, 0, st>>>(partials, grid.x * grid.y,
+                                                 active, sums, m);
     return (int)cudaGetLastError();
+}
+
+// The stop rule over a launch of kernel 12: the global sums [n, m, 2] (the
+// blocks' sums added over the tile group) walked from step a; size is the
+// image's gh * gw.
+extern "C" int mdx_tv_shard_blocked_finalize(
+        const double* sums, const float* weight, float* e0, float* e_prev,
+        int* active, int* iters, int* base, int n, int a, int m, float eps,
+        float size, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (m < 1 || m > TV_S) return (int)cudaErrorInvalidValue;
+    tv_blk_finalize_kernel<<<n, FIN_T, 0, st>>>(
+        sums, 1, m, weight, e0, e_prev, active, iters, base, a, m, eps, size);
+    return (int)cudaGetLastError();
+}
+
+// Kernel 12's output after the loop: out [n, h, w] of the block from each
+// image's count and base, p_a in p_even with its slabs eu .. er (a / ms
+// even) or p_odd with ou .. or; x's slabs as for the step.
+extern "C" int mdx_tv_shard_blocked_rebuild(
+        const float* x, const float* p_even, const float* p_odd,
+        const int* iters, const int* base, const float* weight, float* out,
+        const float* xu, const float* xd, const float* xl, const float* xr,
+        const float* eu, const float* ed, const float* el, const float* er,
+        const float* ou, const float* od, const float* ol, const float* orr,
+        int n, int h, int w, int gh, int gw, int row0, int col0, int hw,
+        int ms, void* stream) {
+    if (ms < 1 || ms > TV_S || hw < 0 || hw > TV_S)
+        return (int)cudaErrorInvalidValue;
+    return (int)tv_blk_launch_rebuild<true>(
+        x, p_even, p_odd, iters, base, weight, out,
+        TvGeo{h, w, gh, gw, row0, col0, hw}, TvSlabs{xu, xd, xl, xr},
+        TvSlabs{eu, ed, el, er}, TvSlabs{ou, od, ol, orr}, n, ms,
+        static_cast<cudaStream_t>(stream));
 }

@@ -259,87 +259,157 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
     return out, iters
 
 
-def _halo_ptr(r: torch.Tensor | None, name: str, n: int, length: int,
-              device):
-    if r is None:
-        return None
-    _check(r, name, (n, length), device=device)
-    return r.data_ptr()
+_SLAB_NAMES = ("up", "dn", "lf", "rt")
 
 
-def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor, p_out: torch.Tensor,
-                  out: torch.Tensor, active: torch.Tensor,
-                  weight: torch.Tensor, up_p0: torch.Tensor | None,
-                  dn_x: torch.Tensor | None, dn_p0: torch.Tensor | None,
-                  dn_p1: torch.Tensor | None, glast: bool,
-                  lf_p1: torch.Tensor | None = None,
-                  rt_x: torch.Tensor | None = None,
-                  rt_p0: torch.Tensor | None = None,
-                  rt_p1: torch.Tensor | None = None,
-                  grlast: bool = True) -> torch.Tensor:
-    """One Chambolle iteration on a row block or tile x [N,H,W] (TPU kernel
-    12): reads ``p_in`` [N,2,H,W], writes the active images' new dual into
-    ``p_out`` and their image into ``out``; ``active`` [N] int32,
-    ``weight`` [N]; the halo rows ``up_p0`` (previous block's last p0 row)
-    and ``dn_x``/``dn_p0``/``dn_p1`` (next block's first rows) are [N,W] or
-    None for zeros; ``glast``: the block holds the image's bottom row.  The
-    halo columns of a 2-D tile: ``lf_p1`` [N,H+1] (the left tile's last p1
-    column, rows 0 … H), ``rt_x``/``rt_p1`` [N,H] and ``rt_p0`` [N,H+1] (the
-    right tile's first columns, ``rt_p0`` from row −1), or None for zeros;
-    ``grlast``: the tile holds the image's right column.  Returns the
-    block's (Σd², Σ|∇out|) [N,2] float64, zeros for stopped images — see
-    ``csrc/tv.cu``; plain version
+def _slab_ptrs(slabs, name: str, n: int, planes: int, h: int, w: int,
+               hw: int, device) -> list:
+    """Checked pointers of a slab set ``(up, dn, lf, rt)`` of an array of
+    ``planes`` planes an image (None, or None members, for zeros): up and
+    dn [n, planes, hw, w], lf and rt [n, planes, h + 2 hw, hw]."""
+    if slabs is None:
+        return [None] * 4
+    if len(slabs) != 4:
+        raise ValueError(f"{name}: expected (up, dn, lf, rt), got "
+                         f"{len(slabs)} slabs")
+    shapes = ((n, planes, hw, w),) * 2 + ((n, planes, h + 2 * hw, hw),) * 2
+    ptrs = []
+    for t, side, shape in zip(slabs, _SLAB_NAMES, shapes):
+        if t is not None:
+            _check(t, f"{name}.{side}", shape, device=device)
+        ptrs.append(None if t is None else t.data_ptr())
+    return ptrs
+
+
+def _shard_geo(x: torch.Tensor, geo, m: int) -> tuple:
+    """Checked ``(gh, gw, row0, col0, hw)`` of a block x [n, h, w] and a
+    launch of ``m`` steps: ``1 <= m <= hw <= tv_steps()`` (the slabs are
+    ``hw`` wide, and ``m`` iterations need ``m`` of them)."""
+    _, h, w = x.shape
+    gh, gw, row0, col0, hw = (int(v) for v in geo)
+    s = tv_steps()
+    if not (0 <= row0 and row0 + h <= gh and 0 <= col0 and col0 + w <= gw):
+        raise ValueError(f"block {h}x{w} at ({row0}, {col0}) outside the "
+                         f"{gh}x{gw} image")
+    if not 1 <= m <= hw <= s:
+        raise ValueError(f"tv shard kernel: {m} iterations need a halo of "
+                         f"at least {m} and at most {s}, got {hw}")
+    return gh, gw, row0, col0, hw
+
+
+def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor | None,
+                  p_out: torch.Tensor, active: torch.Tensor,
+                  weight: torch.Tensor, x_slabs, p_slabs, geo,
+                  m: int) -> torch.Tensor:
+    """One launch of kernel 12 (TPU kernel 12, the sharded TV step): ``m``
+    Chambolle iterations on a row block or tile x [N,H,W] of a larger
+    image, from the dual ``p_in`` [N,2,H,W] (None at the first iteration:
+    p = 0), writing the active images' dual after them into ``p_out``.
+    ``geo`` = (image height, image width, the block's first row, first
+    column, halo width hw); ``x_slabs`` and ``p_slabs`` = (up, dn, lf, rt)
+    halo slabs of x and of ``p_in`` from the neighbouring blocks (up, dn
+    [N,C,hw,W]; lf, rt [N,C,H+2hw,hw], the columns of the row-extended
+    block; each None for zeros at the image's edge; C = 1 for x, 2 for p),
+    with ``m <= hw``.  ``active`` [N] int32, ``weight`` [N].  Returns the
+    block's (Σd², Σ|∇out|) of each iteration [N,m,2] float64, zeros for
+    stopped images — see ``csrc/tv.cu``; plain version
     ``mdx_torch.parallel.tv_sp.tv_shard_step_plain``."""
     n, h, w = _image(x)
     dev = x.device
-    _check(p_in, "p_in", (n, 2, h, w), device=dev)
+    hw = int(geo[4])
+    if p_in is not None:
+        _check(p_in, "p_in", (n, 2, h, w), device=dev)
     _check(p_out, "p_out", (n, 2, h, w), device=dev)
-    _check(out, "out", (n, h, w), device=dev)
     _check(active, "active", (n,), dtype=torch.int32, device=dev)
     _check(weight, "weight", (n,), device=dev)
-    rows = [_halo_ptr(r, name, n, length, dev) for r, name, length in (
-        (up_p0, "up_p0", w), (dn_x, "dn_x", w), (dn_p0, "dn_p0", w),
-        (dn_p1, "dn_p1", w), (lf_p1, "lf_p1", h + 1), (rt_x, "rt_x", h),
-        (rt_p0, "rt_p0", h + 1), (rt_p1, "rt_p1", h))]
+    xs = _slab_ptrs(x_slabs, "x_slabs", n, 1, h, w, hw, dev)
+    ps = _slab_ptrs(None if p_in is None else p_slabs, "p_slabs", n, 2, h,
+                    w, hw, dev)
+    m = int(m)
+    gh, gw, row0, col0, hw = _shard_geo(x, geo, m)
     lib = library()
+    s = lib.mdx_tv_blocked_steps()
+    tile = 64 - 2 * s
     with torch.cuda.device(dev):
-        nblk = -(-w // 32) * -(-h // 32)
-        partials = torch.empty((n, nblk, 2), dtype=torch.float64, device=dev)
-        sums = torch.zeros((n, 2), dtype=torch.float64, device=dev)
-        _ok(lib.mdx_tv_shard_step(
-            x.data_ptr(), p_in.data_ptr(), p_out.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), active.data_ptr(),
-            weight.data_ptr(), *rows, n, h, w, int(bool(glast)),
-            int(bool(grlast)), _stream()), "tv_shard_step")
+        partials = torch.empty((n, -(-h // tile) * -(-w // tile), s, 2),
+                               dtype=torch.float64, device=dev)
+        sums = torch.zeros((n, m, 2), dtype=torch.float64, device=dev)
+        _ok(lib.mdx_tv_shard_blocked_step(
+            x.data_ptr(), None if p_in is None else p_in.data_ptr(),
+            p_out.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            active.data_ptr(), weight.data_ptr(), *xs, *ps, n, h, w, gh, gw,
+            row0, col0, hw, m, _stream()), "tv_shard_step")
     LAUNCHES["tv_shard_step"] += 1
     return sums
 
 
 def tv_shard_finalize(sums: torch.Tensor, weight: torch.Tensor,
                       e0: torch.Tensor, e_prev: torch.Tensor,
-                      active: torch.Tensor, iters: torch.Tensor, first: bool,
-                      eps: float, size: float) -> None:
-    """The stop rule of kernel T's finalize on the global sums [N,2]
-    float64 (the row blocks' ``tv_shard_step`` sums added over the blocks),
-    in place on ``e0``, ``e_prev``, ``active``, ``iters``; ``size`` is the
-    global H·W.  The second launch of kernel 12's pair, counted with
-    ``tv_shard_step``.  Plain version
+                      active: torch.Tensor, iters: torch.Tensor,
+                      base: torch.Tensor, a: int, eps: float,
+                      size: float) -> None:
+    """The stop rule over one launch of kernel 12, in place on ``e0``,
+    ``e_prev``, ``active``, ``iters`` and ``base``: the global sums [N,m,2]
+    float64 (the blocks' :func:`tv_shard_step` sums added over the tile
+    group) walked from iteration ``a`` as kernel T's finalize walks its
+    launch; every image active at the start gets ``base = a``.  ``size``
+    is the image's H·W.  Part of kernel 12's launch, counted with
+    :func:`tv_shard_step`.  Plain version
     ``mdx_torch.parallel.tv_sp.tv_shard_finalize_plain``."""
-    n = sums.shape[0]
+    if sums.ndim != 3:
+        raise ValueError(f"sums: expected [N, m, 2], got {tuple(sums.shape)}")
+    n, m = sums.shape[:2]
     dev = sums.device
-    _check(sums, "sums", (n, 2), dtype=torch.float64)
-    _check(weight, "weight", (n,), device=dev)
-    _check(e0, "e0", (n,), device=dev)
-    _check(e_prev, "e_prev", (n,), device=dev)
-    _check(active, "active", (n,), dtype=torch.int32, device=dev)
-    _check(iters, "iters", (n,), dtype=torch.int32, device=dev)
+    _check(sums, "sums", (n, m, 2), dtype=torch.float64)
+    for t, name in ((weight, "weight"), (e0, "e0"), (e_prev, "e_prev")):
+        _check(t, name, (n,), device=dev)
+    for t, name in ((active, "active"), (iters, "iters"), (base, "base")):
+        _check(t, name, (n,), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
-        _ok(lib.mdx_tv_shard_finalize(
+        _ok(lib.mdx_tv_shard_blocked_finalize(
             sums.data_ptr(), weight.data_ptr(), e0.data_ptr(),
-            e_prev.data_ptr(), active.data_ptr(), iters.data_ptr(), n,
-            int(bool(first)), float(eps), float(size), _stream()),
-            "tv_shard_finalize")
+            e_prev.data_ptr(), active.data_ptr(), iters.data_ptr(),
+            base.data_ptr(), n, int(a), m, float(eps), float(size),
+            _stream()), "tv_shard_finalize")
+
+
+def tv_shard_rebuild(x: torch.Tensor, p_even: torch.Tensor,
+                     p_odd: torch.Tensor, iters: torch.Tensor,
+                     base: torch.Tensor, weight: torch.Tensor, x_slabs,
+                     slabs_even, slabs_odd, geo, ms: int) -> torch.Tensor:
+    """Kernel 12's output after its loop: out [N,H,W] = x + div p_{t-1} of
+    the block from each image's count t (``iters``) and the first iteration
+    a of its last launch (``base``): p_a is ``p_even`` with its slabs
+    ``slabs_even`` where a / ``ms`` is even (``ms``: the iterations of a
+    full launch), ``p_odd`` with ``slabs_odd`` where it is odd, zeros at
+    a = 0; t − 1 − a < ``ms`` iterations from it, then the divergence.
+    ``geo`` and ``x_slabs`` as for :func:`tv_shard_step`.  Counted as a
+    launch of ``tv_shard_step`` — see ``csrc/tv.cu``; plain version
+    ``mdx_torch.parallel.tv_sp.tv_shard_rebuild_plain``."""
+    n, h, w = _image(x)
+    dev = x.device
+    hw = int(geo[4])
+    _check(p_even, "p_even", (n, 2, h, w), device=dev)
+    _check(p_odd, "p_odd", (n, 2, h, w), device=dev)
+    _check(iters, "iters", (n,), dtype=torch.int32, device=dev)
+    _check(base, "base", (n,), dtype=torch.int32, device=dev)
+    _check(weight, "weight", (n,), device=dev)
+    xs = _slab_ptrs(x_slabs, "x_slabs", n, 1, h, w, hw, dev)
+    es = _slab_ptrs(slabs_even, "slabs_even", n, 2, h, w, hw, dev)
+    os_ = _slab_ptrs(slabs_odd, "slabs_odd", n, 2, h, w, hw, dev)
+    ms = int(ms)
+    gh, gw, row0, col0, hw = _shard_geo(x, geo, ms)
+    lib = library()
+    with torch.cuda.device(dev):
+        out = torch.empty_like(x)
+        _ok(lib.mdx_tv_shard_blocked_rebuild(
+            x.data_ptr(), p_even.data_ptr(), p_odd.data_ptr(),
+            iters.data_ptr(), base.data_ptr(), weight.data_ptr(),
+            out.data_ptr(), *xs, *es, *os_, n, h, w, gh, gw, row0, col0, hw,
+            ms, _stream()), "tv_shard_rebuild")
+    LAUNCHES["tv_shard_step"] += 1
+    return out
 
 
 def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,

@@ -45,9 +45,9 @@ SIGNATURES = {
     "mdx_tv_blocked_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),
     "mdx_tv_blocked_rebuild": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "mdx_tv_shard_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mdx_tv_shard_finalize": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "mdx_tv_shard_blocked_step": (_P,) * 15 + (_I,) * 9 + (_P,),
+    "mdx_tv_shard_blocked_finalize": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
+    "mdx_tv_shard_blocked_rebuild": (_P,) * 19 + (_I,) * 9 + (_P,),
     "mdx_bilateral": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdx_wavelet_analysis": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _I, _P),

@@ -11,6 +11,7 @@ Run each from the root of a checkout:
     python -m mdx_torch.tools.profile_kernels  # kernels 10 and C launch by launch
     python -m mdx_torch.tools.tune_sweep     # ms per autotune sweep
     python -m mdx_torch.tools.spatial_check  # the row-sharded path on k ranks
+    python -m mdx_torch.tools.time_tv_shard  # sharded TV solves (kernel 12)
 
 The port keeps its own copies of the JAX package's benchmark batch and
 plans (``bench.py`` ``_make_batch``, ``_PLAN_OPS``, ``_PLAN_PARAMS``;
@@ -96,3 +97,38 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int, names=None, tries: int = 3) -> float | None:
+    """Device time of one call of ``fn`` from a ``torch.profiler`` trace of
+    ``reps`` calls on the card: the mean recorded time of each kernel whose
+    name holds one of ``names`` (None: every device operation), summed over
+    the kernels, so each must run once a call.  The CUDA-event time of a
+    call also holds its wrapper's host work whenever that is longer than
+    the kernel.  A trace can lose the records of launches of a microsecond
+    or so, so each kernel's time is divided by the launches the trace kept,
+    not by ``reps``; a trace that kept none is taken again, up to
+    ``tries`` times, and None is returned if none shows device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if (any(n in e.key for n in names) if names
+                      else e.device_type == DeviceType.CUDA)
+                  and e.count and e.device_time_total]
+        if events:
+            kept = min(e.count for e in events)
+            if kept < reps:
+                print(f"  the trace kept {kept} of {reps} launches of "
+                      f"{[e.key[:40] for e in events]}")
+            return sum(e.device_time_total / e.count for e in events) / 1e3
+        print(f"  no device time for {names} in the trace; its device "
+              f"events: {[e.key[:60] for e in prof.key_averages()][:12]}")
+    return None

@@ -1,7 +1,7 @@
 """Probe what nvcc, ptxas and the card make of the TPU probe's data
 movements: the Hopper counterpart of ``tools/probe_mosaic.py``.
 
-    python -m mdx_torch.tools.probe_nvcc [--only substr] [--json]
+    python -m mdx_torch.tools.probe_nvcc [--only substr] [--json] [--time]
 
 The TPU tool wraps one single-block ``pallas_call`` (``_run``) around each
 of 18 one-op bodies (lane and sublane gathers, a split 256-entry LUT
@@ -17,7 +17,10 @@ nvcc or ptxas refuses fails alone.
 
 Each probe prints ``name  ok | WRONG RESULT | FAIL: <first nvcc/ptxas error
 line>`` and its ptxas registers and spills; ``--json`` prints one JSON
-object instead.  ``PLAIN`` holds the plain PyTorch version of each probe:
+object instead; ``--time`` adds each probe's device time a launch and its
+PyTorch call's (``mdx_torch.tools.device_ms``; a copy of this file and of
+``tools/__init__.py`` times a parent checkout's probes too).  ``PLAIN``
+holds the plain PyTorch version of each probe:
 the numpy check of ``tools/probe_mosaic.py`` on tensors.  The result must
 equal it exactly where the TPU tool uses ``np.array_equal`` and to
 ``np.allclose`` where it uses that.  Without a CUDA card the tool exits
@@ -285,13 +288,14 @@ def launch(name: str, built: Built, x: torch.Tensor) -> torch.Tensor:
 def bound_ms(name: str) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations"): the input
     read once and the output written once at 3.35 TB/s, against the
-    float32 operations at 67 TFLOP/s (the pair sums one a output; the
-    select matmul its two products of 256 x 512 by 512 x 256)."""
+    float32 operations at 67 TFLOP/s (the pair sums one an output; the
+    select matmul three, the two products its selection matrices keep and
+    their sum: its other terms are products with zeros)."""
     n_in = probe_input(name).numel()
     rows, cols = PROBES[name][2]
     n_out = rows * cols
     if name == "iota_select_matmul_deinterleave":
-        ops = 2 * 2 * 256 * 512 * 256 + n_out
+        ops = 3 * n_out
     elif PROBES[name][3]:
         ops = 0
     else:
@@ -361,6 +365,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", type=str, default="")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--time", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_nvcc: needs a CUDA card (torch.cuda.is_available() is "
@@ -368,12 +373,25 @@ def main() -> int:
         return 2
     names = [n for n in PROBES if a.only in n]
     res = run_suite(names)
+    if a.time:
+        from mdx_torch.tools import device_ms
+
+        built = build(names)
+        for name in names:
+            x = probe_input(name, "cuda")
+            res[name]["device_ms"] = device_ms(
+                lambda: launch(name, built[name], x), 20,
+                ("k(float const*, float*)",))
+            res[name]["library_device_ms"] = device_ms(
+                lambda: LIBRARY[name](x), 20)
     if a.json:
         print(json.dumps(res))
     else:
         for name, r in res.items():
             print(f"{name:38s} {r['result']}  (registers {r['registers']}, "
-                  f"spill {r['spill_stores']}/{r['spill_loads']} B)")
+                  f"spill {r['spill_stores']}/{r['spill_loads']} B)"
+                  + (f"; device {r['device_ms']!r} ms, its PyTorch call "
+                     f"{r['library_device_ms']!r} ms" if a.time else ""))
     return 0 if all(r["result"] == "ok" for r in res.values()) else 1
 
 

@@ -18,9 +18,12 @@ function.
 with the launch counters reset and, on rank 0, every call of kernels 11
 and 12 and of kernel C's LUT stage (the local LUTs) recorded;
 ``qa_block`` (the issue-driven chain with denoise, CLAHE, TV and the noise
-guard); each recorded call replayed against the plain version;
-the whole sharded TV solve through the kernels and through
-``tv_sharded_plain`` on the same block; then the timed reps.
+guard); each recorded call replayed against the plain version (kernel 12:
+its blocked launches and its rebuild); the whole sharded TV solve through
+the kernels and through ``tv_sharded_plain`` on the same block, with the
+kernel solve's schedule (iterations a launch, launches, flag reads, host
+round trips) and, on the card, its times
+(``mdx_torch.tools.time_tv_shard.rank_solves``); then the timed reps.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ import time
 import torch
 
 SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
-# the wrappers rank 0 records and replays: kernels 11 and 12, and kernel C's
-# LUT stage, which builds the sharded CLAHE's local LUTs and is counted and
-# held to its tolerance as "clahe" (ROW_OF)
-RECORDED = ("clahe_luts",) + SPATIAL_KERNELS
-ROW_OF = {"clahe_luts": "clahe"}
+# the wrappers rank 0 records and replays: kernels 11 and 12 (its blocked
+# launches and its rebuild, counted and held to their tolerance as
+# "tv_shard_step"), and kernel C's LUT stage, which builds the sharded
+# CLAHE's local LUTs and is counted and held to its tolerance as "clahe"
+# (ROW_OF)
+RECORDED = ("clahe_luts",) + SPATIAL_KERNELS + ("tv_shard_rebuild",)
+ROW_OF = {"clahe_luts": "clahe", "tv_shard_rebuild": "tv_shard_step"}
 # qa_spatial's chain in the check: denoise, CLAHE, gamma/unsharp, TV and the
 # noise guard (bilateral off)
 QA_KW = dict(gamma=0.95, unsharp_radius=1.0, unsharp_amount=0.6,
@@ -52,25 +57,28 @@ def plain_of(name: str):
 
     return {"clahe_luts": clahe_luts_plain,
             "clahe_remap_ext": clahe_sp.remap_ext_plain,
-            "tv_shard_step": tv_sp.tv_shard_step_plain}[name]
+            "tv_shard_step": tv_sp.tv_shard_step_plain,
+            "tv_shard_rebuild": tv_sp.tv_shard_rebuild_plain}[name]
 
 
 def _clone(args):
-    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+    """Copies of the tensors among ``args``, in tuples (slab sets) too."""
+    return tuple(a.clone() if torch.is_tensor(a)
+                 else _clone(a) if isinstance(a, tuple) else a for a in args)
 
 
 def compare_call(name: str, args) -> tuple[float, bool]:
     """One recorded wrapper's call against its plain version on copies of
     the same inputs → (max|d|, within ``parity.KERNEL_TOL`` of its row).
-    For kernel 12 the outputs are the written ``p_out`` and ``out`` and the
-    returned sums."""
+    For kernel 12's step the outputs are the written ``p_out`` and the
+    returned sums, for its rebuild the returned image."""
     from mdx_torch import kernels, parity
 
     ka, pa = _clone(args), _clone(args)
     got = getattr(kernels, name)(*ka)
     want = plain_of(name)(*pa)
     if name == "tv_shard_step":
-        got, want = (ka[2], ka[3], got), (pa[2], pa[3], want)
+        got, want = (ka[2], got), (pa[2], want)
     torch.cuda.synchronize()
     return parity.kernel_parity(ROW_OF.get(name, name), got, want)
 
@@ -178,14 +186,24 @@ def rank_check(x, static, dyn, *, mesh, reps: int = 5,
     stage("replay")
 
     # the whole solve, kernels (on the card) against plain, on the clipped
-    # block
+    # block; the kernel solve's schedule and round trips, and its times
     y = torch.clamp(x, 0.0, 1.0)
+    trips = mesh.host_round_trips
     a, it_a = tv_sp.tv_sharded(y, 0.05, mesh)
+    sync()
+    schedule = dict(tv_sp.LAST_SOLVE, round_trips=mesh.host_round_trips
+                    - trips) if x.is_cuda else {}
     b, it_b = tv_sp.tv_sharded_plain(y, 0.05, mesh)
     sync()
     out["tv_solve"] = {"max_abs_err": float((a - b).abs().max()),
-                       "iters_kernel": it_a, "iters_plain": it_b}
-    stage("tv solve twice")
+                       "iters_kernel": it_a, "iters_plain": it_b,
+                       "schedule": schedule}
+    if x.is_cuda:
+        from mdx_torch.tools import time_tv_shard
+
+        out["tv_timing"] = time_tv_shard.rank_solves(x, 0.05, mesh=mesh,
+                                                     reps=3)
+    stage("tv solve twice, then timed")
 
     times = []
     for _ in range(reps):

@@ -408,8 +408,8 @@ def test_launch_counters_count_wrapper_launches(dev):
     kernels.wavelet_denoise(x, one * 0.05, one.bool(), 3)
     kernels.clahe_remap_ext(x, _lut_ext(x, 16), 16)
     p = torch.zeros((2, 2, 64, 64), device=dev)
-    kernels.tv_shard_step(x, p, torch.empty_like(p), torch.empty_like(x),
-                          one.int(), one * 0.05, None, None, None, None, True)
+    kernels.tv_shard_step(x, p, torch.empty_like(p), one.int(), one * 0.05,
+                          None, None, (64, 64, 0, 0, 4), 4)
     kernels.LAUNCHES["clahe"] -= 1      # _lut_ext's LUT stage
     assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
     F.unsharp_mask_plain(x, one, one)
@@ -466,50 +466,135 @@ def test_clahe_lut_stage(dev, shape, tile):
                           C.clahe_luts_plain(x, clip, tile))
 
 
-@pytest.mark.parametrize("shape", [(1, 512, 2048), (2, 48, 77), (3, 33, 129)])
-@pytest.mark.parametrize("glast,rows", [(True, False), (False, True),
-                                        (False, False)])
-def test_tv_shard_step_kernel(dev, shape, glast, rows):
+def _shard_args(dev, shape, place, seed, hw=None, m=None, null=None):
+    """Arguments of one blocked launch of kernel 12 on a block of ``shape``
+    (its steps m and halo width hw default to the kernel's s): "whole" the
+    image, "top"/"interior"/"bottom" the first, middle or last of three row
+    blocks, "tile" the middle tile of a 3 x 3 grid (column slabs, corners
+    included); ``null``: one slab left out (zeros), or "right" for a tile
+    at the image's right edge.  Images 0 and 2 active, 1 stopped."""
     n, h, w = shape
-    x = _batch(21, n, h, w, dev)
-    g = torch.Generator(device=dev).manual_seed(3)
-    rnd = lambda *s: 0.05 * torch.randn(*s, device=dev, generator=g)  # noqa: E731
-    active = torch.tensor([1, 0, 1][:n] if n > 1 else [1], dtype=torch.int32,
-                          device=dev)
-    halo = ((rnd(n, w), x[:, 0].contiguous(), rnd(n, w), rnd(n, w)) if rows
-            else (None,) * 4)
-    p = rnd(n, 2, h, w)
-    args = (x, p, rnd(n, 2, h, w), rnd(n, h, w), active,
-            torch.linspace(0.03, 0.1, n, device=dev), *halo, glast)
+    s = kernels.tv_steps()
+    hw = s if hw is None else hw
+    m = hw if m is None else m
+    x = _batch(seed, n, h, w, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: 0.05 * torch.randn(*sh, device=dev,  # noqa: E731
+                                         generator=g)
+    rows, cols = {"whole": (1, 1), "top": (3, 1), "interior": (3, 1),
+                  "bottom": (3, 1), "tile": (3, 3)}[place]
+    row0 = {"top": 0, "bottom": 2 * h}.get(place, h if rows > 1 else 0)
+    col0 = (2 * w if null == "right" else w) if cols > 1 else 0
+    geo = (rows * h, cols * w, row0, col0, hw)
+
+    def slabs(planes, level):
+        val = lambda *sh: level + rnd(n, planes, *sh)  # noqa: E731
+        return {"up": None if row0 == 0 else val(hw, w),
+                "dn": None if row0 + h == rows * h else val(hw, w),
+                "lf": val(h + 2 * hw, hw) if col0 else None,
+                "rt": val(h + 2 * hw, hw) if col0 + w < cols * w else None}
+
+    xs, ps = slabs(1, 0.5), slabs(2, 0.0)
+    for sl in (xs, ps):
+        if null in sl:
+            sl[null] = None
+    active = torch.tensor([1, 0, 1][:n] if n > 1 else [1],
+                          dtype=torch.int32, device=dev)
+    weight = torch.linspace(0.03, 0.1, n, device=dev)
+    p_in = rnd(n, 2, h, w)
+    order = ("up", "dn", "lf", "rt")
+    return (x, p_in, rnd(n, 2, h, w), active, weight,
+            tuple(xs[k] for k in order), tuple(ps[k] for k in order), geo,
+            m)
+
+
+SHARD_SHAPES = [(1, 512, 2048), (1, 1024, 1024), (2, 48, 77), (3, 33, 129),
+                (2, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("place", ["whole", "top", "interior", "bottom",
+                                   "tile"])
+def test_tv_shard_step_kernel(dev, shape, place):
+    # the blocked step (s iterations) against its plain version, and two
+    # runs bit-equal
+    args = _shard_args(dev, shape, place, 21)
+    kernels.reset_launches()
+    err, ok = SC.compare_call("tv_shard_step", args)
+    assert kernels.LAUNCHES["tv_shard_step"] == 1
+    assert ok, f"tv_shard_step: max|d| {err}"
+    a, b = SC._clone(args), SC._clone(args)
+    assert torch.equal(kernels.tv_shard_step(*a), kernels.tv_shard_step(*b))
+    assert torch.equal(a[2], b[2])
+
+
+# the step on an interior tile with every slab, or one of them null
+# (zeros), or at the image's right edge; and launches shorter than the
+# halo, thin halos of a block thinner than s
+@pytest.mark.parametrize("null,hw,m", [
+    (None, 4, 4), ("up", 4, 4), ("dn", 4, 4), ("lf", 4, 4), ("rt", 4, 4),
+    ("right", 4, 4), (None, 4, 1), (None, 4, 3), (None, 3, 3), (None, 2, 1),
+    (None, 1, 1)])
+def test_tv_shard_step_column_halos(dev, null, hw, m):
+    args = _shard_args(dev, (2, 64, 64), "tile", 25, hw=hw, m=m, null=null)
     kernels.reset_launches()
     err, ok = SC.compare_call("tv_shard_step", args)
     assert kernels.LAUNCHES["tv_shard_step"] == 1
     assert ok, f"tv_shard_step: max|d| {err}"
 
 
-# kernel 12's column-halo form on an interior [1,64,64] tile: every halo
-# given, or one of them null (zeros), against the plain step
-@pytest.mark.parametrize("null", [None, "lf_p1", "rt_x", "rt_p0", "rt_p1",
-                                  "grlast"])
-def test_tv_shard_step_column_halos(dev, null):
-    n, h, w = 1, 64, 64
-    x = _batch(25, n, h, w, dev)
-    g = torch.Generator(device=dev).manual_seed(4)
-    rnd = lambda *s: 0.05 * torch.randn(*s, device=dev, generator=g)  # noqa: E731
-    cols = {"lf_p1": rnd(n, h + 1), "rt_x": x[:, :, -1].contiguous(),
-            "rt_p0": rnd(n, h + 1), "rt_p1": rnd(n, h)}
-    if null in cols:
-        cols[null] = None
-    args = (x, rnd(n, 2, h, w), rnd(n, 2, h, w), rnd(n, h, w),
-            torch.ones(n, dtype=torch.int32, device=dev),
-            torch.full((n,), 0.05, device=dev), rnd(n, w),
-            x[:, 0].contiguous(), rnd(n, w), rnd(n, w), False,
-            cols["lf_p1"], cols["rt_x"], cols["rt_p0"], cols["rt_p1"],
-            null == "grlast")
+def _rebuild_args(dev, shape, place, seed):
+    """A rebuild after a loop of s-iteration launches: image 0 stopped in
+    the first launch (a = 0), 1 in an even one, 2 in an odd one, with r
+    from 0 to s - 1; each buffer with its own slabs."""
+    x, pe, po, _, weight, xs, se, geo, m = _shard_args(dev, shape, place,
+                                                       seed)
+    _, _, _, _, _, _, so, _, _ = _shard_args(dev, shape, place, seed + 1)
+    n = shape[0]
+    s = kernels.tv_steps()
+    base = torch.tensor([0, 2 * s, 3 * s][:n], dtype=torch.int32, device=dev)
+    iters = base + torch.tensor([2, s, 1][:n], dtype=torch.int32, device=dev)
+    return x, pe, po, iters, base, weight, xs, se, so, geo, m
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("place", ["whole", "top", "interior", "bottom",
+                                   "tile"])
+def test_tv_shard_rebuild_kernel(dev, shape, place):
+    args = _rebuild_args(dev, shape, place, 31)
     kernels.reset_launches()
-    err, ok = SC.compare_call("tv_shard_step", args)
+    err, ok = SC.compare_call("tv_shard_rebuild", args)
     assert kernels.LAUNCHES["tv_shard_step"] == 1
-    assert ok, f"tv_shard_step: max|d| {err}"
+    assert ok, f"tv_shard_rebuild: max|d| {err}"
+    assert torch.equal(kernels.tv_shard_rebuild(*args),
+                       kernels.tv_shard_rebuild(*args))
+
+
+def test_tv_shard_finalize_kernel(dev):
+    # the stop rule over a launch's global sums against its plain version:
+    # the first launch (E_0), then one in which image 1 stops at its third
+    # iteration; e0, e_prev, active, iters and base all equal
+    s = kernels.tv_steps()
+    w = torch.tensor([0.05, 0.1, 0.02], device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    first = torch.rand(3, s, 2, dtype=torch.float64, device=dev,
+                       generator=g) + 1.0
+    later = first.flip(1) + 0.5       # no energy repeats the one before
+    later[1, 2:] = later[1, 1]
+    def state():
+        i32 = dict(dtype=torch.int32, device=dev)
+        return [torch.zeros(3, device=dev), torch.zeros(3, device=dev),
+                torch.ones(3, **i32), torch.zeros(3, **i32),
+                torch.zeros(3, **i32)]
+
+    got, want = state(), state()
+    for a, sums in ((0, first), (s, later)):
+        kernels.tv_shard_finalize(sums, w, *got, a, 1e-6, 4096.0)
+        tv_sp.tv_shard_finalize_plain(sums, w, *want, a, 1e-6, 4096.0)
+        torch.cuda.synchronize()
+        for u, v in zip(got, want):
+            assert torch.equal(u, v), (a, u, v)
+    assert got[2].tolist() == [1, 0, 1] and got[3].tolist()[1] == s + 3
 
 
 def test_sharded_tv_solve_on_a_2x2_grid_over_gloo(dev):
@@ -554,13 +639,19 @@ def test_spatial_wrappers_refuse(dev):
         kernels.clahe_remap_ext(x, lut[:, 1:].contiguous(), 16)
     p = torch.zeros((2, 2, 64, 64), device=dev)
     one = torch.ones(2, device=dev)
+    geo = (128, 64, 64, 0, 4)
     with pytest.raises(ValueError, match="int32"):
-        kernels.tv_shard_step(x, p, p.clone(), x.clone(), one, one, None,
-                              None, None, None, True)
-    with pytest.raises(ValueError, match="up_p0"):
-        kernels.tv_shard_step(x, p, p.clone(), x.clone(), one.int(), one,
-                              torch.zeros(2, 63, device=dev), None, None,
-                              None, True)
+        kernels.tv_shard_step(x, p, p.clone(), one, one, None, None, geo, 4)
+    with pytest.raises(ValueError, match="p_slabs.up"):
+        kernels.tv_shard_step(x, p, p.clone(), one.int(), one, None,
+                              (torch.zeros(2, 2, 3, 64, device=dev), None,
+                               None, None), geo, 4)
+    with pytest.raises(ValueError, match="halo"):
+        kernels.tv_shard_step(x, p, p.clone(), one.int(), one, None, None,
+                              (128, 64, 64, 0, 2), 4)
+    with pytest.raises(ValueError, match="outside"):
+        kernels.tv_shard_step(x, p, p.clone(), one.int(), one, None, None,
+                              (100, 64, 64, 0, 4), 4)
 
 
 def test_sharded_tv_solve_on_one_card_over_gloo(dev):
@@ -581,6 +672,46 @@ def test_sharded_tv_solve_on_one_card_over_gloo(dev):
         assert r[0][1].tolist() == r[1][1].tolist() == it.tolist()
     np.testing.assert_array_equal(got, plain)
     _assert_kernel_parity("tv_shard_step", torch.from_numpy(got), dense.cpu())
+
+
+def test_sharded_tv_schedule_cases_over_gloo(dev):
+    """Two ranks on the card (gloo), kernel solve against plain, bit for
+    bit with equal counts: caps 1 .. 2s + 1 (eps = 0: the last launch ends
+    at every offset, short last launches), images that stop in different
+    launches, and 3-row blocks (3 iterations a launch, 3-row halos)."""
+    s = kernels.tv_steps()
+    x = _batch(27, 2, 128, 96, "cpu").numpy()
+    mix = np.repeat(_batch(28, 1, 64, 96, "cpu").numpy(), 3, axis=0)
+    thin = _batch(29, 2, 6, 40, "cpu").numpy()
+    w, w_mix = torch.tensor([0.1, 0.02]), torch.tensor([0.01, 0.03, 0.5])
+    cases = [((Block(0), w), dict(eps=0.0, max_iter=cap))
+             for cap in range(1, 2 * s + 2)]
+    cases += [((Block(1), w_mix), {}), ((Block(2), w), {})]
+    calls = [c for args, kw in cases for c in (
+        (tv_sp.tv_sharded, args, kw), (tv_sp.tv_sharded_plain, args, kw))]
+    res = launch.run(launch.call_each, (x, mix, thin), n_space=2,
+                     device="cuda", timeout_s=300, calls=calls)
+    for r in res.results:
+        for i in range(0, len(calls), 2):
+            (got, it_k), (want, it_p) = r[i], r[i + 1]
+            assert it_k.tolist() == it_p.tolist(), i
+            np.testing.assert_array_equal(got, want)
+        for i, cap in enumerate(range(1, 2 * s + 2)):
+            assert r[2 * i][1].tolist() == [cap, cap]
+        assert len({(c - 1) // s for c in r[-4][1].tolist()}) == 3
+
+
+def test_select_matmul_probe_equals_plain(dev):
+    """The redesigned iota_select_matmul_deinterleave probe (the two kept
+    terms of each output) equals the plain version bit for bit, twice."""
+    from mdx_torch.tools import probe_nvcc as PN
+
+    name = "iota_select_matmul_deinterleave"
+    built = PN.build([name])[name]
+    x = PN.probe_input(name, dev)
+    got = PN.launch(name, built, x)
+    assert torch.equal(got, PN.plain_output(name, x))
+    assert torch.equal(got, PN.launch(name, built, x))
 
 
 def test_spatial_check_replays_every_recorded_wrapper(dev):

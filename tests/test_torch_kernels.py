@@ -189,8 +189,17 @@ def test_cpu_path_launches_and_builds_nothing():
     lambda x: kernels.clahe_remap_ext(x, torch.zeros(2, 4, 4, 256), 16),
     lambda x: kernels.tv_shard_step(
         x, torch.zeros(2, 2, 32, 32), torch.zeros(2, 2, 32, 32),
-        torch.zeros(2, 32, 32), torch.ones(2, dtype=torch.int32),
-        torch.ones(2), None, None, None, None, True),
+        torch.ones(2, dtype=torch.int32), torch.ones(2), None, None,
+        (32, 32, 0, 0, 4), 4),
+    lambda x: kernels.tv_shard_finalize(
+        torch.zeros(2, 4, 2, dtype=torch.float64), torch.ones(2),
+        torch.zeros(2), torch.zeros(2), torch.ones(2, dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+        0, 2e-4, 1024.0),
+    lambda x: kernels.tv_shard_rebuild(
+        x, torch.zeros(2, 2, 32, 32), torch.zeros(2, 2, 32, 32),
+        torch.ones(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+        torch.ones(2), None, None, None, (32, 32, 0, 0, 4), 4),
 ])
 def test_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -216,7 +225,8 @@ def test_build_flags_and_library_name():
         "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_blocked_steps",
         "mdx_tv_blocked_step", "mdx_tv_blocked_rebuild", "mdx_bilateral",
         "mdx_wavelet_analysis", "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
-        "mdx_tv_shard_step", "mdx_tv_shard_finalize"}
+        "mdx_tv_shard_blocked_step", "mdx_tv_shard_blocked_finalize",
+        "mdx_tv_shard_blocked_rebuild"}
 
 
 def test_jax_stays_on_cpu():

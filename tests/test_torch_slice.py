@@ -267,7 +267,24 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
         assert float(frames.max()) == 1.0
         from mdx_torch.parallel import (clahe_sp, comm, launch, mesh,
                                         plan_sp, spatial, tv_sp, wavelet_sp)
-        from mdx_torch.tools import spatial_check
+        from mdx_torch import kernels
+        from mdx_torch.tools import spatial_check, time_tv_shard
+        assert all(callable(getattr(kernels, k)) for k in (
+            "tv_shard_step", "tv_shard_finalize", "tv_shard_rebuild"))
+        xb = x[:, :8, :8].contiguous()
+        w = 0.05 * one
+        p_out = torch.zeros(2, 2, 8, 8)
+        act = torch.ones(2, dtype=torch.int32)
+        it, base = torch.zeros(2, dtype=torch.int32), 0 * act
+        e0, e_prev = 0 * one, 0 * one
+        geo = (8, 8, 0, 0, 4)
+        sums = tv_sp.tv_shard_step_plain(xb, None, p_out, act, w, None,
+                                         None, geo, 4)
+        tv_sp.tv_shard_finalize_plain(sums, w, e0, e_prev, act, it, base,
+                                      0, 0.0, 64.0)
+        out = tv_sp.tv_shard_rebuild_plain(xb, p_out, p_out, it, base, w,
+                                           None, None, None, geo, 4)
+        assert it.tolist() == [4, 4] and bool(torch.isfinite(out).all())
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx")]

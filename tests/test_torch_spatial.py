@@ -128,7 +128,8 @@ CASES["tv"] = (tv_sp.tv_sharded, (Block(1), torch.from_numpy(TV_W)), {})
 CASES["tv_steps"] = (tv_sp.solve_steps, (
     Block(1), torch.from_numpy(TV_W), ), dict(
         eps=2e-4, max_iter=200, step=tv_sp.tv_shard_step_plain,
-        finalize=tv_sp.tv_shard_finalize_plain))
+        finalize=tv_sp.tv_shard_finalize_plain,
+        rebuild=tv_sp.tv_shard_rebuild_plain, steps=4))
 CASES["tv_fixed"] = (tv_sp.tv_sharded, (Block(1), torch.from_numpy(TV_W)),
                      dict(eps=0.0, max_iter=9))
 CASES["stats"] = (spatial.image_stats_block, (Block(0),), {})
@@ -264,9 +265,11 @@ def test_tv_sharded_vs_jax_and_dense(port, mesh14):
 
 
 def test_tv_kernel_loop_with_plain_steps_equals_plain_solve(port):
-    """The loop the kernel path runs (halo rows, psum'd sums, the stop rule
-    every iteration, the flag every 8) with the plain step: the same pixels
-    and iteration counts as the plain sharded solve."""
+    """The loop the kernel path runs (4 iterations a launch from 4-row
+    halo slabs, one psum of the launch's sums, the stop rule walked over
+    them, the flags every 8 iterations, the rebuild) with the plain blocked
+    step: the same pixels and iteration counts as the plain sharded
+    solve."""
     got = _rows([r[0] for r in port["tv_steps"]])
     want = _rows([r[0] for r in port["tv"]])
     np.testing.assert_array_equal(got, want)

@@ -10,9 +10,10 @@ this process on ``make_mesh2d(1, 2, 2)`` and ``make_mesh2d(2, 1, 2)`` of the
 virtual 8-device CPU mesh.  Inputs are made with numpy from a seed.
 
 Tolerances: the two-phase halos, the distributed percentiles, the
-wavelet-MAD median and the plain TV step with null column halos are exact
-(bit for bit); the kernel loop with plain steps equals the plain 2-D solve
-bit for bit; the sharded ops and the QA steps use ``mdx_torch.parity``
+wavelet-MAD median and the plain blocked TV step and rebuild with null
+column slabs against the row-block step they replace are exact (bit for
+bit); the kernel loop with plain steps equals the plain 2-D solve bit for
+bit; the sharded ops and the QA steps use ``mdx_torch.parity``
 (reduction order; TV's allowance where TV ran), the 2-D CLAHE against the
 dense one ``parity.SHARDED_CLAHE_ATOL``.
 """
@@ -129,7 +130,8 @@ CASES["tv"] = (tv_sp.tv_sharded, (Block(1), torch.from_numpy(TV_W)), {})
 CASES["tv_steps"] = (tv_sp.solve_steps, (Block(1), torch.from_numpy(TV_W)),
                      dict(eps=2e-4, max_iter=200,
                           step=tv_sp.tv_shard_step_plain,
-                          finalize=tv_sp.tv_shard_finalize_plain))
+                          finalize=tv_sp.tv_shard_finalize_plain,
+                          rebuild=tv_sp.tv_shard_rebuild_plain, steps=4))
 CASES["stats"] = (spatial.image_stats_block, (Block(0),), {})
 CASES["qa"] = (spatial.qa_block, (Block(0),), _qa_block_kw())
 CASES["plan"] = (plan_sp.qa_plan_block, (Block(0),
@@ -253,9 +255,9 @@ def test_clahe_2d_vs_jax_and_dense(port, mesh122):
 
 # ---------------------------------------------------- kernel 12's module
 
-# the plain step of the 1-D layer as it was before the column halos (its
-# expressions verbatim): a row-block call with null column halos must give
-# its bits
+# the plain step of the 1-D layer as it was before the column halos and
+# the blocked step (its expressions verbatim): the blocked step and rebuild
+# of one iteration on a row block with null column slabs must give its bits
 def _step_1d(x, p_in, p_out, out, active, weight, up_p0, dn_x, dn_p0, dn_p1,
              glast):
     n, hs, w = x.shape
@@ -292,21 +294,39 @@ def _step_1d(x, p_in, p_out, out, active, weight, up_p0, dn_x, dn_p0, dn_p1,
 
 @pytest.mark.parametrize("glast,rows", [(True, False), (False, True)])
 def test_plain_step_with_null_column_halos_is_the_1d_step(glast, rows):
+    """One iteration (m = 1, one-row slabs) of the blocked step on a row
+    block — the whole image, or the middle block of three — and the rebuild
+    with r = 0: the dual, the sums and the output of the row-block step."""
     g = torch.Generator().manual_seed(7)
     n, h, w = 3, 40, 56
     rnd = lambda *s: 0.05 * torch.randn(*s, generator=g)  # noqa: E731
     x = torch.from_numpy(_img(14, n, h, w))
-    halo = ((rnd(n, w), x[:, 0].clone(), rnd(n, w), rnd(n, w)) if rows
-            else (None,) * 4)
-    args = (x, rnd(n, 2, h, w), rnd(n, 2, h, w), rnd(n, h, w),
-            torch.tensor([1, 0, 1], dtype=torch.int32),
-            torch.tensor([0.03, 0.05, 0.1]), *halo, glast)
-    a = tuple(t.clone() if torch.is_tensor(t) else t for t in args)
-    b = tuple(t.clone() if torch.is_tensor(t) else t for t in args)
-    got = tv_sp.tv_shard_step_plain(*a, None, None, None, None, True)
-    want = _step_1d(*b)
-    for u, v in ((got, want), (a[2], b[2]), (a[3], b[3])):
-        np.testing.assert_array_equal(u.numpy(), v.numpy())
+    p = rnd(n, 2, h, w)
+    active = torch.tensor([1, 0, 1], dtype=torch.int32)
+    weight = torch.tensor([0.03, 0.05, 0.1])
+    if rows:
+        up, dn, dn_x = rnd(n, 2, 1, w), rnd(n, 2, 1, w), x[:, :1].clone()
+        x_slabs = (rnd(n, 1, 1, w), dn_x[:, None], None, None)
+        p_slabs = (up, dn, None, None)
+        halo = (up[:, 0, 0], dn_x[:, 0], dn[:, 0, 0], dn[:, 1, 0])
+        geo = (3 * h, w, h, 0, 1)
+    else:
+        x_slabs = p_slabs = None
+        halo = (None,) * 4
+        geo = (h, w, 0, 0, 1)
+    p_out = rnd(n, 2, h, w)
+    want_p, want_out = p_out.clone(), rnd(n, h, w)
+    want = _step_1d(x, p, want_p, want_out, active, weight, *halo, glast)
+    got = tv_sp.tv_shard_step_plain(x, p, p_out, active, weight, x_slabs,
+                                    p_slabs, geo, 1)
+    np.testing.assert_array_equal(got[:, 0].numpy(), want.numpy())
+    np.testing.assert_array_equal(p_out.numpy(), want_p.numpy())
+    base = torch.full((n,), 5, dtype=torch.int32)         # odd: p_odd = p
+    out = tv_sp.tv_shard_rebuild_plain(
+        x, torch.full_like(p, float("nan")), p, base + 1, base, weight,
+        x_slabs, None, p_slabs, geo, 1)
+    a = active.bool()
+    np.testing.assert_array_equal(out[a].numpy(), want_out[a].numpy())
 
 
 def test_tv_2d_vs_jax_and_dense(port, mesh122):

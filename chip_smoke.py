@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths and capability probe on one NVIDIA GPU.
+paths, capability probe and CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -123,6 +123,29 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    the plain version and one PyTorch call (CUDA events, and its device
    time from a trace).
 
+12. cli    — the port's pipeline layer (``python -m mdx_torch``) on files
+   written with the port's writer, ``MDX_DB_PATH`` in a temporary
+   directory: 512^2 16-bit CT slices (noisy, low contrast, clipped, a
+   blurred 12-bit phantom; BASELINE config 1) and one 2048^2 16-bit chest
+   X-ray through ``main([...], device="cuda")``, deterministic and
+   ``--autotune``, counters reset before each path: rc 0, the printed
+   report equal to the file, a PNG that decodes, a DB row read back; B, U,
+   C and 10 launched over these runs; every kernel call of the 512^2
+   deterministic runs replayed against its plain version; every file
+   (autotune: the 512^2 ones) on the card against the CPU by
+   ``parity.compare_runs`` (what an input does not determine is printed,
+   not required).  ``--batch`` on a 64-frame 512^2 12-bit series (explicit
+   LE and RLE, ``--window``, ``--autotune``) and on a mixed directory
+   (config 5: 8 CT at 512^2 with VOI windows, 4 chest X-rays at 2048^2,
+   8 ultrasound frames 480 x 640 8-bit, two MONOCHROME1; raw, ``--window``,
+   ``--autotune``): frame counts, finite records, B and 10 launched, a
+   ``--resume`` run skips every frame, the 512^2 bucket on the card
+   against the CPU within ``parity.breaches``.  Times beside the card:
+   warm ``run_pipeline`` at 512^2 and 2048^2 split by phase, the process
+   latency of ``python -m mdx_torch``, frames/s of the series (raw and
+   autotune) and of the mixed directory, and a traced series run in
+   chunks of 64 and 16 (``tools/cli_latency.py``).
+
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
 the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
@@ -130,7 +153,7 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-11, summed over the ranks in phases 9-10);
+launches per path of phases 5-12, summed over the ranks in phases 9-10);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -1402,6 +1425,311 @@ def _phase_probe(torch, card: str) -> dict:
         "by_probe": by_probe}
 
 
+# phase 12: the CLI on its config-1 and config-5 inputs
+CLI_SIZE, CLI_SERIES_N = 512, 64
+CLI_KINDS = ("noisy", "low_contrast", "clipped", "blurred")
+MIXED_CT, MIXED_CXR, MIXED_US = 8, 4, 8
+US_SHAPE = (480, 640)
+
+
+def _blurred_phantom(size: int):
+    """The 12-bit phantom slice (``write_synthetic_dicom(kind="phantom")``'s
+    first frame) under a separable Gaussian of sigma 3 px, stored uint16:
+    a slice that the issue-driven chain sharpens (blur: kernel U)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64) / (size - 1)
+    r = np.hypot(yy - 0.5, xx - 0.5)
+    img = (r < 0.4) * (0.6 + 0.3 * np.cos(8 * np.pi * r))
+    img = np.clip(img + rng.normal(0, 0.02, (size, size)), 0, 1) * 4095
+    t = np.arange(-12, 13)
+    g = np.exp(-t * t / 18.0)
+    g /= g.sum()
+    p = np.pad(img, 12, mode="reflect")
+    p = np.stack([np.convolve(row, g, mode="valid") for row in p])
+    p = np.stack([np.convolve(col, g, mode="valid") for col in p.T]).T
+    return np.rint(p).astype(np.uint16)
+
+
+def _cli_inputs(root) -> dict:
+    """Phase 12's files, written with the port's writer under ``root``."""
+    import os
+
+    import numpy as np
+
+    from mdx_torch.io import write_dicom, write_synthetic_dicom
+    from mdx_torch.io.dicom import TS_RLE
+    from mdx_torch.tools import make_batch
+
+    f = {}
+    for i, kind in enumerate(CLI_KINDS[:3]):
+        f[kind] = write_synthetic_dicom(f"{root}/{kind}.dcm", kind=kind,
+                                        size=CLI_SIZE, seed=20 + i)
+    f["blurred"] = write_dicom(f"{root}/blurred.dcm",
+                               _blurred_phantom(CLI_SIZE),
+                               rescale_slope=1.0, rescale_intercept=-1024.0)
+    cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
+    f["cxr"] = write_dicom(f"{root}/cxr.dcm", cxr, modality="DX",
+                           body_part="CHEST", study_description="CXR PA")
+    f["series"] = write_synthetic_dicom(f"{root}/series.dcm", kind="phantom",
+                                        size=CLI_SIZE, frames=CLI_SERIES_N,
+                                        seed=3)
+    f["series_rle"] = write_synthetic_dicom(
+        f"{root}/series_rle.dcm", kind="phantom", size=CLI_SIZE,
+        frames=CLI_SERIES_N, seed=3, transfer_syntax=TS_RLE)
+    mixed, ct_only = f"{root}/mixed", f"{root}/ct_only"
+    os.makedirs(mixed)
+    os.makedirs(ct_only)
+    rng = np.random.default_rng(9)
+    for i in range(MIXED_CT):
+        for d in (mixed, ct_only):
+            write_synthetic_dicom(f"{d}/ct{i}.dcm", kind="phantom",
+                                  size=CLI_SIZE, seed=30 + i,
+                                  window_center=1024.0 + 16 * i,
+                                  window_width=2048.0)
+    for i in range(MIXED_CXR):
+        pix = np.rint(make_batch(1, BIG, seed=40 + i)[0] * 65535)
+        write_dicom(f"{mixed}/cxr{i}.dcm", pix.astype(np.uint16),
+                    modality="DX", body_part="CHEST")
+    yy, xx = np.mgrid[0:US_SHAPE[0], 0:US_SHAPE[1]]
+    for i in range(MIXED_US):
+        speckle = rng.gamma(4.0, 0.25, US_SHAPE)
+        img = (0.5 + 0.3 * np.sin(xx / (20.0 + i)) * np.cos(yy / 33.0)) * speckle
+        write_dicom(f"{mixed}/us{i}.dcm",
+                    np.clip(img * 160, 0, 255).astype(np.uint8),
+                    modality="US", body_part="ABDOMEN",
+                    photometric="MONOCHROME1" if i < 2 else "MONOCHROME2")
+    f["mixed"], f["ct_only"] = mixed, ct_only
+    return f
+
+
+def _cli_main(cli, argv, dev) -> tuple[int, str]:
+    """``python -m mdx_torch``'s main on ``dev``, its printed output kept."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device=dev)
+    return rc, buf.getvalue()
+
+
+def _check_cli_run(path: str, out: str, rc: int, text: str) -> dict:
+    """A single-image CLI run: rc 0, the report printed and on disk, a PNG
+    that decodes at the panel's shape, and its DB row read back."""
+    import os
+
+    from mdx_torch.io.visuals import read_png
+    from mdx_torch.pipeline import storage
+
+    base = os.path.splitext(os.path.basename(path))[0]
+    _require(rc == 0, f"cli {base}: rc {rc}: {text[-500:]}")
+    report = open(f"{out}/{base}_report.md", encoding="utf-8").read()
+    _require(text.strip() == report.strip() and report.startswith("# "),
+             f"cli {base}: printed report differs from {base}_report.md")
+    png = read_png(f"{out}/{base}_before_after.png")
+    runs = [r for r in storage.list_runs(limit=1000)
+            if r["input_filename"] == os.path.basename(path)]
+    _require(bool(runs), f"cli {base}: no DB row")
+    row = storage.get_run(runs[0]["run_id"])
+    _require(row is not None and row["status"] in ("PASS", "WARN", "FAIL")
+             and "**Status:** " in report and row["status"] in report,
+             f"cli {base}: DB row {row and row['status']}")
+    return {"png": png.shape, "status": row["status"],
+            "issues": row["issues"]}
+
+
+def _phase_cli(torch, kernels, parity, check, paths: dict, card: str,
+               dev) -> None:
+    """Phase 12: the port's CLI on config-1 and config-5 inputs (module
+    doc), its files and DB in a temporary directory."""
+    import os
+    import tempfile
+
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
+        os.environ.pop("MDX_TV_MODE", None)
+        _cli_checks_and_times(torch, kernels, parity, check, paths, card,
+                              dev, tmp, t12)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+
+def _cli_checks_and_times(torch, kernels, parity, check, paths, card, dev,
+                          tmp, t12) -> None:
+    import os
+
+    import numpy as np
+
+    from mdx_torch import __main__ as cli
+    from mdx_torch.pipeline import batch_runner as PB
+    from mdx_torch.pipeline.runner import run_pipeline
+    from mdx_torch.tools import cli_latency as CL
+
+    f = _cli_inputs(tmp)
+    out = f"{tmp}/out"
+    print(f"cli inputs written: {time.perf_counter() - t12:.1f} s")
+
+    # 12.1 single-image runs, deterministic (512^2 calls recorded) and
+    # autotune, counters reset before each path
+    singles = [f[k] for k in CLI_KINDS]
+    calls: list = []
+    with _recording(torch, kernels, calls):
+        runs_512, paths["cli_512"] = _run_path(
+            torch, kernels, f"cli [1,{CLI_SIZE},{CLI_SIZE}] x "
+            f"{len(singles)} deterministic",
+            lambda: [_cli_main(cli, ["--input", p, "--output", out,
+                                     "--no-show"], dev) for p in singles])
+    run_big, paths["cli_2048"] = _run_path(
+        torch, kernels, f"cli [1,{BIG},{BIG}] deterministic",
+        lambda: _cli_main(cli, ["--input", f["cxr"], "--output", out,
+                                "--no-show"], dev))
+    for p, (rc, text) in zip(singles + [f["cxr"]], runs_512 + [run_big]):
+        got = _check_cli_run(p, out, rc, text)
+        print(f"cli {os.path.basename(p)}: rc 0, {got}")
+    auto_out = f"{tmp}/out_autotune"
+    runs_auto, paths["cli_autotune"] = _run_path(
+        torch, kernels, f"cli --autotune on {len(singles) + 1} files",
+        lambda: [_cli_main(cli, ["--input", p, "--output", auto_out,
+                                 "--autotune", "--no-show"], dev)
+                 for p in singles + [f["cxr"]]])
+    for p, (rc, text) in zip(singles + [f["cxr"]], runs_auto):
+        got = _check_cli_run(p, auto_out, rc, text)
+        _require("GenAI Plan (JSON)" in text, f"autotune {p}: no plan")
+        print(f"cli --autotune {os.path.basename(p)}: rc 0, {got}")
+    for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+        n = sum(paths[q][k] for q in ("cli_512", "cli_2048", "cli_autotune"))
+        _require(n > 0, f"kernel {k} was not launched by the CLI runs")
+    check.replay(f"cli {CLI_SIZE}^2 deterministic", calls)
+    del calls
+    check.require_ok()
+
+    # card against CPU: every file deterministic, the 512^2 files autotune
+    # (a 27-lane sweep at 2048^2 on the CPU takes minutes)
+    t0 = time.perf_counter()
+    failed, reported = [], 0
+    cases = [(p, False) for p in singles + [f["cxr"]]]
+    cases += [(p, True) for p in singles]
+    for p, auto in cases:
+        got = run_pipeline(p, out, device=dev, autotune=auto,
+                           save_artifacts=False)
+        want = run_pipeline(p, out, device="cpu", autotune=auto,
+                            save_artifacts=False)
+        bad, soft = parity.compare_runs(got, want)
+        label = f"{os.path.basename(p)}{' --autotune' if auto else ''}"
+        err = float(np.abs(got["enhanced_image"].astype(np.float64)
+                           - want["enhanced_image"]).max())
+        print(f"cli card vs cpu {label}: issues {got['issues']} / "
+              f"{want['issues']}, status {got['validation'].status} / "
+              f"{want['validation'].status}, enhanced max|d| {err!r}, "
+              f"breaches {len(bad)}, reported {len(soft)}")
+        for line in bad:
+            print("  breach: " + line)
+        for line in soft:
+            print("  reported (not determined on this input): " + line)
+        reported += len(soft)
+        if bad:
+            failed.append(label)
+    print(f"cli card vs cpu: {len(cases)} runs, {reported} reported lines "
+          f"({time.perf_counter() - t0:.1f} s)")
+    _require(not failed, f"cli: card and CPU disagree on {failed}")
+
+    # 12.2 batch runs
+    rc, text = _cli_main(cli, ["--input", f["series"], "--output", out,
+                               "--batch", "--no-show"], dev)
+    _require(rc == 0 and f"Frames processed: **{CLI_SERIES_N}**" in text,
+             f"cli --batch series: rc {rc}: {text[:300]}")
+    batch = lambda path, **kw: PB.run_pipeline_batch(  # noqa: E731
+        path, out, device=dev, **kw)
+    res_series, paths["batch_series"] = _run_path(
+        torch, kernels, f"batch series [{CLI_SERIES_N},{CLI_SIZE},"
+        f"{CLI_SIZE}] explicit LE, RLE, --window, --autotune",
+        lambda: [batch(f["series"]), batch(f["series_rle"]),
+                 batch(f["series"], window=True),
+                 batch(f["series"], autotune=True)])
+    res_mixed, paths["batch_mixed"] = _run_path(
+        torch, kernels, f"batch mixed directory ({MIXED_CT} CT, "
+        f"{MIXED_CXR} CXR, {MIXED_US} US), --window, --autotune",
+        lambda: [batch(f["mixed"]), batch(f["mixed"], window=True),
+                 batch(f["mixed"], autotune=True)])
+    n_mixed = MIXED_CT + MIXED_CXR + MIXED_US
+    for label, res, n in (("series", res_series, CLI_SERIES_N),
+                          ("mixed", res_mixed, n_mixed)):
+        for i, ctx in enumerate(res):
+            frames = ctx["frames"]
+            _require(len(frames) == n, f"batch {label} run {i}: "
+                     f"{len(frames)} frames, not {n}")
+            flat = parity.flatten_batch(frames)
+            for k, v in flat.items():
+                _require(v.dtype == bool or k.endswith("psnr")
+                         or bool(np.isfinite(v).all()),
+                         f"batch {label} run {i}: non-finite {k}")
+        for k in ("box_stats", "wavelet_denoise"):
+            _require(paths[f"batch_{label}"][k] > 0,
+                     f"kernel {k} was not launched by batch {label}")
+    shapes = sorted({tuple(fr["shape"]) for fr in res_mixed[0]["frames"]})
+    print(f"batch: series {CLI_SERIES_N} frames x 4 runs, mixed {n_mixed} "
+          f"frames x 3 runs in buckets {shapes}: finite")
+    strip = lambda fs: [{k: v for k, v in fr.items()  # noqa: E731
+                         if k not in ("run_id", "source")} for fr in fs]
+    _require(strip(res_series[0]["frames"]) == strip(res_series[1]["frames"]),
+             "batch: the RLE series differs from the explicit LE one")
+    for path, n in ((f["series"], CLI_SERIES_N), (f["mixed"], n_mixed)):
+        again = batch(path, resume=True)
+        _require(again["skipped"] == n and again["frames"] == [],
+                 f"batch --resume {path}: skipped {again['skipped']} of {n}")
+    print(f"batch --resume: skipped all {CLI_SERIES_N} and {n_mixed}")
+
+    # the 512^2 bucket, card against CPU (the CT files alone on the CPU)
+    for i, window in enumerate((False, True)):
+        on_card = [fr for fr in res_mixed[i]["frames"]
+                   if tuple(fr["shape"]) == (CLI_SIZE, CLI_SIZE)]
+        cpu = PB.run_pipeline_batch(f["ct_only"], out, device="cpu",
+                                    window=window, save_artifacts=False)
+        bad = parity.breaches(parity.flatten_batch(on_card),
+                              parity.flatten_batch(cpu["frames"]),
+                              hw=CLI_SIZE * CLI_SIZE)
+        print(f"batch 512^2 bucket card vs cpu (window {window}): "
+              f"{len(on_card)} frames, breaches {len(bad)}")
+        for line in bad:
+            print("  " + line)
+        _require([fr["source"] for fr in on_card] == [
+            fr["source"] for fr in cpu["frames"]] and not bad,
+            f"batch 512^2 bucket: card and CPU disagree (window {window})")
+    print(f"phase 12 checks: {time.perf_counter() - t12:.1f} s")
+
+    # 12.3 times, beside the card
+    for label, p in ((f"{CLI_SIZE}^2 {CLI_KINDS[0]}", f["noisy"]),
+                     (f"{BIG}^2 cxr", f["cxr"])):
+        w = CL.warm_runs(p, out, 5, dev)
+        phases = ", ".join(f"{k} {v!r}" for k, v in w["phases_ms"].items())
+        print(f"cli warm run_pipeline {label} on {card}: median "
+              f"{w['median_ms']!r} ms of 5 (runs {w['runs_ms']}); phases "
+              f"(median ms): {phases}")
+    proc = [CL.process_ms(f["noisy"], out) for _ in range(2)]
+    print(f"cli process latency python -m mdx_torch {CLI_SIZE}^2 on {card}: "
+          f"{proc} ms")
+    for label, kw, reps in (("raw", {}, 3), ("--autotune",
+                                             {"autotune": True}, 2)):
+        r = CL.batch_fps(f["series"], out, dev, reps=reps, **kw)
+        print(f"batch series [{CLI_SERIES_N},{CLI_SIZE},{CLI_SIZE}] {label} "
+              f"on {card}: {r['frames_per_s']!r} frames/s (median "
+              f"{r['median_ms']!r} ms of {reps}, runs {r['runs_ms']})")
+    r = CL.batch_fps(f["mixed"], out, dev, reps=3)
+    print(f"batch mixed directory ({n_mixed} frames) on {card}: "
+          f"{r['frames_per_s']!r} frames/s (median {r['median_ms']!r} ms, "
+          f"runs {r['runs_ms']})")
+    chunk = PB.CHUNK
+    try:
+        for n in (chunk, 16):
+            PB.CHUNK = n
+            t = CL.traced_batch(f["series"], out, dev,
+                                CL.ROOT / "build" / "chip_smoke_batch.json")
+            print(f"batch series traced, chunks of {n} on {card}: {t}")
+    finally:
+        PB.CHUNK = chunk
+
+
 def main() -> int:
     import torch
 
@@ -1617,6 +1945,8 @@ def main() -> int:
     times_spatial.update(_phase_tiles(torch, kernels, parity, check, paths,
                                       card, dev, runs))
     probe_row = _phase_probe(torch, card)
+    # ---- 12. the CLI: single files, series and a mixed directory --------
+    _phase_cli(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []

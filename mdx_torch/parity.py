@@ -50,6 +50,7 @@ CUDA kernel to its plain version.
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 
@@ -96,6 +97,153 @@ QA_DETERMINISTIC_FIELDS = ("enhanced", "stats", "issues", "flags",
 def flatten_result(result, fields) -> dict[str, np.ndarray]:
     """A qa_plan / qa_deterministic return tuple → {dotted name: array}."""
     return flatten(dict(zip(fields, result)))
+
+
+_VALIDATION_FLOATS = ("ssim", "psnr", "quality_improvement", "niqe_before",
+                      "niqe_after", "contrast_gain", "sharpness_gain",
+                      "noise_change")
+_VALIDATION_BOOLS = ("meets_ssim", "meets_psnr", "meets_improvement",
+                     "passes", "niqe_improved")
+
+
+def flatten_run(ctx: dict) -> dict[str, np.ndarray]:
+    """A single-image pipeline run's context (either package's) → the
+    names of :func:`flatten_result`: ``stats.*`` (metrics before),
+    ``validation.*`` (the ValidationResult's numbers and flags, the
+    metrics after and before) and ``enhanced`` [1, H, W]."""
+    v = ctx["validation"]
+    val = {k: np.float32(getattr(v, k)) for k in _VALIDATION_FLOATS}
+    val.update({k: np.bool_(getattr(v, k)) for k in _VALIDATION_BOOLS})
+    val["metrics_before"] = ctx["metrics_before"]
+    val["metrics_after"] = ctx["metrics_after"]
+    tree = {"stats": ctx["metrics_before"], "validation": val,
+            "enhanced": np.asarray(ctx["enhanced_image"], np.float32)[None]}
+    return {k: np.asarray(a).reshape(-1) if k != "enhanced" else a
+            for k, a in flatten(tree).items()}
+
+
+# issue → (metric, threshold key) of ``core.metrics.detect_issues``
+_ISSUE_METRIC = {"noise": ("sigma", "noise_sigma"),
+                 "blur": ("lap_var", "blur_lap_var"),
+                 "low_contrast": ("std", "low_contrast_std"),
+                 "clipping_low": ("pct_low", "clip_pct"),
+                 "clipping_high": ("pct_high", "clip_pct")}
+_NUMBER = re.compile(r"-?\d+(?:\.\d+)?")
+
+
+def compare_runs(got: dict, want: dict) -> tuple[list[str], list[str]]:
+    """Two single-image runs of one file (contexts of either package, or
+    the port on two devices) → (breaches, reported).
+
+    Breaches: the metrics before outside :func:`breaches`; an issue that
+    differs although its metric sits further than its tolerance from the
+    threshold; and, once the issues agree, any difference in applied ops,
+    status, notes (their numbers within 1e-3 relative), the validation
+    fields or the enhanced image.  Reported instead of breached: an issue
+    whose metric lies within its tolerance of the threshold (one ulp can
+    flip it), and, on an input whose quality-improvement tolerance reaches
+    the pass threshold (sigma below about 1e-4: the noise term divides by
+    a sigma that is a rounding residue on a noiseless image), the pass
+    rule's outcome (status, notes, pass flags) and, for an autotune run,
+    the sweep's pick and all that follows from it; and, where the enhanced
+    images agree within ``PIXEL_ATOL``, a difference in the two
+    ill-conditioned metrics of the enhanced image
+    (``ILL_CONDITIONED_AFTER``)."""
+    from mdx_torch.core.metrics import THRESHOLDS
+
+    g, w = flatten_run(got), flatten_run(want)
+    hw = int(np.prod(w["enhanced"].shape[-2:]))
+    stats = [n for n in w if n.startswith("stats.")]
+    bad = breaches(g, w, stats, hw=hw)
+    soft: list[str] = []
+    for issue, (metric, th) in _ISSUE_METRIC.items():
+        if (issue in got["issues"]) == (issue in want["issues"]):
+            continue
+        name = f"stats.{metric}"
+        margin = abs(float(w[name][0]) - THRESHOLDS[th])
+        line = (f"issue {issue}: {issue in got['issues']} vs "
+                f"{issue in want['issues']} ({metric} {float(g[name][0])!r}"
+                f" vs {float(w[name][0])!r}, threshold {THRESHOLDS[th]})")
+        near = margin <= np.max(tolerance(name, w, hw))
+        (soft if near else bad).append(line)
+    if got["issues"] != want["issues"]:
+        return bad, soft
+    # quality improvement's tolerance grows as SIGMA_ATOL / sigma; once it
+    # reaches the pass threshold, the pass rule and a sweep's pick are not
+    # determined by the input
+    qi_tol = np.max(tolerance("validation.quality_improvement", w, hw))
+    decided = qi_tol < THRESHOLDS["quality_improvement"]
+    by_qi = bad if decided else soft
+    chain = bad if decided or not got.get("autotune") else soft
+    if got["applied_ops"] != want["applied_ops"]:
+        chain.append(f"applied_ops: {got['applied_ops']} vs "
+                     f"{want['applied_ops']}")
+    if got["validation"].status != want["validation"].status:
+        by_qi.append(f"status: {got['validation'].status} vs "
+                     f"{want['validation'].status}")
+    if not _same_text(got["notes"], want["notes"]):
+        by_qi.append(f"notes: {got['notes']} vs {want['notes']}")
+    qi_names = ("validation.meets_improvement", "validation.passes")
+    by_qi += breaches(g, w, qi_names, hw=hw)
+    rest = [n for n in w if n not in stats and n not in qi_names]
+    off = breaches(g, w, rest, hw=hw)
+    images_agree = not breaches(g, w, ["enhanced"], hw=hw)
+    for line in off:
+        if images_agree and line.split(":", 1)[0] in ILL_CONDITIONED_AFTER:
+            soft.append(f"{line} (an ill-conditioned metric of enhanced "
+                        f"images that agree within {PIXEL_ATOL})")
+        else:
+            chain.append(line)
+    return bad, soft
+
+
+# Two metrics of an enhanced image that one ulp of its pixels moves by more
+# than RTOL (measured on the CPU on the enhanced 512^2 low-contrast slice:
+# a one-ulp nudge of 30 % of the pixels moves them 1.3e-4 to 2.1e-4 and
+# 5e-4 to 1.6e-3): ``gradient_strength`` is the mean of the gradients at or
+# above their 90th percentile, and a CLAHE-quantised image has thousands of
+# gradients tied there (13668 of 262144), so an ulp moves a whole tie group
+# in or out; ``niqe`` divides the std of the 16 x 16 local variance by its
+# mean, and on a flat enhanced image that mean (~1e-5) is a few hundred
+# times the float32 cancellation residue of E[x^2] - E[x]^2 (up to 6e-8, as
+# for ``LCS_ATOL``).  The detection metrics (before) keep their bounds.
+ILL_CONDITIONED_AFTER = ("validation.metrics_after.gradient_strength",
+                         "validation.niqe_after")
+
+
+def _same_text(a: list[str], b: list[str], rtol: float = 1e-3) -> bool:
+    """Lines equal with their numbers masked, the numbers within ``rtol``."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if _NUMBER.sub("#", x) != _NUMBER.sub("#", y):
+            return False
+        for u, v in zip(_NUMBER.findall(x), _NUMBER.findall(y)):
+            if abs(float(u) - float(v)) > rtol * max(abs(float(v)), 1.0):
+                return False
+    return True
+
+
+def flatten_batch(frames: list[dict]) -> dict[str, np.ndarray]:
+    """A batch run's per-frame records (either package's, in the order
+    given) → ``stats.*``, ``issues.*``, ``validation.*`` and ``score``
+    as [N] arrays."""
+    from mdx_torch.core.metrics import ISSUE_ORDER
+
+    metrics = {k: np.array([f["metrics"][k] for f in frames], np.float32)
+               for k in frames[0]["metrics"]}
+    tree = {
+        "stats": metrics,
+        "issues": {k: np.array([k in f["issues"] for f in frames])
+                   for k in ISSUE_ORDER},
+        "validation": {
+            **{k: np.array([f[k] for f in frames], np.float32)
+               for k in ("ssim", "psnr", "quality_improvement")},
+            "passes": np.array([f["passed"] for f in frames]),
+            "metrics_before": metrics},
+        "score": np.array([f["objective_score"] for f in frames],
+                          np.float32)}
+    return flatten(tree)
 
 
 def _sigma_for(name: str, flat: dict[str, np.ndarray]) -> np.ndarray | None:

@@ -727,3 +727,51 @@ def test_spatial_check_replays_every_recorded_wrapper(dev):
     assert set(replay) == set(SC.RECORDED)
     for name, (n_calls, err, ok) in replay.items():
         assert n_calls > 0 and ok, (name, err)
+
+
+@pytest.mark.parametrize("kind", ["noisy", "low_contrast", "clipped"])
+def test_run_pipeline_card_against_cpu(dev, tmp_path, monkeypatch, kind):
+    """The single-image runner at 256^2, deterministic and autotune: the
+    card's run against the CPU's by ``parity.compare_runs``, and the
+    kernels of the path launched."""
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.pipeline.runner import run_pipeline
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    path = write_synthetic_dicom(str(tmp_path / f"{kind}.dcm"), kind=kind,
+                                 size=256)
+    for autotune in (False, True):
+        kernels.reset_launches()
+        got = run_pipeline(path, str(tmp_path / "card"), autotune=autotune,
+                           device=dev)
+        assert kernels.LAUNCHES["box_stats"] > 0
+        want = run_pipeline(path, str(tmp_path / "cpu"), autotune=autotune,
+                            device="cpu")
+        bad, _reported = parity.compare_runs(got, want)
+        assert not bad, (autotune, bad)
+
+
+def test_run_pipeline_batch_card_against_cpu(dev, tmp_path, monkeypatch):
+    """The batch runner on a 4-frame 256^2 12-bit series, raw and
+    windowed: the card's records against the CPU's within
+    ``mdx_torch.parity``; a resumed run skips every frame."""
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.pipeline.batch_runner import run_pipeline_batch
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    path = write_synthetic_dicom(str(tmp_path / "s.dcm"), kind="phantom",
+                                 size=256, frames=4, window_center=40.0,
+                                 window_width=400.0)
+    for window in (False, True):
+        got = run_pipeline_batch(path, str(tmp_path / "card"),
+                                 window=window, device=dev)
+        want = run_pipeline_batch(path, str(tmp_path / "cpu"),
+                                  window=window, device="cpu",
+                                  save_artifacts=False)
+        assert [f["frame"] for f in got["frames"]] == [0, 1, 2, 3]
+        assert not parity.breaches(parity.flatten_batch(got["frames"]),
+                                   parity.flatten_batch(want["frames"]),
+                                   hw=256 * 256)
+    again = run_pipeline_batch(path, str(tmp_path / "card"), resume=True,
+                               device=dev)
+    assert again["skipped"] == 4 and again["frames"] == []

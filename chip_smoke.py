@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths, capability probe and CLI on one NVIDIA GPU.
+paths, capability probe, CLI and spatial runner on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  Phases, each reported on its own lines:
 
-1. device  — the card's name and power limit; TF32 off.
+1. device  — the card's name and power limit, its uncorrected ECC errors,
+   row remappings and temperature (again on stderr after a failure);
+   TF32 off.
 2. build   — nvcc builds the kernels from ``mdx_torch/csrc``.
 3. kernels — each CUDA kernel (box stats, unsharp, CLAHE, TV, bilateral,
    wavelet denoise) against its plain PyTorch version on the card at
@@ -145,6 +147,27 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    latency of ``python -m mdx_torch``, frames/s of the series (raw and
    autotune) and of the mixed directory, and a traced series run in
    chunks of 64 and 16 (``tools/cli_latency.py``).
+13. spatial-cli — ``python -m mdx_torch --spatial`` on two 2048^2 16-bit
+   slices written with the port's writer (noisy: the sharded denoise and
+   the noise guard; low contrast, which clips at both ends once
+   normalised: CLAHE, so kernel 11 and C's LUT stage), ``MDX_DB_PATH`` in
+   a temporary directory.  Every run's launch goes through
+   ``spatial_check.recorded_rank``: each rank's counters reset before the
+   runner's rank body and read after it, rank 0's calls of kernel 11 and
+   the LUT stage recorded and replayed against their plain versions.
+   ``main([... "--spatial"], device="cuda")`` on each file (k = 1 over
+   NCCL): one launch, rc 0, the printed report equal to the file, its DB
+   row read back, the phase times (``tools/cli_latency.py``), and the
+   run against the dense ``qa_deterministic`` on the card (issues, ops,
+   noise guard equal; ``enhanced`` within 1e-4; metrics within
+   ``parity.breaches``).  ``--autotune`` on the low-contrast file against
+   the dense ``autotune`` (records and pick equal, scores within 2e-3,
+   gamma and clip equal, ``enhanced`` within 1e-4), with ms a candidate.
+   ``run_pipeline_spatial(n_space=(2, 2))`` on it: four gloo ranks on the
+   one card (host staging, not scaling), its issues, ops and flags equal
+   to the k = 1 run's and its frame within ``parity.breaches``.  Kernel 11
+   and the LUT stage launched on every rank of each run that applied
+   CLAHE, and rank 0's calls within ``KERNEL_TOL``.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -153,7 +176,8 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-12, summed over the ranks in phases 9-10);
+launches per path of phases 5-13, summed over the ranks in phases 9, 10
+and 13);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -1730,6 +1754,250 @@ def _cli_checks_and_times(torch, kernels, parity, check, paths, card, dev,
         PB.CHUNK = chunk
 
 
+# phase 13: --spatial, one large slice sharded over the ranks
+SPATIAL_CLI_KINDS = ("noisy", "low_contrast")
+# the runner against the port's dense paths on the card: enhanced pixels and
+# the sweep's scores to the limits JAX holds its own runner and sweep to
+# (tests/test_spatial_runner.py:86, tests/test_spatial_plan.py:131-136)
+SPATIAL_CLI_ATOL, SPATIAL_CLI_SCORE_ATOL = 1e-4, 2e-3
+SPATIAL_CLI_OPS = ("denoise", "clahe", "gamma", "unsharp", "post_denoise")
+
+
+@contextlib.contextmanager
+def _recorded_launches():
+    """Every ``launch.run`` made meanwhile runs its rank function inside
+    ``spatial_check.recorded_rank`` (each rank's counters reset, rank 0's
+    calls of kernels 11 and C's LUT stage recorded and replayed); yields
+    the list of (Launched, per-rank ``smoke`` dicts), the ``smoke`` keys
+    taken out of the results so that the caller assembles them as usual."""
+    import functools
+
+    from mdx_torch.parallel import launch
+    from mdx_torch.tools import spatial_check as SC
+
+    real, launched = launch.run, []
+
+    def run(fn, *args, **kwargs):
+        res = real(functools.partial(SC.recorded_rank, inner=fn), *args,
+                   **kwargs)
+        launched.append((res, [r.pop("smoke") for r in res.results]))
+        return res
+
+    launch.run = run
+    try:
+        yield launched
+    finally:
+        launch.run = real
+
+
+def _spatial_cli_run(kernels, parity, check, paths: dict, label: str, fn):
+    """One ``--spatial`` run through ``fn`` (→ its context) with its launch
+    recorded: exactly one launch; kernel 11 and C's LUT stage launched on
+    every rank when CLAHE was applied, rank 0's calls of both within
+    ``KERNEL_TOL``; the launches summed over the ranks under ``paths``."""
+    from mdx_torch.tools import spatial_check as SC
+
+    with _recorded_launches() as launched:
+        got = fn()
+    _require(len(launched) == 1,
+             f"{label}: {len(launched)} launches, not one")
+    res, smoke = launched[0]
+    ctx = got["ctx"] if "ctx" in got else got
+    per_rank = [sm["launches"] for sm in smoke]
+    print(f"launches in {label} ({res.backend}, {len(smoke)} ranks), per "
+          f"rank: {per_rank}")
+    paths[f"spatial_cli_{label.replace(' ', '_')}"] = {
+        k: sum(int(lr[k]) for lr in per_rank) for k in kernels.LAUNCHES}
+    if "clahe" in ctx["applied_ops"]:
+        for k in ("clahe_remap_ext", "clahe"):
+            _require(all(int(lr[k]) > 0 for lr in per_rank),
+                     f"{k} not launched on every rank of {label}")
+        for name in ("clahe_luts", "clahe_remap_ext"):
+            n_calls, err, ok = smoke[0]["replay"][name]
+            row = SC.ROW_OF.get(name, name)
+            print(f"replayed rank 0 {label} {name}: {int(n_calls)} calls, "
+                  f"max|d| {float(err)!r} (tol {parity_tol(row)})")
+            check.errs[row] = max(check.errs[row], float(err))
+            _require(bool(ok) and int(n_calls) > 0,
+                     f"{name} replay {label}: max|d| {float(err)!r}")
+    return got, ctx
+
+
+def _check_spatial_cli(run: dict, path: str, out: str, label: str) -> None:
+    """A ``main([... "--spatial"])`` run: rc 0, the printed report equal
+    to the written one, its DB row read back."""
+    import os
+
+    from mdx_torch.pipeline import storage
+
+    _require(run["rc"] == 0 and run["ctx"] is not None,
+             f"{label}: rc {run['rc']}: {run['text'][-500:]}")
+    base = os.path.splitext(os.path.basename(path))[0]
+    report = open(f"{out}/{base}_spatial_report.md", encoding="utf-8").read()
+    _require(run["text"].strip() == report.strip()
+             and report.startswith("# mdx spatial QA report"),
+             f"{label}: printed report differs from the file")
+    row = storage.get_run(run["ctx"]["run_id"])
+    _require(row is not None and row["status"] == "completed"
+             and row["issues"] == run["ctx"]["issues"],
+             f"{label}: DB row {row and row['status']}")
+
+
+def _spatial_vs_dense(torch, parity, label: str, ctx: dict, x) -> None:
+    """A deterministic ``--spatial`` run against the port's dense
+    ``qa_deterministic`` on the card on the same frame: issues, applied
+    ops and the noise guard equal, ``enhanced`` within SPATIAL_CLI_ATOL,
+    the metrics before and after within ``parity.breaches``."""
+    import numpy as np
+
+    from mdx_torch.core import qa
+    from mdx_torch.core.metrics import ISSUE_ORDER, METRIC_KEYS
+
+    enh, stats, issues, flags, val, _ = qa.qa_deterministic(x)
+    issues = [k for k in ISSUE_ORDER if bool(issues[k][0])]
+    ops = [o for o in SPATIAL_CLI_OPS if bool(flags[o][0])] if issues else []
+    guard = bool(flags["noise_amp"][0])
+    err = float(np.abs(ctx["enhanced"] - enh[0].cpu().numpy()).max())
+    mine = {"stats": {k: np.float32([ctx["metrics"][k]]) for k in
+                      METRIC_KEYS},
+            "validation": {"metrics_after": {
+                k: np.float32([ctx["metrics_after"][k]])
+                for k in METRIC_KEYS}}}
+    dense = {"stats": {k: stats[k] for k in METRIC_KEYS},
+             "validation": {"metrics_after": {
+                 k: val["metrics_after"][k] for k in METRIC_KEYS}}}
+    bad = parity.breaches(parity.flatten(mine), parity.flatten(dense),
+                          hw=x.shape[1] * x.shape[2])
+    print(f"{label} vs dense qa_deterministic on the card: issues "
+          f"{ctx['issues']} / {issues}, ops {ctx['applied_ops']} / {ops}, "
+          f"noise guard {ctx['noise_amp_guard']} / {guard}, enhanced "
+          f"max|d| {err!r}, metric breaches {len(bad)}")
+    for line in bad:
+        print("  " + line)
+    _require(ctx["issues"] == issues and ctx["applied_ops"] == ops
+             and ctx["noise_amp_guard"] == guard
+             and err <= SPATIAL_CLI_ATOL and not bad,
+             f"{label} and dense qa_deterministic differ")
+
+
+def _print_spatial_times(label: str, run: dict, card: str) -> None:
+    from mdx_torch.tools import cli_latency as CL
+
+    t = CL.spatial_times(run)
+    phases = ", ".join(f"{k} {v!r}" for k, v in t["phases_ms"].items())
+    stages = ", ".join(f"{k} {v!r}" for k, v in t["rank_ms"].items())
+    print(f"{label} on {card}: wall {t['wall_ms']!r} ms, one launch "
+          f"{t['launch']}; phases (ms): {phases}; rank 0 (ms): {stages}")
+
+
+def _phase_spatial_cli(torch, kernels, parity, check, paths: dict,
+                       card: str, dev) -> None:
+    """Phase 13: ``python -m mdx_torch --spatial`` on 2048^2 slices
+    (module doc), its files and DB in a temporary directory."""
+    import os
+    import tempfile
+
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
+        os.environ.pop("MDX_TV_MODE", None)
+        _spatial_cli_checks(torch, kernels, parity, check, paths, card, dev,
+                            tmp)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
+
+def _spatial_cli_checks(torch, kernels, parity, check, paths, card, dev,
+                        tmp) -> None:
+    import numpy as np
+
+    from mdx_torch.core.tuning import autotune
+    from mdx_torch.io import load_dicom, normalize_image, write_synthetic_dicom
+    from mdx_torch.pipeline.spatial_runner import run_pipeline_spatial
+    from mdx_torch.tools import cli_latency as CL
+
+    f = {k: write_synthetic_dicom(f"{tmp}/{k}.dcm", kind=k, size=BIG,
+                                  seed=50 + i)
+         for i, k in enumerate(SPATIAL_CLI_KINDS)}
+    out = f"{tmp}/out"
+    frames = {k: normalize_image(load_dicom(p)[0]) for k, p in f.items()}
+
+    # 13.1 main([... "--spatial"]) on each file: k = 1 over NCCL
+    det = {}
+    for k, p in f.items():
+        label = f"--spatial {k} [1,{BIG},{BIG}]"
+        run, ctx = _spatial_cli_run(
+            kernels, parity, check, paths, f"{k} k1",
+            lambda p=p: CL.spatial_cli(p, out, dev))
+        _check_spatial_cli(run, p, out, label)
+        _print_spatial_times(label, run, card)
+        x = torch.from_numpy(frames[k])[None].to(dev)
+        _spatial_vs_dense(torch, parity, label, ctx, x)
+        det[k] = ctx
+    check.require_ok()
+
+    # 13.2 --autotune on the low-contrast file against the dense sweep
+    p = f["low_contrast"]
+    label = f"--spatial --autotune low_contrast [1,{BIG},{BIG}]"
+    run, ctx = _spatial_cli_run(
+        kernels, parity, check, paths, "low_contrast k1 autotune",
+        lambda: CL.spatial_cli(p, out, dev, "--autotune"))
+    _check_spatial_cli(run, p, out, label)
+    _print_spatial_times(label, run, card)
+    plan, enh, recs = autotune(frames["low_contrast"], ctx["issues"],
+                               device=dev)
+    mine = ctx["iterations"]
+    err = float(np.abs(ctx["enhanced"] - enh).max())
+    worst = max(abs(a.score - b.score) for a, b in zip(mine, recs))
+    print(f"{label} vs dense autotune on the card: {len(mine)} / "
+          f"{len(recs)} candidates, chosen "
+          f"{[r.iteration for r in mine if r.chosen]} / "
+          f"{[r.iteration for r in recs if r.chosen]}, scores max|d| "
+          f"{worst!r}, gamma {ctx['plan'].params.gamma} / "
+          f"{plan.params.gamma}, clip {ctx['plan'].params.clahe_clip_limit}"
+          f" / {plan.params.clahe_clip_limit}, enhanced max|d| {err!r}")
+    print(f"{label} on {card}: {len(mine)} candidates, "
+          f"{ctx['rank_ms']['per_candidate']!r} ms a candidate, sweep "
+          f"{ctx['rank_ms']['sweep']!r} ms, the run's one launch "
+          f"{ctx['phase_ms']['launch']!r} ms")
+    _require(len(mine) == len(recs)
+             and [r.chosen for r in mine] == [r.chosen for r in recs]
+             and worst <= SPATIAL_CLI_SCORE_ATOL
+             and ctx["plan"].params.gamma == plan.params.gamma
+             and (ctx["plan"].params.clahe_clip_limit
+                  == plan.params.clahe_clip_limit)
+             and err <= SPATIAL_CLI_ATOL,
+             f"{label} and the dense autotune differ")
+    check.require_ok()
+
+    # 13.3 the 2 x 2 grid: four gloo ranks on the one card
+    label = f"run_pipeline_spatial low_contrast n_space=(2, 2) [1,{BIG},{BIG}]"
+    t0 = time.perf_counter()
+    ctx, _ = _spatial_cli_run(
+        kernels, parity, check, paths, "low_contrast 2x2",
+        lambda: run_pipeline_spatial(p, f"{tmp}/out_2x2", n_space=(2, 2),
+                                     device=dev))
+    wall = (time.perf_counter() - t0) * 1e3
+    _print_spatial_times(label + " (four ranks on one card over gloo: host "
+                         "staging, not scaling)",
+                         {"wall_ms": wall, "ctx": ctx}, card)
+    one = det["low_contrast"]
+    bad = parity.breaches({"enhanced": ctx["enhanced"][None]},
+                          {"enhanced": one["enhanced"][None]})
+    print(f"{label} vs k = 1: issues {ctx['issues']} / {one['issues']}, "
+          f"ops {ctx['applied_ops']} / {one['applied_ops']}, noise guard "
+          f"{ctx['noise_amp_guard']} / {one['noise_amp_guard']}, passes "
+          f"{ctx['validation']['passes']} / {one['validation']['passes']},"
+          f" enhanced max|d| "
+          f"{float(np.abs(ctx['enhanced'] - one['enhanced']).max())!r}, "
+          f"breaches {len(bad)}")
+    _require(all(ctx[k] == one[k] for k in ("issues", "applied_ops",
+                                            "noise_amp_guard"))
+             and ctx["validation"]["passes"] == one["validation"]["passes"]
+             and not bad, f"{label} and k = 1 differ")
+    check.require_ok()
+
+
 def main() -> int:
     import torch
 
@@ -1753,6 +2021,7 @@ def main() -> int:
     print(f"device: {name} (torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, count {torch.cuda.device_count()})")
     print(f"nvidia-smi name, power.limit: {card}")
+    print(device_health())
     print(f"tf32 before: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}; set both False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1947,6 +2216,8 @@ def main() -> int:
     probe_row = _phase_probe(torch, card)
     # ---- 12. the CLI: single files, series and a mixed directory --------
     _phase_cli(torch, kernels, parity, check, paths, card, dev)
+    # ---- 13. --spatial: one large slice sharded over the ranks ----------
+    _phase_spatial_cli(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -2000,9 +2271,38 @@ def main() -> int:
     return 0
 
 
+HEALTH_FIELDS = ("ecc.errors.uncorrected.volatile.total,"
+                 "remapped_rows.pending,remapped_rows.failure,temperature.gpu")
+
+
+def device_health() -> str:
+    """The first card's uncorrected ECC errors since the driver loaded, its
+    pending and failed row remappings and its temperature, as nvidia-smi
+    gives them (or why it could not): printed at the start and again after
+    a failure, so that a fault of the card is told from one of the port."""
+    import subprocess
+
+    try:
+        smi = subprocess.run(["nvidia-smi", f"--query-gpu={HEALTH_FIELDS}",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi {HEALTH_FIELDS}: not read ({e})"
+    out = (smi.stdout or smi.stderr).strip().splitlines()
+    return (f"nvidia-smi {HEALTH_FIELDS}: "
+            f"{out[0] if out else ''} (rc {smi.returncode})")
+
+
 if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        print(device_health(), file=sys.stderr)
+        sys.exit(1)
+    except Exception:
+        import traceback
+
+        traceback.print_exc()
+        print(device_health(), file=sys.stderr)
         sys.exit(1)

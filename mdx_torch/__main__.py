@@ -12,7 +12,9 @@ tests do), and no flag selects the device.
 ``.env`` in the working directory is loaded first (KEY=VALUE lines; the
 environment wins).  ``--tv-mode``, else ``MDX_TV_MODE``, is read here once
 and passed to the autotune sweep as ``tv_mode``; no op reads the
-environment.  ``--spatial`` (ROADMAP Queue 1 item 2), ``--genai`` and
+environment.  ``--spatial`` QA's one large slice sharded over the visible
+cards (``pipeline/spatial_runner.py``, with ``--window`` and
+``--autotune``; its device part in one launch of ranks).  ``--genai`` and
 ``--plan-only`` (GenAI mode is not ported) exit 1 with ``ERROR:``;
 ``--no-show`` is accepted (the port never opens a window), and so are
 ``--model``, ``--max-iters`` and ``--no-redact``, which only GenAI mode
@@ -89,23 +91,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="TV-denoise solve mode of the autotune sweep: "
                              "'ref' (default) or 'fast'; else MDX_TV_MODE")
     parser.add_argument("--spatial", action="store_true",
-                        help="Shard one very large slice across cards: not "
-                             "yet in mdx_torch (exits 1)")
+                        help="Shard one very large slice across the visible "
+                             "cards (2-D row x col tiles when the extents "
+                             "allow, else 1-D row blocks) and run the "
+                             "sharded QA chain (with --autotune: the "
+                             "candidate sweep)")
     return parser.parse_args(argv)
 
 
 def run(args: argparse.Namespace, device="cuda") -> dict:
     """The run ``args`` asks for → its context (raises on failure)."""
+    tv_mode = args.tv_mode or os.environ.get("MDX_TV_MODE") or None
     if args.spatial:
-        raise RuntimeError(
-            "--spatial is not yet in mdx_torch (ROADMAP Queue 1 item 2: "
-            "spatial_runner on the rank pool)")
+        from mdx_torch.pipeline.spatial_runner import run_pipeline_spatial
+
+        return run_pipeline_spatial(
+            input_path=args.input, output_dir=args.output,
+            save_artifacts=True, window=args.window, autotune=args.autotune,
+            device=device, tv_mode=tv_mode)
     if args.genai or args.plan_only:
         raise RuntimeError(
             "--genai / --plan-only: GenAI mode is not part of mdx_torch "
             "(mdx/genai, an LLM loop that calls a remote model, is not "
             "ported; ROADMAP Queue 1)")
-    tv_mode = args.tv_mode or os.environ.get("MDX_TV_MODE") or None
     if args.batch:
         from mdx_torch.pipeline.batch_runner import run_pipeline_batch
 

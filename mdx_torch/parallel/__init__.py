@@ -12,7 +12,8 @@ takes ``(x_block, ..., mesh=SpatialMesh)``:
   ``n_data × sy × sx`` grid, its device, its process groups), the backend
   rule and ``choose_layout``;
 * :mod:`.comm` — the only module that calls ``torch.distributed``: row and
-  column halos, sums, maxima, gathers;
+  column halos, sums, maxima, gathers, and ``agree`` (rank 0's host
+  decision on every rank);
 * :mod:`.launch` — :func:`~.launch.run` spawns the ranks, hands each its
   block or tile and returns their numpy results;
 * :mod:`.spatial`, :mod:`.spatial2d`, :mod:`.wavelet_sp`, :mod:`.clahe_sp`,
@@ -20,8 +21,10 @@ takes ``(x_block, ..., mesh=SpatialMesh)``:
   chain and QA steps, which take their layout from the mesh.  The host
   entry points (``image_stats_spatial``, ``enhance_spatial``,
   ``qa_spatial``, ``qa_plan_spatial``) take an ``[N, H, W]`` numpy array
-  and ``n_space`` (row blocks, or ``(sy, sx)`` tiles) and run on the card
-  unless the caller passes ``device="cpu"``.
+  (``plan_sp.autotune_spatial`` one ``[H, W]`` slice) and ``n_space`` (row
+  blocks, or ``(sy, sx)`` tiles) and run on the card unless the caller
+  passes ``device="cpu"``; ``mdx_torch.pipeline.spatial_runner`` runs the
+  CLI's ``--spatial`` on them.
 
 Importing this package starts no process and builds nothing.
 """

@@ -154,6 +154,22 @@ def any_all(flags: torch.Tensor, mesh: SpatialMesh) -> bool:
     return bool(_all_reduce(one, dist.ReduceOp.MAX, mesh, "all").item())
 
 
+def agree(value, mesh: SpatialMesh) -> int:
+    """Rank 0's ``value`` (an int, a bool or a one-element tensor) on every
+    rank: one broadcast of 8 bytes over all ranks.  A host decision that
+    chooses the collectives to come (the spatial runner's issue flags, the
+    sweep's winner) is taken through it: the values it is made from are
+    all-reduced and bit-identical on every rank, but a rank that decided
+    otherwise would enter another collective and hang until the process
+    group's timeout."""
+    t = _host(mesh, torch.tensor([int(value)], dtype=torch.int64,
+                                 device=mesh.device))
+    dist.broadcast(t, src=0)
+    if mesh.staged:
+        mesh.host_round_trips += 1
+    return int(t.item())
+
+
 def gather_tiles(v: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
     """The tile group's ``v`` [N, h, w] put together as the whole grid
     [N, sy·h, sx·w] on every rank (``all_gather`` over the tile group; with

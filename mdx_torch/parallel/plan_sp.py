@@ -29,10 +29,11 @@ import torch
 
 from mdx_torch.core.enhance import OP_ORDER, PlanDynamic, PlanStatic
 from mdx_torch.core.score import objective_score
+from mdx_torch.core.tuning import DEFAULT_OPS, candidate_grid, plan_records
 from mdx_torch.core.validate import validation_from_stats
 from mdx_torch.ops import filters as F
 from mdx_torch.ops.filters import as_n
-from mdx_torch.ops.tv import tv_mode_params
+from mdx_torch.ops.tv import resolve_tv_mode, tv_mode_params
 from mdx_torch.parallel import _spmd_stats as S
 from mdx_torch.parallel import comm, launch, spatial, spatial2d
 from mdx_torch.parallel.clahe_sp import clahe_sharded
@@ -263,3 +264,80 @@ def qa_plan_spatial(x: np.ndarray, n_space, static: PlanStatic,
     out = launch.assemble(res.results, n_data, n_space)
     out["launch"] = res.info()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The autotune sweep on the sharded plan path
+# ---------------------------------------------------------------------------
+
+
+def autotune_spatial_block(xb: torch.Tensor, issues, *, mesh,
+                           ops: tuple[str, ...], tile_size: int,
+                           tv_mode: str | None = None) -> dict:
+    """Per-rank body of :func:`autotune_spatial`: the candidate grid of
+    ``issues`` as sequential :func:`qa_plan_block` calls on one static plan;
+    each candidate's score, SSIM, PSNR and quality improvement ([K], the
+    same on every rank) and the first maximum of the scores (JAX's strict
+    ``>``), agreed over the ranks (``comm.agree``) → ``best``; only the
+    winner's enhanced block is kept (``enhanced``)."""
+    ops = tuple(ops)
+    static = PlanStatic(ops=ops, tile_size=int(tile_size), bilateral_d=0,
+                        tv_mode=resolve_tv_mode(tv_mode), plan_order=ops)
+    cols = {"score": [], "ssim": [], "psnr": [], "quality_improvement": []}
+    best, best_score, enhanced = -1, -float("inf"), None
+    for i, c in enumerate(candidate_grid(list(issues))):
+        out = qa_plan_block(xb, static, PlanDynamic(**c), mesh=mesh)
+        v = out["validation"]
+        for key, val in (("score", out["score"]), ("ssim", v["ssim"]),
+                         ("psnr", v["psnr"]),
+                         ("quality_improvement", v["quality_improvement"])):
+            cols[key].append(val[0])
+        score = float(out["score"][0])
+        if score > best_score:
+            best, best_score, enhanced = i, score, out["enhanced"]
+    agreed = comm.agree(best, mesh)
+    if agreed != best:
+        raise RuntimeError(f"rank {mesh.rank} picked candidate {best} of the "
+                           f"sweep, rank 0 picked {agreed}")
+    return {"enhanced": enhanced,
+            "best": torch.tensor([best]),
+            **{key: torch.stack(v) for key, v in cols.items()}}
+
+
+def sweep_records(out: dict, issues, ops, tile_size: int):
+    """An assembled :func:`autotune_spatial_block` result → (the winning
+    EnhancementPlan, the IterationRecords) through
+    ``core.tuning.plan_records`` (JAX's ``plan_sp.py:360-368``)."""
+    cands = candidate_grid(list(issues))
+    plans, records, best = plan_records(
+        cands, tuple(ops), int(tile_size), out["score"], out["ssim"],
+        out["psnr"], out["quality_improvement"],
+        best_rationale=("best of spatially-sharded autotune sweep "
+                        f"({len(cands)} candidates, one compiled program "
+                        "reused)"))
+    if best != int(out["best"][0]):
+        raise RuntimeError(f"the sweep's winner {int(out['best'][0])} is not "
+                           f"the first maximum {best} of its scores")
+    return plans[best], records
+
+
+def autotune_spatial(image: np.ndarray, issues, n_space, *,
+                     ops: tuple[str, ...] = DEFAULT_OPS, tile_size: int = 16,
+                     tv_mode: str | None = None, device: str = "cuda",
+                     timeout_s: float = 600.0):
+    """LLM-free autotune of ONE large [H, W] slice on ``n_space`` ranks (row
+    blocks, or ``(sy, sx)`` tiles): the issue-aware candidate grid swept as
+    sequential sharded plan calls, all in one launch (counterpart of
+    ``mdx/parallel/plan_sp.py:312``; ``tv_mode`` as ``core.tuning.autotune``
+    takes it).  Returns (the best EnhancementPlan, its enhanced [H, W],
+    the IterationRecords), the contract of ``core.tuning.autotune``."""
+    x = np.asarray(image, np.float32)[None]
+    check_plan_shape(x.shape, n_space, PlanStatic(ops=tuple(ops),
+                                                  tile_size=tile_size))
+    res = launch.run(autotune_spatial_block, x, list(issues),
+                     n_space=n_space, device=device, timeout_s=timeout_s,
+                     ops=tuple(ops), tile_size=int(tile_size),
+                     tv_mode=tv_mode)
+    out = launch.assemble(res.results, 1, n_space)
+    plan, records = sweep_records(out, issues, ops, tile_size)
+    return plan, out["enhanced"][0], records

@@ -566,35 +566,42 @@ def qa_block(xb: torch.Tensor, *, mesh, use_noise_guard: bool = False,
             "noise_amp_guard": noise_amp}
 
 
-def qa_spatial(x: np.ndarray, n_space, *, gamma: float = 0.95,
-               unsharp_radius: float = 0.8, unsharp_amount: float = 0.5,
-               bilateral_d: int = 5, bilateral_sigma_color: float = 0.05,
-               bilateral_sigma_space: float = 0.05,
-               clahe_clip_limit: float | None = None,
-               clahe_tile_size: int = 16, tv_weight: float | None = None,
-               denoise: bool = False,
-               post_denoise_strength: float | None = None,
-               noise_guard: bool = False, n_data: int = 1,
-               device: str = "cuda",
-               timeout_s: float = 600.0) -> dict:
-    """Full sharded QA of [N, H, W] numpy on ``n_data × n_space`` ranks
-    (``n_space``: row blocks, or ``(sy, sx)`` tiles): detect → the chain (optional ops join when their parameter is given) →
-    [noise guard] → before/after metrics, SSIM, PSNR, pass rule.  Returns
-    JAX's fields as numpy (``stats_before``, ``stats_after``, ``issues``,
-    ``enhanced``, ``ssim``, ``psnr``, ``quality_improvement``, ``passes``,
-    ``noise_amp_guard``) plus ``"launch"``."""
-    kw = enhance_kwargs(
+def qa_block_kwargs(*, gamma: float = 0.95, unsharp_radius: float = 0.8,
+                    unsharp_amount: float = 0.5, bilateral_d: int = 5,
+                    bilateral_sigma_color: float = 0.05,
+                    bilateral_sigma_space: float = 0.05,
+                    clahe_clip_limit: float | None = None,
+                    clahe_tile_size: int = 16,
+                    tv_weight: float | None = None, denoise: bool = False,
+                    post_denoise_strength: float | None = None,
+                    noise_guard: bool = False) -> dict:
+    """JAX's ``qa_spatial`` keywords (and defaults) → :func:`qa_block`'s
+    (an optional op joins when its parameter is given)."""
+    return dict(enhance_kwargs(
         gamma=gamma, unsharp_radius=unsharp_radius,
         unsharp_amount=unsharp_amount, bilateral_d=bilateral_d,
         bilateral_sigma_color=bilateral_sigma_color,
         bilateral_sigma_space=bilateral_sigma_space,
         clahe_clip_limit=clahe_clip_limit, clahe_tile_size=clahe_tile_size,
         tv_weight=tv_weight, denoise=denoise,
-        post_denoise_strength=post_denoise_strength)
-    check_grid(x.shape, n_space, kw["clahe_tile"])
+        post_denoise_strength=post_denoise_strength),
+        use_noise_guard=bool(noise_guard))
+
+
+def qa_spatial(x: np.ndarray, n_space, *, n_data: int = 1,
+               device: str = "cuda", timeout_s: float = 600.0,
+               **kw) -> dict:
+    """Full sharded QA of [N, H, W] numpy on ``n_data × n_space`` ranks
+    (``n_space``: row blocks, or ``(sy, sx)`` tiles): detect → the chain
+    (``kw``: JAX's keywords, :func:`qa_block_kwargs`) → [noise guard] →
+    before/after metrics, SSIM, PSNR, pass rule.  Returns JAX's fields as
+    numpy (``stats_before``, ``stats_after``, ``issues``, ``enhanced``,
+    ``ssim``, ``psnr``, ``quality_improvement``, ``passes``,
+    ``noise_amp_guard``) plus ``"launch"``."""
+    block_kw = qa_block_kwargs(**kw)
+    check_grid(x.shape, n_space, block_kw["clahe_tile"])
     res = launch.run(qa_block, x, n_space=n_space, n_data=n_data,
-                     device=device, timeout_s=timeout_s,
-                     use_noise_guard=bool(noise_guard), **kw)
+                     device=device, timeout_s=timeout_s, **block_kw)
     out = launch.assemble(res.results, n_data, n_space)
     out["issues"] = detect_issues(out["stats_before"])
     out["launch"] = res.info()

@@ -1,5 +1,6 @@
 """The port's pipeline layer: one file (``runner``), a series or a directory
-(``batch_runner``), the DB (``storage``), the run trace (``trace``,
+(``batch_runner``), one large slice sharded over ranks
+(``spatial_runner``), the DB (``storage``), the run trace (``trace``,
 ``profiler``) and the deterministic agents (``agents``).
 
 Counterpart of ``mdx.pipeline`` without the GenAI chat and the JAX compile

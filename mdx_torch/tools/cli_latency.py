@@ -2,6 +2,7 @@
 
     python -m mdx_torch.tools.cli_latency [--size 512] [--reps 5] [--procs 3]
                                           [--frames 64] [--device cuda]
+    python -m mdx_torch.tools.cli_latency --spatial [--size 2048] [--reps 2]
 
 Run from the root of a checkout (a parent checkout too: it calls only
 ``python -m mdx_torch``, ``run_pipeline`` and ``run_pipeline_batch``).
@@ -24,11 +25,22 @@ The slice is ``write_synthetic_dicom(kind="noisy")`` at ``--size`` (a
 16-bit CT-like slice with noise: the denoise, box stats and validation
 path).  Prints one JSON object with the card's ``name, power.limit``.
 ``--device cpu`` runs a tiny check on the CPU; its times are CPU times.
+
+``--spatial`` times ``python -m mdx_torch --input x.dcm --spatial``
+(``main``, in process) instead: ``--reps`` runs each, deterministic and
+``--autotune``, of a ``--size``² ``low_contrast`` slice (it clips at both
+ends once normalised: denoise and CLAHE), each run one launch of ranks over
+the visible cards, split by the runner's phases (decode, normalize, launch
+— the launch until its results are on the host, rank start-up included —,
+compute — rank 0's device work —, report, db) and rank 0's stages
+(detect, the chain or the sweep and its final call, ms per candidate).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -138,6 +150,49 @@ def traced_batch(path: str, out_dir: str, device, trace: Path, **kw
             "overlapped_copies": overlapped}
 
 
+@contextlib.contextmanager
+def spatial_contexts():
+    """The contexts of the ``run_pipeline_spatial`` calls made meanwhile
+    (``main`` returns only its exit code), in a list."""
+    from mdx_torch.pipeline import spatial_runner as SR
+
+    real, kept = SR.run_pipeline_spatial, []
+
+    def keep(*args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return kept[-1]
+
+    SR.run_pipeline_spatial = keep
+    try:
+        yield kept
+    finally:
+        SR.run_pipeline_spatial = real
+
+
+def spatial_cli(path: str, out_dir: str, device, *flags: str) -> dict:
+    """One ``main(["--input", path, "--output", out_dir, "--spatial",
+    *flags], device=device)``: its exit code, printed text, wall ms, and
+    the run's context (None if it failed before one)."""
+    from mdx_torch.__main__ import main
+
+    buf = io.StringIO()
+    with spatial_contexts() as kept, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = main(["--input", path, "--output", out_dir, "--spatial",
+                   *flags], device=device)
+        wall = (time.perf_counter() - t0) * 1e3
+    return {"rc": rc, "text": buf.getvalue(), "wall_ms": wall,
+            "ctx": kept[0] if kept else None}
+
+
+def spatial_times(run: dict) -> dict:
+    """A :func:`spatial_cli` run's times: wall, phases, rank 0's stages,
+    the launch."""
+    ctx = run["ctx"]
+    return {"wall_ms": run["wall_ms"], "phases_ms": ctx["phase_ms"],
+            "rank_ms": ctx["rank_ms"], "launch": ctx["launch"]}
+
+
 def series_file(path: str, frames: int, size: int, seed: int = 3,
                 **kw) -> str:
     """A ``frames`` x ``size``^2 12-bit series, slope 1, intercept -1024."""
@@ -154,6 +209,8 @@ def main(argv=None) -> int:
     ap.add_argument("--procs", type=int, default=3)
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spatial", action="store_true",
+                    help="time the --spatial runs (module doc)")
     args = ap.parse_args(argv)
 
     import torch
@@ -170,6 +227,8 @@ def main(argv=None) -> int:
         card, name = card_line(), torch.cuda.get_device_name(0)
     else:
         card, name = "cpu", "cpu"
+    if args.spatial:
+        return _spatial_main(args, name, card)
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["MDX_DB_PATH"] = os.path.join(tmp, "runs.db")
         path = write_synthetic_dicom(os.path.join(tmp, "slice.dcm"),
@@ -188,6 +247,31 @@ def main(argv=None) -> int:
         "process_ms": {"median": statistics.median(procs) if procs else None,
                        "runs": procs},
         "warm": warm, "series_raw": raw, "series_autotune": tuned}))
+    return 0
+
+
+
+def _spatial_main(args, name: str, card: str) -> int:
+    from mdx_torch.io import write_synthetic_dicom
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MDX_DB_PATH"] = os.path.join(tmp, "runs.db")
+        path = write_synthetic_dicom(os.path.join(tmp, "slice.dcm"),
+                                     kind="low_contrast", size=args.size)
+        out = os.path.join(tmp, "out")
+        for label, flags in (("deterministic", ()),
+                             ("autotune", ("--autotune",))):
+            runs[label] = []
+            for _ in range(args.reps):
+                r = spatial_cli(path, out, args.device, *flags)
+                if r["rc"] != 0:
+                    raise RuntimeError(f"--spatial {label}: rc {r['rc']}: "
+                                       f"{r['text'][-500:]}")
+                runs[label].append(spatial_times(r))
+    print(json.dumps({
+        "tool": "cli_latency --spatial", "device": name, "card": card,
+        "size": args.size, "runs": runs}))
     return 0
 
 

@@ -79,7 +79,8 @@ def compare_call(name: str, args) -> tuple[float, bool]:
     want = plain_of(name)(*pa)
     if name == "tv_shard_step":
         got, want = (ka[2], got), (pa[2], want)
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return parity.kernel_parity(ROW_OF.get(name, name), got, want)
 
 
@@ -105,6 +106,37 @@ def recording(calls: list, enabled: bool):
     finally:
         for k, fn in originals.items():
             setattr(kernels, k, fn)
+
+
+def replay(calls: list) -> dict:
+    """Recorded calls → {wrapper: [calls, max|d| against the plain
+    version, all within tolerance]}, one entry per wrapper of
+    ``RECORDED``."""
+    out = {k: [0, 0.0, True] for k in RECORDED}
+    for name, args in calls:
+        err, ok = compare_call(name, args)
+        r = out[name]
+        r[0], r[1], r[2] = r[0] + 1, max(r[1], err), r[2] and ok
+    return out
+
+
+def recorded_rank(*blocks, inner, mesh, **kwargs) -> dict:
+    """A rank function around the rank function ``inner`` (a dict-valued
+    rank body): this rank's launch counters reset first and read after
+    ``inner``, and on rank 0 every call of the ``RECORDED`` wrappers
+    recorded and, once ``inner`` returned, replayed against its plain
+    version.  The result is ``inner``'s with ``"smoke"``: {"launches":
+    {kernel: n}, "replay": :func:`replay`'s}.  ``chip_smoke.py`` wraps a
+    user entry point's launch in it."""
+    from mdx_torch import kernels
+
+    calls: list = []
+    kernels.reset_launches()
+    with recording(calls, enabled=mesh.rank == 0):
+        out = inner(*blocks, mesh=mesh, **kwargs)
+    launches = dict(kernels.LAUNCHES)
+    out["smoke"] = {"launches": launches, "replay": replay(calls)}
+    return out
 
 
 def _traced_call(fn, device) -> dict:
@@ -176,13 +208,8 @@ def rank_check(x, static, dyn, *, mesh, reps: int = 5,
                qa_psnr=qa["psnr"])
     stage("qa_spatial")
 
-    replay = {k: [0, 0.0, True] for k in RECORDED}
-    for name, args in calls:
-        err, ok = compare_call(name, args)
-        r = replay[name]
-        r[0], r[1], r[2] = r[0] + 1, max(r[1], err), r[2] and ok
+    out["replay"] = replay(calls)
     del calls
-    out["replay"] = replay
     stage("replay")
 
     # the whole solve, kernels (on the card) against plain, on the clipped

@@ -5,12 +5,13 @@
   with its numbers masked (the sweep's rationale mapped as in
   ``test_torch_pipeline.py``), and the numbers of the DB rows the two runs
   wrote within ``mdx_torch.parity``;
-* the flags the port refuses (``--spatial``, ``--genai``, ``--plan-only``),
-  a JPEG-family input and a missing file exit 1 with main.py's prefixes;
+* the flags the port refuses (``--genai``, ``--plan-only``), a
+  JPEG-family input and a missing file exit 1 with main.py's prefixes
+  (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
 * ``.env`` loading and ``--tv-mode`` / ``MDX_TV_MODE``, read once and passed
   on as ``tv_mode``;
 * with JAX, jaxlib, pydantic and matplotlib blocked, a CLI run end to end
-  (single file, autotune, batch) in a fresh process;
+  (single file, autotune, batch, spatial) in a fresh process;
 * without a card, the default ``device="cuda"`` raises before the file is
   read, in-process and as ``python -m mdx_torch``;
 * nothing in the port imports mdx, JAX, bench, pydantic or matplotlib.
@@ -95,8 +96,7 @@ def test_output_and_exit_code_match_main_py(tmp_path, db, capsys, flags):
 
 def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
     path = write_synthetic_dicom(str(tmp_path / "x.dcm"), size=32)
-    for flag, words in (("--spatial", "Queue 1 item 2"),
-                        ("--genai", "GenAI mode is not part of mdx_torch"),
+    for flag, words in (("--genai", "GenAI mode is not part of mdx_torch"),
                         ("--plan-only", "GenAI mode is not part of mdx_torch")):
         assert cli.main(["--input", path, flag], device="cpu") == 1
         out = capsys.readouterr().out
@@ -182,7 +182,8 @@ def test_cli_runs_with_jax_pydantic_matplotlib_blocked(tmp_path):
                      ["--input", "series/s.dcm", "--output", "out",
                       "--batch"],
                      ["--input", "series/s.dcm", "--output", "out",
-                      "--batch", "--resume"]):
+                      "--batch", "--resume"],
+                     ["--input", "x.dcm", "--output", "out", "--spatial"]):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 assert main(argv, device="cpu") == 0, argv
@@ -192,8 +193,9 @@ def test_cli_runs_with_jax_pydantic_matplotlib_blocked(tmp_path):
         assert "GenAI Plan (JSON)" in outs[1]
         assert outs[2].count("| s.dcm |") == 3
         assert "Frames processed: **0**" in outs[3]
+        assert outs[4].startswith("# mdx spatial QA report")
         runs = storage.list_runs()
-        assert len(runs) == 2 + 3, runs
+        assert len(runs) == 2 + 3 + 1, runs
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx", "bench")]
@@ -210,9 +212,10 @@ def test_default_device_raises_without_a_card(tmp_path, db):
         pytest.skip("this machine has a CUDA card")
     from mdx_torch.pipeline.batch_runner import run_pipeline_batch
     from mdx_torch.pipeline.runner import run_pipeline
+    from mdx_torch.pipeline.spatial_runner import run_pipeline_spatial
 
     missing = str(tmp_path / "never_read.dcm")
-    for fn in (run_pipeline, run_pipeline_batch):
+    for fn in (run_pipeline, run_pipeline_batch, run_pipeline_spatial):
         with pytest.raises(RuntimeError, match="device 'cuda'.*"
                                                "torch.cuda.is_available"):
             fn(missing, str(tmp_path / "o"))

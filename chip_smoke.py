@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths, capability probe, CLI and spatial runner on one NVIDIA GPU.
+paths, capability probe, CLI, spatial runner and data axis on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -168,6 +169,29 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    to the k = 1 run's and its frame within ``parity.breaches``.  Kernel 11
    and the LUT stage launched on every rank of each run that applied
    CLAHE, and rank 0's calls within ``KERNEL_TOL``.
+14. data   — the data axis (``mdx_torch.parallel.batch`` and ``stream``,
+   BASELINE config 3 across ranks; on the one card d = 2 is two gloo
+   ranks sharing it: contention, not scaling), ``MDX_DB_PATH`` in a
+   temporary directory:
+   1. ``make_batch(63)`` at 512^2, padded to 64: ``qa_deterministic_sharded``,
+      ``qa_plan_sharded`` (the bench plan) and ``detect_sharded`` at
+      n_data = 1 (in this process, no launch), and their rank bodies at
+      n_data = 2 in ONE launch (``tools/data_check.py``: ``launch.call_each``
+      inside ``spatial_check.recorded_rank``): B, U, C, 10, T and 5
+      launched on every rank, rank 0's calls of each replayed against the
+      plain versions within ``KERNEL_TOL`` (T: equal iteration counts),
+      outputs finite, n_data = 2 against n_data = 1 within
+      ``parity.breaches`` (bit-equality printed);
+   2. ``run_pipeline_batch`` on phase 12's 64-frame 512^2 12-bit series at
+      n_data = 2 (one launch, recorded as in 1.; B and 10 on every rank)
+      against n_data = 1: issues and pass flags equal, metrics within
+      ``parity.breaches``, ``"mesh"`` ``{"data": 2, "space": 1}``;
+   3. ``stream_batches`` over 64 single-frame 512^2 files written with the
+      port's writer, batches of 16, into ``qa_deterministic``: equal to
+      decoding all first; frames/s of both, and the uploads on the copy
+      stream that overlapped a kernel in one traced run;
+   4. times: img/s of the three bodies at n_data = 1 and 2 (the slowest
+      rank's median call), the launch walls and each rank's compute.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -176,8 +200,8 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-13, summed over the ranks in phases 9, 10
-and 13);
+launches per path of phases 5-14, summed over the ranks in phases 9, 10,
+13 and 14);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -1763,33 +1787,6 @@ SPATIAL_CLI_ATOL, SPATIAL_CLI_SCORE_ATOL = 1e-4, 2e-3
 SPATIAL_CLI_OPS = ("denoise", "clahe", "gamma", "unsharp", "post_denoise")
 
 
-@contextlib.contextmanager
-def _recorded_launches():
-    """Every ``launch.run`` made meanwhile runs its rank function inside
-    ``spatial_check.recorded_rank`` (each rank's counters reset, rank 0's
-    calls of kernels 11 and C's LUT stage recorded and replayed); yields
-    the list of (Launched, per-rank ``smoke`` dicts), the ``smoke`` keys
-    taken out of the results so that the caller assembles them as usual."""
-    import functools
-
-    from mdx_torch.parallel import launch
-    from mdx_torch.tools import spatial_check as SC
-
-    real, launched = launch.run, []
-
-    def run(fn, *args, **kwargs):
-        res = real(functools.partial(SC.recorded_rank, inner=fn), *args,
-                   **kwargs)
-        launched.append((res, [r.pop("smoke") for r in res.results]))
-        return res
-
-    launch.run = run
-    try:
-        yield launched
-    finally:
-        launch.run = real
-
-
 def _spatial_cli_run(kernels, parity, check, paths: dict, label: str, fn):
     """One ``--spatial`` run through ``fn`` (→ its context) with its launch
     recorded: exactly one launch; kernel 11 and C's LUT stage launched on
@@ -1996,6 +1993,218 @@ def _spatial_cli_checks(torch, kernels, parity, check, paths, card, dev,
              and ctx["validation"]["passes"] == one["validation"]["passes"]
              and not bad, f"{label} and k = 1 differ")
     check.require_ok()
+
+
+# phase 14: the data axis (BASELINE config 3 across ranks); on one card the
+# d = 2 ranks share it over gloo: contention, not scaling
+DATA_N, DATA_D, DATA_REPS = 63, 2, 3
+STREAM_N, STREAM_BATCH = 64, 16
+CONTENTION = "two gloo ranks on one card: contention, not scaling"
+
+
+@contextlib.contextmanager
+def _recorded_launches(recorded=None):
+    """Every ``launch.run`` made meanwhile runs its rank function inside
+    ``spatial_check.recorded_rank`` (each rank's counters reset, rank 0's
+    calls of the wrappers ``recorded`` — default kernels 11 and C's LUT
+    stage — recorded and replayed); yields the list of (Launched, per-rank
+    ``smoke`` dicts), the ``smoke`` keys taken out of the results so that
+    the caller assembles them as usual."""
+    import functools
+
+    from mdx_torch.parallel import launch
+    from mdx_torch.tools import spatial_check as SC
+
+    real, launched = launch.run, []
+    wrap = functools.partial(SC.recorded_rank,
+                             recorded=recorded or SC.RECORDED)
+
+    def run(fn, *args, **kwargs):
+        res = real(functools.partial(wrap, inner=fn), *args, **kwargs)
+        launched.append((res, [r.pop("smoke") for r in res.results]))
+        return res
+
+    launch.run = run
+    try:
+        yield launched
+    finally:
+        launch.run = real
+
+
+def _data_ranks(kernels, check, paths: dict, label: str, smoke: list,
+                need) -> None:
+    """A data-axis launch's per-rank counters and rank 0's replay of the
+    dense kernels: each of ``need`` launched on every rank, every replayed
+    call within ``KERNEL_TOL`` (T: equal iteration counts); the launches
+    summed over the ranks under ``paths[label]``."""
+    per_rank = [sm["launches"] for sm in smoke]
+    print(f"launches in {label} ({len(smoke)} ranks), per rank: {per_rank}")
+    paths[label] = {k: sum(int(lr[k]) for lr in per_rank)
+                    for k in kernels.LAUNCHES}
+    for k in need:
+        _require(all(int(lr[k]) > 0 for lr in per_rank),
+                 f"{k} not launched on every rank of {label}")
+    for name, (n_calls, err, ok) in smoke[0]["replay"].items():
+        print(f"replayed rank 0 {label} {name}: {int(n_calls)} calls, "
+              f"max|d| {float(err)!r} (tol {parity_tol(name)})")
+        check.errs[name] = max(check.errs[name], float(err))
+        if not ok or (name in need and not int(n_calls)):
+            check.failed.append(f"{label} {name} replay: max|d| "
+                                f"{float(err)!r}, {int(n_calls)} calls")
+    check.require_ok()
+
+
+def _phase_data(torch, kernels, parity, check, paths: dict, card: str,
+                dev) -> None:
+    """Phase 14: the data axis (module doc), its files and DB in a
+    temporary directory."""
+    import os
+    import tempfile
+
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
+        _data_sharded(torch, kernels, parity, check, paths, card, dev)
+        _data_runner(kernels, parity, check, paths, card, dev, tmp)
+        _data_stream(torch, card, dev, tmp)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+
+def _data_sharded(torch, kernels, parity, check, paths, card, dev) -> None:
+    """14.1: the three sharded entry points at d = 1 in this process and
+    their rank bodies at d = 2 in one launch; 14.4's times of both."""
+    import statistics
+
+    import numpy as np
+
+    from mdx_torch.parallel import batch as PB
+    from mdx_torch.tools import data_check as DC
+    from mdx_torch.tools import make_batch
+
+    x = make_batch(DATA_N)
+    xp, n_valid = PB.pad_batch(x, DATA_D)
+    n = len(xp)
+    _require(n == 64 and n_valid == DATA_N,
+             f"pad_batch({DATA_N} images, {DATA_D}): {n}, {n_valid}")
+    static, dyn = _bench_plan(dev)
+    det, valid_d = PB.qa_deterministic_sharded(x, 1, dev)
+    plan, valid_p = PB.qa_plan_sharded(x, static, dyn, 1, dev)
+    *detect, valid_t = PB.detect_sharded(x, 1, dev)
+    _require(valid_d == valid_p == valid_t == n_valid and not PB.LAST_LAUNCH,
+             f"the sharded steps at n_data = 1: valid {valid_d}, {valid_p}, "
+             f"{valid_t}, launch {PB.LAST_LAUNCH}")
+    one = {"qa_deterministic": dict(zip(PB.DETERMINISTIC_FIELDS, det)),
+           "qa_plan": dict(zip(PB.PLAN_FIELDS, plan)),
+           "detect": dict(zip(PB.DETECT_FIELDS, detect))}
+    label = f"[{n},512,512] n_data = {DATA_D}"
+    many = DC.launch_check(xp, *_bench_plan("cpu"), DATA_D, DATA_REPS)
+    _data_ranks(kernels, check, paths, "data_sharded", many["smoke"],
+                DENSE_KERNELS)
+    for name, how in DC.agreement(one, many["outs"], n_valid,
+                                       512 * 512).items():
+        flat = parity.flatten(many["outs"][name])
+        for k, v in flat.items():
+            _require(k == "rank_ms" or v.shape[0] == n and (
+                v.dtype == bool or k.endswith("psnr")
+                or bool(np.isfinite(v).all())),
+                f"{name} {label}: {k} shape {v.shape} or non-finite")
+        print(f"{name} {label} vs n_data = 1: bit-equal {how['equal']}, "
+              f"max|d| {how['max_abs']!r}, breaches {len(how['breaches'])}"
+              f"; finite")
+        for line in how["breaches"]:
+            print("  " + line)
+        _require(not how["breaches"],
+                 f"{name}: n_data = {DATA_D} and n_data = 1 differ")
+
+    # 14.4 times: the bodies at d = 1 in this process, at d = 2 in the
+    # ranks (their median calls), the launch wall and each rank's compute
+    local = DC.local_check(xp, static, dyn, DATA_REPS, dev)
+    for name in DC.BODIES:
+        ranks = [statistics.median(m[name]) for m in many["ms"]]
+        print(f"data axis {name} [{n},512,512] on {card}: n_data = 1 "
+              f"{DC.img_per_s(n, [local['ms'][name]])!r} img/s (ms "
+              f"{local['ms'][name]}); n_data = {DATA_D} ({CONTENTION}) "
+              f"{DC.img_per_s(n, [m[name] for m in many['ms']])!r} img/s, "
+              f"rank medians {ranks} ms")
+    rank_ms = {name: many["outs"][name]["rank_ms"].tolist()
+               for name in DC.BODIES}
+    print(f"data axis launch on {card} ({CONTENTION}): wall "
+          f"{many['wall_ms']!r} ms, {many['info']}; each rank's first "
+          f"(recorded) call, ms: {rank_ms}")
+
+
+def _data_runner(kernels, parity, check, paths, card, dev, tmp) -> None:
+    """14.2: ``run_pipeline_batch`` on the 64-frame 512^2 12-bit series at
+    n_data = 2 (one launch) against n_data = 1."""
+    from mdx_torch.pipeline import batch_runner as PB
+    from mdx_torch.tools import cli_latency as CL
+    from mdx_torch.tools import spatial_check as SC
+
+    series = CL.series_file(f"{tmp}/series.dcm", CLI_SERIES_N, CLI_SIZE)
+    one = PB.run_pipeline_batch(series, f"{tmp}/o1", device=dev, n_data=1)
+    t0 = time.perf_counter()
+    with _recorded_launches(SC.DENSE_RECORDED) as launched:
+        two = PB.run_pipeline_batch(series, f"{tmp}/o2", device=dev,
+                                    n_data=DATA_D)
+    wall = (time.perf_counter() - t0) * 1e3
+    label = f"run_pipeline_batch series [{CLI_SERIES_N},{CLI_SIZE}," \
+            f"{CLI_SIZE}] n_data = {DATA_D}"
+    _require(len(launched) == 1, f"{label}: {len(launched)} launches")
+    _require(one["mesh"] == {"data": 1, "space": 1} and one["launch"] is None
+             and two["mesh"] == {"data": DATA_D, "space": 1},
+             f"{label}: mesh {one['mesh']} / {two['mesh']}")
+    _data_ranks(kernels, check, paths, "data_runner", launched[0][1],
+                ("box_stats", "wavelet_denoise"))
+    a, b = one["frames"], two["frames"]
+    same = [(f["source"], f["frame"], f["issues"], f["passed"]) for f in a]
+    bad = parity.breaches(parity.flatten_batch(b), parity.flatten_batch(a),
+                          hw=CLI_SIZE * CLI_SIZE)
+    strip = [{k: v for k, v in f.items() if k != "run_id"} for f in a]
+    equal = strip == [{k: v for k, v in f.items() if k != "run_id"}
+                      for f in b]
+    print(f"{label} vs n_data = 1: {len(b)} / {len(a)} frames, records "
+          f"equal {equal}, breaches {len(bad)}, mesh {two['mesh']}")
+    for line in bad:
+        print("  " + line)
+    _require(len(a) == CLI_SERIES_N and same == [
+        (f["source"], f["frame"], f["issues"], f["passed"]) for f in b]
+        and not bad, f"{label} and n_data = 1 differ")
+    print(f"{label} on {card} ({CONTENTION}): wall {wall!r} ms, "
+          f"{CLI_SERIES_N / wall * 1e3!r} frames/s; launch "
+          f"{two['launch']}")
+
+
+def _data_stream(torch, card, dev, tmp) -> None:
+    """14.3: ``stream_batches`` over 64 single-frame 512^2 files into
+    ``qa_deterministic`` against decoding all first; frames/s of both and
+    the uploads that overlapped a kernel in one traced run."""
+    import numpy as np
+
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.tools import data_check as DC
+    from mdx_torch.tools.cli_latency import ROOT
+
+    paths = [write_synthetic_dicom(f"{tmp}/frame{i:02d}.dcm",
+                                   kind=CLI_KINDS[i % 3], size=CLI_SIZE,
+                                   seed=60 + i) for i in range(STREAM_N)]
+    DC.stream_qa(paths, STREAM_BATCH, dev)  # warm-up
+    streamed, ms_s = DC.stream_qa(paths, STREAM_BATCH, dev)
+    whole, ms_w = DC.decode_all_qa(paths, STREAM_BATCH, dev)
+    equal = [s for s, _ in streamed] == [s for s, _ in whole] and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k],
+                                                    equal_nan=True)
+                                     for k in a)
+        for (_, a), (_, b) in zip(streamed, whole))
+    label = f"stream_batches {STREAM_N} files {CLI_SIZE}^2, batches of " \
+            f"{STREAM_BATCH}, into qa_deterministic"
+    print(f"{label}: equal to decoding all first {equal}")
+    _require(equal, f"{label} and decode-all-then-QA differ")
+    t = DC.traced_stream(paths, STREAM_BATCH, dev,
+                         ROOT / "build" / "chip_smoke_stream.json")
+    print(f"{label} on {card}: {STREAM_N / ms_s * 1e3!r} frames/s "
+          f"({ms_s!r} ms); decode all, then QA: {STREAM_N / ms_w * 1e3!r} "
+          f"frames/s ({ms_w!r} ms); traced: {t}")
 
 
 def main() -> int:
@@ -2218,6 +2427,8 @@ def main() -> int:
     _phase_cli(torch, kernels, parity, check, paths, card, dev)
     # ---- 13. --spatial: one large slice sharded over the ranks ----------
     _phase_spatial_cli(torch, kernels, parity, check, paths, card, dev)
+    # ---- 14. the data axis: sharded entry points, runner, stream --------
+    _phase_data(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []

@@ -4,7 +4,9 @@ The flags, output and exit codes of the JAX package's ``main.py``: the
 report on standard output and 0; ``ERROR: <reason>`` and 1 for what the
 port refuses (no card, a flag or codec it does not have yet); ``Error:
 <reason>`` and 1 for any other failure.  ``--batch`` runs a series or a
-directory, ``--resume`` skips finished frames, ``--autotune`` sweeps the
+directory on a data axis of every visible card (as JAX's ``make_mesh()``;
+one launch of ranks when there are several, in process on one),
+``--resume`` skips finished frames, ``--autotune`` sweeps the
 candidate grid, ``--window`` applies each file's stored VOI window.  The
 run is on the card; ``main(argv, device="cpu")`` runs it on the CPU (the
 tests do), and no flag selects the device.
@@ -77,7 +79,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Enable verbose / debug logging")
     parser.add_argument("--batch", action="store_true",
                         help="QA every frame of a series / every DICOM in "
-                             "a directory")
+                             "a directory, split over the visible cards")
     parser.add_argument("--resume", action="store_true",
                         help="With --batch, skip frames that already have a "
                              "completed run")

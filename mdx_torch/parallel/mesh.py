@@ -42,6 +42,25 @@ def choose_backend(device_type: str, world: int, n_cards: int,
     return backend
 
 
+def data_axis(n_data: int | None, device) -> int:
+    """The size of the ``data`` axis: ``n_data``, or with None every
+    visible card on the card and 1 on the CPU (the counterpart of
+    ``make_mesh()``'s default, ``mdx/parallel/mesh.py:35-36``)."""
+    if n_data is None:
+        n_data = (torch.cuda.device_count()
+                  if torch.device(device).type == "cuda" else 1)
+    if n_data < 1:
+        raise ValueError(f"the data axis needs at least one rank, got "
+                         f"{n_data} (device {device!r})")
+    return int(n_data)
+
+
+def divisible_batch(n: int, n_data: int) -> int:
+    """Smallest multiple of ``n_data`` ≥ n: the padding target of a batch
+    on the data axis (``mdx/parallel/mesh.py:86``)."""
+    return -(-n // n_data) * n_data
+
+
 def grid(n_space) -> tuple[int, int]:
     """``n_space`` as an int (row blocks) or a pair ``(sy, sx)`` → (sy, sx)."""
     if isinstance(n_space, (tuple, list)):

@@ -1,12 +1,13 @@
 """Batch / series runner: QA every frame of a series or directory on the
-card.
+card, or on every visible card.
 
-Counterpart of ``mdx/pipeline/batch_runner.py`` on one card (``"mesh":
-{"data": 1}``; the data-parallel ranks are ROADMAP Queue 1 item 3):
+Counterpart of ``mdx/pipeline/batch_runner.py``:
 
 * a multi-frame DICOM becomes an ``[F, H, W]`` stack, a directory of DICOMs
   (decoded on 8 host threads) one frame per file;
-* frames are bucketed by shape (and stored dtype) and run in chunks of 64;
+* frames are bucketed by shape (and stored dtype) and run in chunks of
+  ``ceil(64 / d)·d`` frames on a data axis of ``d`` ranks (JAX's
+  ``chunk_n``);
 * the deterministic path uploads the stored integers from pinned memory
   and normalises them on the card (``normalize_ingest``) before
   ``qa_deterministic``; the autotune path sweeps the candidate grid per
@@ -17,12 +18,25 @@ Counterpart of ``mdx/pipeline/batch_runner.py`` on one card (``"mesh":
   copy and row writing overlap chunk t+1's upload and launches;
 * each frame gets a DB row keyed ``label#frameN``, so ``resume=True``
   skips the frames a crashed batch (of either package) already finished.
+
+With ``d > 1`` (``n_data``; by default every visible card, as JAX's
+``make_mesh()``) the deterministic paths run in ONE ``launch.run`` of ``d``
+ranks for the whole run, whatever the number of chunks and buckets: each
+chunk is padded to a multiple of ``d`` (its last frame and that frame's
+ingest scalars replicated), each rank receives its block of every chunk of
+every bucket (a bucket's frames and its ``[N, 9, 1]`` ingest scalars are
+inputs of the launch) and runs the chunk loop above on it
+(:func:`batch_block`); the parent writes the records, the report and the DB
+rows.  The ranks exchange nothing: every op is per image.  With ``d = 1``
+everything runs in this process.  ``autotune=True`` runs on one card at
+every ``d``, as JAX's unsharded ``_autotune_chunk`` does.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any
 
 import numpy as np
@@ -31,6 +45,8 @@ import torch
 from mdx_torch.core.metrics import ISSUE_ORDER, METRIC_KEYS
 from mdx_torch.io import load_dicom, load_series, normalize_image
 from mdx_torch.io.dicom import load_frames_raw
+from mdx_torch.parallel import launch
+from mdx_torch.parallel.mesh import data_axis, divisible_batch
 from mdx_torch.pipeline import storage
 from mdx_torch.pipeline.runner import resolve_device
 
@@ -230,14 +246,20 @@ def _autotune_chunk(x: np.ndarray, dev, tv_mode):
     return enhanced, stats, issue_masks, {}, validation, score
 
 
-def _raw_qa(raw: torch.Tensor, params: torch.Tensor, window: bool):
-    """Stored integer frames + their [9, N] ingest scalars →
-    ``normalize_ingest`` → ``qa_deterministic``."""
+def _device_qa(x: np.ndarray, params: np.ndarray | None, dev,
+               window: bool) -> torch.Tensor:
+    """One chunk's deterministic QA → its packed [28, n] results on the
+    device: stored integer frames and their [9, n] ingest scalars through
+    ``normalize_ingest``, or host-normalised float32 frames (``params``
+    None), uploaded, then ``qa_deterministic``."""
     from mdx_torch.core import qa
     from mdx_torch.ops.ingest import normalize_ingest
 
-    x = normalize_ingest(raw, *params, per_frame_minmax=not window)
-    return qa.qa_deterministic(x)
+    x = _upload(x, dev)
+    if params is not None:
+        x = normalize_ingest(x, *_upload(params, dev),
+                             per_frame_minmax=not window)
+    return _pack_outputs(qa.qa_deterministic(x))
 
 
 def _ingest_params(descs: list[dict], window: bool) -> np.ndarray:
@@ -302,6 +324,98 @@ class _Fetch:
         return self.host
 
 
+def _pipelined(items, submit, drain) -> None:
+    """``drain(submit(item))`` for every item, item t + 1 submitted before
+    item t is drained: the next chunk is staged and launched while the
+    last one's results come to the host (at most two in flight)."""
+    pending = None
+    for item in items:
+        entry = submit(item)
+        if pending is not None:
+            drain(pending)
+        pending = entry
+    if pending is not None:
+        drain(pending)
+
+
+def _chunks(n: int, chunk_n: int, d: int) -> list[tuple[int, int, int]]:
+    """(start, frames, lanes a rank) of each chunk of n frames: chunks of
+    ``chunk_n``, each padded to a multiple of ``d``."""
+    sizes = [(s, min(chunk_n, n - s)) for s in range(0, n, chunk_n)]
+    return [(s, m, divisible_batch(m, d) // d) for s, m in sizes]
+
+
+def batch_block(*blocks: torch.Tensor, mesh, buckets: list[dict],
+                window: bool) -> dict:
+    """Rank body of :func:`run_pipeline_batch` at d > 1: for each bucket
+    (``{"frames": input index, "params": input index or None, "lanes":
+    [lanes of each chunk]}``), this rank's lanes of each chunk of it
+    (``blocks`` are host tensors) through :func:`_device_qa`, chunk t + 1
+    uploaded and launched before chunk t's results are read → ``packed``
+    (one [28, lanes] array a bucket) and this rank's compute in ms."""
+    dev = mesh.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    packed = []
+    for b in buckets:
+        x = blocks[b["frames"]].numpy()
+        p = (None if b["params"] is None
+             else blocks[b["params"]].numpy()[:, :, 0])
+        starts = np.cumsum([0] + b["lanes"][:-1]).tolist()
+        parts: list[np.ndarray] = []
+        _pipelined(
+            zip(starts, b["lanes"]),
+            lambda c: _Fetch(_device_qa(
+                x[c[0]:c[0] + c[1]],
+                None if p is None else p[c[0]:c[0] + c[1]].T.copy(),
+                dev, window), side),
+            lambda f: parts.append(f.result().copy()))
+        packed.append(np.concatenate(parts, axis=1))
+    return {"packed": packed, "rank_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _run_sharded(buckets: list, d: int, chunk_n: int, dev, window: bool
+                 ) -> tuple[list, dict]:
+    """The deterministic QA of every chunk of every bucket on ``d`` ranks
+    in one launch (module doc) → ([(h, w, chunk's frames, packed [28, n]
+    numpy)] in the order of the one-card loop, the launch's info with its
+    wall and each rank's compute)."""
+    inputs: list[np.ndarray] = []
+    specs, plan = [], []
+    for h, w, frames in buckets:
+        chunks = _chunks(len(frames), chunk_n, d)
+        # rank r's block: lanes r·l … (r + 1)·l − 1 of each padded chunk,
+        # chunk after chunk; a lane past a chunk's last frame copies it
+        order = [s + min(r * lanes + j, n - 1)
+                 for r in range(d) for s, n, lanes in chunks
+                 for j in range(lanes)]
+        spec = {"frames": len(inputs), "params": None,
+                "lanes": [lanes for _, _, lanes in chunks]}
+        inputs.append(np.stack([frames[i][2] for i in order]))
+        if frames[0][4] is not None:
+            spec["params"] = len(inputs)
+            inputs.append(_ingest_params([frames[i][4] for i in order],
+                                         window).T[:, :, None].copy())
+        specs.append(spec)
+        plan.append((h, w, frames, chunks))
+    t0 = time.perf_counter()
+    launched = launch.run(batch_block, tuple(inputs), n_space=1, n_data=d,
+                          device=dev.type, host_blocks=True, buckets=specs,
+                          window=window)
+    info = dict(launched.info(), wall_ms=(time.perf_counter() - t0) * 1e3,
+                rank_ms=[r["rank_ms"] for r in launched.results])
+    out = []
+    for b, (h, w, frames, chunks) in enumerate(plan):
+        ranks = [r["packed"][b] for r in launched.results]
+        at = 0
+        for s, n, lanes in chunks:
+            whole = np.concatenate([p[:, at:at + lanes] for p in ranks],
+                                   axis=1)
+            out.append((h, w, frames[s:s + n], whole[:, :n]))
+            at += lanes
+    return out, info
+
+
 def run_pipeline_batch(
     input_path: str,
     output_dir: str = "outputs",
@@ -312,17 +426,24 @@ def run_pipeline_batch(
     autotune: bool = False,
     device="cuda",
     tv_mode: str | None = None,
+    n_data: int | None = None,
 ) -> dict[str, Any]:
-    """QA all frames of a series / directory on one device.
+    """QA all frames of a series / directory on a data axis of ``n_data``
+    ranks (None: every visible card on the card, 1 on the CPU; module
+    doc).
 
     ``window=True`` applies each sample's stored DICOM VOI window
     (BASELINE config 5) before QA instead of min-max normalisation alone.
     ``autotune=True`` sweeps the candidate grid per frame and applies each
-    frame's best plan (``tv_mode`` as in :func:`run_pipeline`).
-    ``resume=True`` skips frames whose ``label#frameN`` key already has a
-    completed run in the DB.  Returns a summary context with per-frame
-    records; ``device`` as in :func:`run_pipeline`."""
+    frame's best plan (``tv_mode`` as in :func:`run_pipeline`), on one card
+    whatever ``n_data`` is.  ``resume=True`` skips frames whose
+    ``label#frameN`` key already has a completed run in the DB.  Returns a
+    summary context with per-frame records, ``"mesh"`` (JAX's
+    ``dict(mesh.shape)``) and ``"launch"`` (the launch's info, its wall and
+    each rank's compute; None when the run made none); ``device`` as in
+    :func:`run_pipeline`."""
     dev = resolve_device(device)
+    d = data_axis(n_data, dev)
     storage.init_db()
 
     if autotune:
@@ -341,43 +462,46 @@ def run_pipeline_batch(
     done = _completed_frames() if resume else set()
     if save_artifacts:
         os.makedirs(output_dir, exist_ok=True)
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-
-    def submit(chunk):
-        if autotune:
-            x = np.stack([f[2] for f in chunk]).astype(np.float32)
-            out = _autotune_chunk(x, dev, tv_mode)
-        elif chunk[0][4] is not None:
-            raw = _upload(np.stack([f[2] for f in chunk]), dev)
-            params = _upload(_ingest_params([f[4] for f in chunk], window),
-                             dev)
-            out = _raw_qa(raw, params, window)
-        else:
-            from mdx_torch.core import qa
-
-            out = qa.qa_deterministic(
-                _upload(np.stack([f[2] for f in chunk]), dev))
-        return chunk, _Fetch(_pack_outputs(out), side)
+    chunk_n = divisible_batch(CHUNK, d)
 
     skipped = 0
-    results: list[dict[str, Any]] = []
+    todo = []
     for (h, w, _kind), frames in sorted(buckets.items()):
         if done:
             kept = [f for f in frames if f"{f[0]}#frame{f[1]}" not in done]
             skipped += len(frames) - len(kept)
             frames = kept
-        # chunk t+1 is staged and launched before chunk t's rows are
-        # written; at most two chunks' packed results are in flight
-        pending = None
-        for start in range(0, len(frames), CHUNK):
-            entry = submit(frames[start:start + CHUNK])
-            if pending is not None:
-                _collect(pending[0], pending[1].result(), h, w, results,
-                         save_artifacts)
-            pending = entry
-        if pending is not None:
-            _collect(pending[0], pending[1].result(), h, w, results,
-                     save_artifacts)
+        if frames:
+            todo.append((h, w, frames))
+
+    results: list[dict[str, Any]] = []
+    info = None
+    if d > 1 and not autotune and todo:
+        chunks, info = _run_sharded(todo, d, chunk_n, dev, window)
+        for h, w, frames, packed in chunks:
+            _collect(frames, packed, h, w, results, save_artifacts)
+    else:
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+        def submit(item):
+            h, w, chunk = item
+            x = np.stack([f[2] for f in chunk])
+            if autotune:
+                packed = _pack_outputs(_autotune_chunk(
+                    x.astype(np.float32), dev, tv_mode))
+            else:
+                params = (None if chunk[0][4] is None else
+                          _ingest_params([f[4] for f in chunk], window))
+                packed = _device_qa(x, params, dev, window)
+            return item, _Fetch(packed, side)
+
+        def drain(entry):
+            (h, w, chunk), fetch = entry
+            _collect(chunk, fetch.result(), h, w, results, save_artifacts)
+
+        _pipelined(((h, w, frames[s:s + chunk_n])
+                    for h, w, frames in todo
+                    for s in range(0, len(frames), chunk_n)), submit, drain)
 
     n_pass = sum(1 for r in results if r["passed"])
     summary_lines = [
@@ -404,5 +528,6 @@ def run_pipeline_batch(
         "frames": results,
         "skipped": skipped,
         "report_md": report_md,
-        "mesh": {"data": 1},
+        "mesh": {"data": d, "space": 1},
+        "launch": info,
     }

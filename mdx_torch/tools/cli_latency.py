@@ -124,6 +124,15 @@ def traced_batch(path: str, out_dir: str, device, trace: Path, **kw
         run_pipeline_batch(path, out_dir, device=device, **kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return trace_summary(prof, trace, wall_us)
+
+
+def trace_summary(prof, trace: Path, wall_us: float) -> dict:
+    """A finished ``torch.profiler`` run (written to ``trace``) → device
+    busy ms and idle share of ``wall_us``, kernels, the host-to-device
+    uploads and the device-to-host copies: how many ran on a stream other
+    than the kernels' and how many of those overlapped a kernel in time."""
+    trace = Path(trace)
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())
@@ -139,15 +148,23 @@ def traced_batch(path: str, out_dir: str, device, trace: Path, **kw
             busy += e - max(s, end)
             end = e
     main_streams = {st for _, _, st in kern}
-    d2h = [c for c in copies if "DtoH" in c[3]]
-    side = [c for c in d2h if c[2] not in main_streams]
-    overlapped = sum(any(ks < ce and cs < ke for ks, ke, _ in kern)
-                     for cs, ce, _, _ in side)
+
+    def side(kind):
+        return [c for c in copies
+                if kind in c[3] and c[2] not in main_streams]
+
+    def overlapped(cs):
+        return sum(any(ks < ce and c0 < ke for ks, ke, _ in kern)
+                   for c0, ce, _, _ in cs)
+
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us, "kernels": len(kern),
             "uploads": sum("HtoD" in c[3] for c in copies),
-            "result_copies": len(d2h), "side_stream_copies": len(side),
-            "overlapped_copies": overlapped}
+            "side_stream_uploads": len(side("HtoD")),
+            "overlapped_uploads": overlapped(side("HtoD")),
+            "result_copies": sum("DtoH" in c[3] for c in copies),
+            "side_stream_copies": len(side("DtoH")),
+            "overlapped_copies": overlapped(side("DtoH"))}
 
 
 @contextlib.contextmanager

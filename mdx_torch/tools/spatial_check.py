@@ -44,6 +44,10 @@ SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
 # (ROW_OF)
 RECORDED = ("clahe_luts",) + SPATIAL_KERNELS + ("tv_shard_rebuild",)
 ROW_OF = {"clahe_luts": "clahe", "tv_shard_rebuild": "tv_shard_step"}
+# the dense path's kernels (B, U, C, T, 5, 10), which the data axis runs in
+# every rank
+DENSE_RECORDED = ("box_stats", "unsharp", "clahe", "tv_chambolle",
+                  "bilateral", "wavelet_denoise")
 # qa_spatial's chain in the check: denoise, CLAHE, gamma/unsharp, TV and the
 # noise guard (bilateral off)
 QA_KW = dict(gamma=0.95, unsharp_radius=1.0, unsharp_amount=0.6,
@@ -52,13 +56,26 @@ QA_KW = dict(gamma=0.95, unsharp_radius=1.0, unsharp_amount=0.6,
 
 
 def plain_of(name: str):
-    from mdx_torch.ops.clahe import clahe_luts_plain
+    from mdx_torch.core.metrics import _lv_box_stats_plain
+    from mdx_torch.ops.bilateral import bilateral_plain
+    from mdx_torch.ops.clahe import clahe_luts_plain, clahe_plain
+    from mdx_torch.ops.filters import unsharp_mask_plain
+    from mdx_torch.ops.tv import tv_chambolle_plain
+    from mdx_torch.ops.wavelet import denoise_wavelet_plain
     from mdx_torch.parallel import clahe_sp, tv_sp
+
+    def wavelet_plain(x, sigma, soft, levels):
+        return denoise_wavelet_plain(x, sigma, wavelet_levels=levels,
+                                     soft_mask=soft)
 
     return {"clahe_luts": clahe_luts_plain,
             "clahe_remap_ext": clahe_sp.remap_ext_plain,
             "tv_shard_step": tv_sp.tv_shard_step_plain,
-            "tv_shard_rebuild": tv_sp.tv_shard_rebuild_plain}[name]
+            "tv_shard_rebuild": tv_sp.tv_shard_rebuild_plain,
+            "box_stats": _lv_box_stats_plain, "unsharp": unsharp_mask_plain,
+            "clahe": clahe_plain, "tv_chambolle": tv_chambolle_plain,
+            "bilateral": bilateral_plain,
+            "wavelet_denoise": wavelet_plain}[name]
 
 
 def _clone(args):
@@ -71,7 +88,8 @@ def compare_call(name: str, args) -> tuple[float, bool]:
     """One recorded wrapper's call against its plain version on copies of
     the same inputs → (max|d|, within ``parity.KERNEL_TOL`` of its row).
     For kernel 12's step the outputs are the written ``p_out`` and the
-    returned sums, for its rebuild the returned image."""
+    returned sums, for its rebuild the returned image; kernel T's
+    iteration counts must be equal."""
     from mdx_torch import kernels, parity
 
     ka, pa = _clone(args), _clone(args)
@@ -81,16 +99,19 @@ def compare_call(name: str, args) -> tuple[float, bool]:
         got, want = (ka[2], got), (pa[2], want)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return parity.kernel_parity(ROW_OF.get(name, name), got, want)
+    err, ok = parity.kernel_parity(ROW_OF.get(name, name), got, want)
+    if name == "tv_chambolle":
+        ok = ok and torch.equal(got[1].cpu(), want[1].cpu())
+    return err, ok
 
 
 @contextlib.contextmanager
-def recording(calls: list, enabled: bool):
-    """Record (name, cloned args) of every call of the wrappers in
-    ``RECORDED`` while they run as usual."""
+def recording(calls: list, enabled: bool, names=RECORDED):
+    """Record (name, cloned args) of every call of the wrappers ``names``
+    while they run as usual."""
     from mdx_torch import kernels
 
-    originals = {k: getattr(kernels, k) for k in RECORDED}
+    originals = {k: getattr(kernels, k) for k in names}
 
     def recorder(name, fn):
         def call(*args):
@@ -108,11 +129,10 @@ def recording(calls: list, enabled: bool):
             setattr(kernels, k, fn)
 
 
-def replay(calls: list) -> dict:
+def replay(calls: list, names=RECORDED) -> dict:
     """Recorded calls → {wrapper: [calls, max|d| against the plain
-    version, all within tolerance]}, one entry per wrapper of
-    ``RECORDED``."""
-    out = {k: [0, 0.0, True] for k in RECORDED}
+    version, all within tolerance]}, one entry per wrapper of ``names``."""
+    out = {k: [0, 0.0, True] for k in names}
     for name, args in calls:
         err, ok = compare_call(name, args)
         r = out[name]
@@ -120,22 +140,25 @@ def replay(calls: list) -> dict:
     return out
 
 
-def recorded_rank(*blocks, inner, mesh, **kwargs) -> dict:
-    """A rank function around the rank function ``inner`` (a dict-valued
-    rank body): this rank's launch counters reset first and read after
-    ``inner``, and on rank 0 every call of the ``RECORDED`` wrappers
-    recorded and, once ``inner`` returned, replayed against its plain
-    version.  The result is ``inner``'s with ``"smoke"``: {"launches":
-    {kernel: n}, "replay": :func:`replay`'s}.  ``chip_smoke.py`` wraps a
-    user entry point's launch in it."""
+def recorded_rank(*blocks, inner, mesh, recorded=RECORDED,
+                  **kwargs) -> dict:
+    """A rank function around the rank function ``inner``: this rank's
+    launch counters reset first and read after ``inner``, and on rank 0
+    every call of the wrappers ``recorded`` recorded and, once ``inner``
+    returned, replayed against its plain version.  The result is
+    ``inner``'s dict (a list, ``launch.call_each``'s, under ``"results"``)
+    with ``"smoke"``: {"launches": {kernel: n}, "replay": :func:`replay`'s}.
+    ``chip_smoke.py`` wraps a user entry point's launch in it."""
     from mdx_torch import kernels
 
     calls: list = []
     kernels.reset_launches()
-    with recording(calls, enabled=mesh.rank == 0):
+    with recording(calls, mesh.rank == 0, recorded):
         out = inner(*blocks, mesh=mesh, **kwargs)
     launches = dict(kernels.LAUNCHES)
-    out["smoke"] = {"launches": launches, "replay": replay(calls)}
+    if not isinstance(out, dict):
+        out = {"results": out}
+    out["smoke"] = {"launches": launches, "replay": replay(calls, recorded)}
     return out
 
 

@@ -74,7 +74,7 @@ def test_series_matches_jax(tmp_path, db, inputs, window):
                                  window=window)
     got = PB.run_pipeline_batch(inputs["series"], str(tmp_path / "p"),
                                 window=window, device="cpu")
-    assert got["mesh"] == {"data": 1} and got["skipped"] == 0
+    assert got["mesh"] == {"data": 1, "space": 1} and got["skipped"] == 0
     assert _keys(got) == [("series.dcm", f) for f in range(3)]
     _assert_frames_close(got["frames"], want["frames"])
     rle = PB.run_pipeline_batch(inputs["series_rle"], str(tmp_path / "r"),

@@ -194,6 +194,10 @@ def test_cli_runs_with_jax_pydantic_matplotlib_blocked(tmp_path):
         assert outs[2].count("| s.dcm |") == 3
         assert "Frames processed: **0**" in outs[3]
         assert outs[4].startswith("# mdx spatial QA report")
+        from mdx_torch.parallel import stream
+        (start, frames), = stream.stream_batches(["x.dcm", "x.dcm"], 2,
+                                                 device="cpu")
+        assert start == 0 and tuple(frames.shape) == (2, 64, 64)
         runs = storage.list_runs()
         assert len(runs) == 2 + 3 + 1, runs
         bad = [m for m in sys.modules

@@ -775,3 +775,67 @@ def test_run_pipeline_batch_card_against_cpu(dev, tmp_path, monkeypatch):
     again = run_pipeline_batch(path, str(tmp_path / "card"), resume=True,
                                device=dev)
     assert again["skipped"] == 4 and again["frames"] == []
+
+
+def test_stream_uploads_through_a_copy_stream(dev, tmp_path):
+    """``stream_batches`` on the card: every batch equals its decoded
+    frames, on the card, start indices in order; and the upload ring
+    itself with frames of one value each, a consumer slower than the
+    copies and every batch kept to the end: no pinned buffer or device
+    block was reused before its copy or its consumer was done."""
+    from mdx_torch.io import load_dicom, normalize_image, write_synthetic_dicom
+    from mdx_torch.parallel import stream
+
+    paths = [write_synthetic_dicom(str(tmp_path / f"{i}.dcm"), kind="noisy",
+                                   size=64, seed=i) for i in range(7)]
+    want = np.stack([normalize_image(load_dicom(p)[0]) for p in paths])
+    got = list(stream.stream_batches(paths, 3, device=dev))
+    assert [s for s, _ in got] == [0, 3, 6]
+    for s, t in got:
+        assert t.is_cuda and torch.equal(
+            t.cpu(), torch.from_numpy(want[s:s + 3]))
+
+    up = stream._Uploader(dev)
+    frames = stream.DecodeStream(
+        list(range(24)), lambda i: np.full((256, 1024), float(i)),
+        batch_size=4, device_put=up.put)
+    kept = []
+    for s, item in frames:
+        t = up.take(item)
+        # a slow consumer on its stream: later batches are copied meanwhile
+        for _ in range(20):
+            t.add_(0.0)
+        torch.cuda._sleep(1_000_000)
+        expect = torch.arange(s, s + 4, device=dev, dtype=torch.float32)
+        assert torch.equal(t[:, 0, 0], expect) and bool(
+            (t == expect[:, None, None]).all())
+        kept.append((s, t))
+    torch.cuda.synchronize()
+    for s, t in kept:
+        assert bool((t == torch.arange(s, s + 4, device=dev)[:, None, None]
+                     ).all()), s
+
+
+def test_sharded_qa_two_ranks_equal_one_on_the_card(dev):
+    """``qa_deterministic_sharded`` at n_data = 2 (two gloo ranks on the
+    card) against n_data = 1 on the valid images: issue masks and flags
+    equal, the rest within ``parity.breaches``.  Not bit for bit: torch's
+    reductions over [N, H·W] on the card sum in an order that depends on N
+    (ROADMAP Queue 3; ``tools/data_check.py --invariance``)."""
+    from mdx_torch.parallel import batch
+    from mdx_torch.tools import make_batch
+
+    x = make_batch(5, 128, seed=2)
+    one, n1 = batch.qa_deterministic_sharded(x, 1, dev)
+    two, n2 = batch.qa_deterministic_sharded(x, 2, dev)
+    assert n1 == n2 == 5 and batch.LAST_LAUNCH["n_data"] == 2
+    a = parity.flatten_result(one, parity.QA_DETERMINISTIC_FIELDS)
+    b = parity.flatten_result(two, parity.QA_DETERMINISTIC_FIELDS)
+    assert a.keys() == b.keys()
+    assert all(v.shape[0] == 6 for v in b.values())
+    b = {k: v[:5] for k, v in b.items()}
+    for k, v in a.items():
+        if v.dtype == bool:
+            assert np.array_equal(v, b[k]), k
+    bad = parity.breaches(b, a, hw=128 * 128)
+    assert not bad, bad

@@ -265,10 +265,17 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
                                          0 * one, 0 * one, one, 0 * one, one,
                                          per_frame_minmax=True)
         assert float(frames.max()) == 1.0
-        from mdx_torch.parallel import (clahe_sp, comm, launch, mesh,
-                                        plan_sp, spatial, tv_sp, wavelet_sp)
+        from mdx_torch.parallel import (batch, clahe_sp, comm, launch, mesh,
+                                        plan_sp, spatial, stream, tv_sp,
+                                        wavelet_sp)
         from mdx_torch import kernels
-        from mdx_torch.tools import spatial_check, time_tv_shard
+        from mdx_torch.tools import data_check, spatial_check, time_tv_shard
+        det, n_valid = batch.qa_deterministic_sharded(x.numpy(), 1, "cpu")
+        stats, issues, _ = batch.detect_sharded(x.numpy(), 1, "cpu")
+        assert n_valid == 2 and det[0].shape == (2, 48, 48)
+        assert batch.pad_batch(x, 4)[0].shape == (4, 48, 48)
+        got = list(stream.DecodeStream(range(3), lambda i: x[0].numpy(), 2))
+        assert [s for s, _ in got] == [0, 2]
         assert all(callable(getattr(kernels, k)) for k in (
             "tv_shard_step", "tv_shard_finalize", "tv_shard_rebuild"))
         xb = x[:, :8, :8].contiguous()

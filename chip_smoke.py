@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths, capability probe, CLI, spatial runner and data axis on one NVIDIA
-GPU.
+paths, capability probe, CLI, spatial runner, data axis and lossless JPEG
+codecs on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -192,6 +192,37 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       stream that overlapped a kernel in one traced run;
    4. times: img/s of the three bodies at n_data = 1 and 2 (the slowest
       rank's median call), the launch walls and each rank's compute.
+15. codecs — JPEG Lossless and JPEG-LS (``mdx_torch.io.jpegll``,
+   ``jpegls``, their entropy loops in ``mdx_torch/csrc/host/codecs.cpp``
+   through ``mdx_torch.io.native``), ``MDX_DB_PATH`` in a temporary
+   directory; phase 12's pixels (the four 512^2 CT slices, the 2048^2
+   chest X-ray, the 64-frame series) written again with the port's writer
+   in explicit LE, ``.4.70`` and ``.4.80``, the noisy slice at predictor 7
+   as ``.4.57`` and the blurred phantom at NEAR 2 as ``.4.81`` (the
+   codec's frames, the UID rewritten; its decoded pixels in explicit LE as
+   its twin):
+   1. the host library built from the checkout's source at first use: the
+      compiler, its version and the build seconds;
+   2. every lossless file's pixels bit-equal to its explicit-LE twin's; the
+      ``.4.81`` file within 2 of its source and equal to its decode through
+      the Python loops; one 512^2 frame of each family encoded and decoded
+      alike through the host loops and the Python loops; every host entry
+      point used (``native.CALLS``);
+   3. ``main([...], device="cuda")`` on every compressed single file and
+      its twin, deterministic and ``--autotune``, and ``--batch`` on both
+      compressed series (raw and ``--autotune``), counters reset before the
+      path: rc 0, the report printed equal to the file; each run's records
+      (issues, ops, status, pass flags) equal to its twin's, metrics within
+      ``parity.breaches``, bit-equality printed; B, U, C and 10 launched;
+      the ``.4.70`` blurred slice's kernel calls replayed against the plain
+      versions; ``--spatial`` on the ``.4.70`` chest X-ray at k = 1 against
+      the explicit-LE file's run;
+   4. times beside the card and the host's CPU model and cores: ms a frame
+      to encode and decode each family through the host loops at 512^2
+      and 2048^2 and the Python loops at 512^2
+      (``tools/time_codecs.py``), frames/s of the series in explicit LE,
+      ``.4.70`` and ``.4.80`` in turns, the warm ``run_pipeline`` of each
+      syntax at 512^2 and 2048^2 by phase (``decode`` holds the codec).
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -200,8 +231,8 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-14, summed over the ranks in phases 9, 10,
-13 and 14);
+launches per path of phases 5-15, summed over the ranks in phases 9, 10,
+13, 14 and 15's ``--spatial`` runs);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -2207,6 +2238,386 @@ def _data_stream(torch, card, dev, tmp) -> None:
           f"frames/s ({ms_w!r} ms); traced: {t}")
 
 
+# phase 15: the lossless JPEG codecs, compressed files through the CLI
+CODEC_SYNTAXES = ("ll", "ls")          # .4.70 and .4.80, written as phase 12's
+CODEC_SERIES_REPS = 3
+_PIXEL_ITEMS = b"\xe0\x7f\x10\x00OB\x00\x00\xff\xff\xff\xff"
+
+
+def _refragment(src: str, dst: str, frags: list, uid_from: str,
+                uid_to: str) -> str:
+    """``src`` with its encapsulated frames replaced by ``frags`` and its
+    transfer syntax UID rewritten (both UIDs are 22 characters, as JAX's
+    tests rewrite them)."""
+    import struct
+
+    raw = open(src, "rb").read()
+    i = raw.index(_PIXEL_ITEMS) + len(_PIXEL_ITEMS)
+    items = [struct.pack("<HHI", 0xFFFE, 0xE000, 0)]
+    for f in frags:
+        f += b"\x00" * (len(f) % 2)
+        items.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(f)) + f)
+    items.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    _require(len(uid_from) == len(uid_to), "UIDs of unequal length")
+    with open(dst, "wb") as fh:
+        fh.write(raw[:i].replace(uid_from.encode(), uid_to.encode(), 1)
+                 + b"".join(items))
+    return dst
+
+
+def _codec_inputs(root) -> tuple[dict, object]:
+    """Phase 15's files: phase 12's pixels written again in explicit LE
+    (``le``), ``.4.70`` (``ll``) and ``.4.80`` (``ls``), each syntax in a
+    directory of its own under the same names; a ``.4.57`` file of the
+    noisy slice at predictor 7 and a ``.4.81`` file of the blurred phantom
+    at NEAR 2, with the ``.4.81`` file's decoded pixels in explicit LE as
+    its twin.  Returns the files by (syntax, name) and the blurred
+    phantom's pixels, the ``.4.81`` file's source."""
+    import os
+
+    import numpy as np
+
+    from mdx_torch.io import jpegll, jpegls, write_dicom, write_synthetic_dicom
+    from mdx_torch.io.dicom import (TS_EXPLICIT_LE, TS_JPEG_LL,
+                                    TS_JPEG_LL_SV1, TS_JPEG_LS,
+                                    TS_JPEG_LS_NEAR, decode_pixels,
+                                    read_dataset)
+    from mdx_torch.tools import make_batch
+
+    cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
+    blurred = _blurred_phantom(CLI_SIZE)
+    f = {}
+    for syn, ts in (("le", TS_EXPLICIT_LE), ("ll", TS_JPEG_LL_SV1),
+                    ("ls", TS_JPEG_LS)):
+        d = f"{root}/{syn}"
+        os.makedirs(d)
+        for i, kind in enumerate(CLI_KINDS[:3]):
+            f[syn, kind] = write_synthetic_dicom(
+                f"{d}/{kind}.dcm", kind=kind, size=CLI_SIZE, seed=20 + i,
+                transfer_syntax=ts)
+        f[syn, "blurred"] = write_dicom(
+            f"{d}/blurred.dcm", blurred, rescale_slope=1.0,
+            rescale_intercept=-1024.0, transfer_syntax=ts)
+        f[syn, "cxr"] = write_dicom(f"{d}/cxr.dcm", cxr, modality="DX",
+                                    body_part="CHEST",
+                                    study_description="CXR PA",
+                                    transfer_syntax=ts)
+        f[syn, "series"] = write_synthetic_dicom(
+            f"{d}/series.dcm", kind="phantom", size=CLI_SIZE,
+            frames=CLI_SERIES_N, seed=3, transfer_syntax=ts)
+    for d in ("p14", "near", "near_le"):
+        os.makedirs(f"{root}/{d}")
+    noisy = decode_pixels(read_dataset(f["le", "noisy"]))
+    f["p14", "noisy"] = _refragment(
+        f["ll", "noisy"], f"{root}/p14/noisy.dcm",
+        [jpegll.encode(noisy, precision=16, predictor=7)], TS_JPEG_LL_SV1,
+        TS_JPEG_LL)
+    f["near", "blurred"] = _refragment(
+        f["ls", "blurred"], f"{root}/near/blurred.dcm",
+        [jpegls.encode(blurred, precision=16, near=2)], TS_JPEG_LS,
+        TS_JPEG_LS_NEAR)
+    f["near_le", "blurred"] = write_dicom(
+        f"{root}/near_le/blurred.dcm",
+        decode_pixels(read_dataset(f["near", "blurred"])),
+        rescale_slope=1.0, rescale_intercept=-1024.0)
+    return f, blurred
+
+
+def _codec_pixels(native, f: dict, blurred) -> None:
+    """15.2: every lossless file's pixels equal to its explicit-LE twin's;
+    the ``.4.81`` file within 2 of its source and equal to its decode
+    through the Python loops; one 512^2 frame of each family through the
+    host loops and the Python loops, encode and decode equal."""
+    import numpy as np
+
+    from mdx_torch.io import jpegll, jpegls
+    from mdx_torch.io.dicom import decode_pixels, read_dataset
+    from mdx_torch.tools.time_codecs import python_loops
+
+    native.reset_calls()
+    pix = lambda p: decode_pixels(read_dataset(p))  # noqa: E731
+    n = 0
+    for (syn, name), p in f.items():
+        if syn in ("ll", "ls", "p14"):
+            want = pix(f["le", name])
+            got = pix(p)
+            _require(got.dtype == want.dtype and np.array_equal(got, want),
+                     f"codecs: {syn} {name} differs from its explicit-LE "
+                     "twin")
+            n += 1
+    near = pix(f["near", "blurred"])
+    err = int(np.abs(near.astype(np.int64)
+                     - blurred.astype(np.int64)).max())
+    with python_loops():
+        near_py = pix(f["near", "blurred"])
+    _require(err <= 2 and np.array_equal(near, near_py),
+             f"codecs: .4.81 max|d| {err} or its Python decode differs")
+    print(f"codecs pixels: {n} lossless files bit-equal to their explicit-LE "
+          f"twins; .4.81 NEAR 2 max|d| {err} from its source, equal to its "
+          "Python-loop decode")
+    frame = pix(f["le", "noisy"])
+    for name, mod, kw in (("jpegll", jpegll, {"predictor": 1}),
+                          ("jpegls", jpegls, {})):
+        enc = mod.encode(frame, precision=16, **kw)
+        dec = mod.decode(enc)[0]
+        with python_loops():
+            enc_py = mod.encode(frame, precision=16, **kw)
+            dec_py = mod.decode(enc)[0]
+        _require(enc == enc_py and np.array_equal(dec, dec_py)
+                 and np.array_equal(dec, frame),
+                 f"codecs: {name} host loops and Python loops differ")
+        print(f"codecs {name} [{CLI_SIZE},{CLI_SIZE}]: host and Python "
+              f"loops encode {len(enc)} bytes alike and decode alike")
+    print(f"codecs native.CALLS: {dict(native.CALLS)}")
+    _require(all(v > 0 for v in native.CALLS.values()),
+             f"codecs: a host entry point was not used: {native.CALLS}")
+
+
+def _row_of(path: str):
+    import os
+
+    from mdx_torch.pipeline import storage
+
+    runs = [r for r in storage.list_runs(limit=1000)
+            if r["input_filename"] == os.path.basename(path)]
+    return storage.get_run(runs[0]["run_id"])
+
+
+def _records(row: dict) -> dict:
+    val = row["validation"] or {}
+    return {"issues": row["issues"], "ops": row["applied_ops"],
+            "status": row["status"],
+            "flags": {k: v for k, v in val.items() if isinstance(v, bool)}}
+
+
+def _metric_tree(rows: list) -> dict:
+    import numpy as np
+
+    tree = {"stats": {k: np.float32([r["metrics_before"][k] for r in rows])
+                      for k in rows[0]["metrics_before"]}}
+    if rows[0]["metrics_after"]:
+        tree["metrics_after"] = {
+            k: np.float32([r["metrics_after"][k] for r in rows])
+            for k in rows[0]["metrics_after"]}
+    return tree
+
+
+def _against_twin(parity, label: str, got: dict, want: dict, hw: int,
+                  bit: bool) -> None:
+    """A run's records equal to its explicit-LE twin's, its metrics within
+    ``parity.breaches``; prints whether they are bit-equal."""
+    bad = parity.breaches(parity.flatten(got["metrics"]),
+                          parity.flatten(want["metrics"]), hw=hw)
+    print(f"{label} vs its explicit-LE twin: records "
+          f"{got['records'] == want['records']}, metric breaches {len(bad)}, "
+          f"bit-equal {bit}")
+    for line in bad:
+        print("  " + line)
+    _require(got["records"] == want["records"] and not bad,
+             f"{label}: differs from its explicit-LE twin")
+
+
+def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
+    """15.3: ``main`` on every single file (deterministic and
+    ``--autotune``) and ``--batch`` on both series (raw and
+    ``--autotune``), each held to its explicit-LE twin's run; B, U, C
+    and 10 launched; one 512^2 deterministic run's kernel calls replayed."""
+    import os
+
+    import numpy as np
+
+    from mdx_torch import __main__ as cli
+    from mdx_torch.pipeline import batch_runner as PB
+
+    singles = [k for k in f if k[0] in ("ll", "ls", "p14", "near")
+               and k[1] != "series"]
+    twin_of = lambda k: f["near_le" if k[0] == "near" else "le", k[1]]  # noqa: E731
+    recorded = f["ll", "blurred"]           # its kernel calls are replayed
+    recording = [False]
+    runs = []
+
+    def one(path, auto):
+        d = os.path.dirname(path)
+        argv = ["--input", path, "--output", f"{d}/out", "--no-show"]
+        recording[0] = path == recorded and not auto
+        rc, text = _cli_main(cli, argv + (["--autotune"] if auto else []),
+                             dev)
+        recording[0] = False
+        _check_cli_run(path, f"{d}/out", rc, text)
+        row = _row_of(path)
+        return {"records": _records(row), "metrics": _metric_tree([row]),
+                "row": row}
+
+    def all_runs():
+        twins = {}
+        for auto in (False, True):
+            for k in singles:
+                t = twin_of(k)
+                if (t, auto) not in twins:
+                    twins[t, auto] = one(t, auto)
+                runs.append((k, auto, one(f[k], auto), twins[t, auto]))
+        for syn in CODEC_SYNTAXES:
+            for auto in (False, True):
+                rc, text = _cli_main(cli, [
+                    "--input", f[syn, "series"], "--output",
+                    f"{os.path.dirname(f[syn, 'series'])}/out", "--batch",
+                    "--no-show"] + (["--autotune"] if auto else []), dev)
+                _require(rc == 0 and f"Frames processed: **{CLI_SERIES_N}**"
+                         in text, f"codecs --batch {syn} series: rc {rc}: "
+                         f"{text[:300]}")
+        return {(syn, auto): PB.run_pipeline_batch(
+                    f[syn, "series"], f"{os.path.dirname(f[syn, 'series'])}"
+                    "/out", device=dev, autotune=auto, save_artifacts=False)
+                for syn in ("le",) + CODEC_SYNTAXES for auto in (False, True)}
+
+    calls: list = []
+    with _recording(torch, kernels, calls, when=lambda: recording[0]):
+        batches, paths["codecs"] = _run_path(
+            torch, kernels, "codecs: cli on .4.57/.4.70/.4.80/.4.81 files "
+            "and their explicit-LE twins, deterministic and --autotune, "
+            "--batch on the series", all_runs)
+    for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+        _require(paths["codecs"][k] > 0,
+                 f"kernel {k} was not launched by the codec CLI runs")
+    for k, auto, got, want in runs:
+        r = got["row"]
+        hw = CLI_SIZE * CLI_SIZE if k[1] != "cxr" else BIG * BIG
+        bit = (r["metrics_before"] == want["row"]["metrics_before"]
+               and r["metrics_after"] == want["row"]["metrics_after"])
+        _against_twin(parity, f"codecs cli {k[0]} {k[1]}"
+                      f"{' --autotune' if auto else ''}", got, want, hw, bit)
+    for syn in CODEC_SYNTAXES:
+        for auto in (False, True):
+            g, w = batches[syn, auto]["frames"], batches["le", auto]["frames"]
+            rec = lambda fs: [(fr["issues"], fr["passed"])  # noqa: E731
+                              for fr in fs]
+            strip = lambda fs: [{k: v for k, v in fr.items()  # noqa: E731
+                                 if k not in ("run_id", "source")}
+                                for fr in fs]
+            _against_twin(
+                parity, f"codecs --batch {syn} series"
+                f"{' --autotune' if auto else ''} ({len(g)} frames)",
+                {"records": rec(g), "metrics": parity.flatten_batch(g)},
+                {"records": rec(w), "metrics": parity.flatten_batch(w)},
+                CLI_SIZE * CLI_SIZE, strip(g) == strip(w))
+            _require(len(g) == CLI_SERIES_N and all(
+                np.isfinite(fr["metrics"]["sigma"]) for fr in g),
+                f"codecs --batch {syn}: {len(g)} frames")
+    _require(bool(calls), "codecs: no kernel launched in the recorded "
+             ".4.70 blurred run")
+    check.replay(f"codecs cli .4.70 blurred {CLI_SIZE}^2 deterministic",
+                 calls)
+    check.require_ok()
+
+
+def _codec_spatial(kernels, parity, check, paths, card, dev, f: dict) -> None:
+    """15.3: ``--spatial`` on the ``.4.70`` chest X-ray at k = 1 against
+    the explicit-LE file's run: issues and ops equal, metrics within
+    ``parity.breaches``."""
+    import os
+
+    import numpy as np
+
+    from mdx_torch.core.metrics import METRIC_KEYS
+    from mdx_torch.tools import cli_latency as CL
+
+    ctxs = {}
+    for syn in ("ll", "le"):
+        p = f[syn, "cxr"]
+        out = f"{os.path.dirname(p)}/out"
+        run, ctx = _spatial_cli_run(
+            kernels, parity, check, paths, f"codecs cxr {syn} k1",
+            lambda p=p, out=out: CL.spatial_cli(p, out, dev))
+        _check_spatial_cli(run, p, out, f"codecs --spatial {syn} cxr")
+        _print_spatial_times(f"codecs --spatial {syn} cxr [1,{BIG},{BIG}]",
+                             run, card)
+        ctxs[syn] = ctx
+    tree = lambda c: {"stats": {k: np.float32([c["metrics"][k]])  # noqa: E731
+                                for k in METRIC_KEYS},
+                      "metrics_after": {k: np.float32([c["metrics_after"][k]])
+                                        for k in METRIC_KEYS}}
+    rec = lambda c: (c["issues"], c["applied_ops"],  # noqa: E731
+                     c["noise_amp_guard"])
+    a, b = ctxs["ll"], ctxs["le"]
+    _against_twin(parity, "codecs --spatial .4.70 cxr k = 1",
+                  {"records": rec(a), "metrics": tree(a)},
+                  {"records": rec(b), "metrics": tree(b)}, BIG * BIG,
+                  bool(np.array_equal(a["enhanced"], b["enhanced"])))
+
+
+def _codec_times(card: str, dev, f: dict) -> None:
+    """15.4: ms per frame to decode and encode (host loops at 512^2 and
+    2048^2, Python loops at 512^2), frames/s of the series in the three
+    syntaxes in turns, and the warm ``run_pipeline`` by phase; each beside
+    the card and the host's CPU."""
+    import os
+
+    from mdx_torch.io.dicom import decode_pixels, read_dataset
+    from mdx_torch.tools import cli_latency as CL
+    from mdx_torch.tools import time_codecs as TC
+
+    host = TC.host_line()
+    pix = lambda p: decode_pixels(read_dataset(p))  # noqa: E731
+    for label, frame, py in ((f"[{CLI_SIZE},{CLI_SIZE}] noisy",
+                              pix(f["le", "noisy"]), True),
+                             (f"[{BIG},{BIG}] cxr", pix(f["le", "cxr"]),
+                              False)):
+        t = TC.frame_times(frame, 5)
+        print(f"codec ms a frame {label}, host loops (median of 5) on host "
+              f"{host} beside {card}: {t}")
+        if py:
+            t = TC.frame_times(frame, 1, python=True)
+            print(f"codec ms a frame {label}, Python loops (one call) on host "
+                  f"{host} beside {card}: {t}")
+    fps = {}
+    for syn in ("le", "ll", "ls"):
+        p = f[syn, "series"]
+        fps[syn] = CL.batch_fps(p, f"{os.path.dirname(p)}/out", dev,
+                                reps=CODEC_SERIES_REPS)
+    for syn, r in fps.items():
+        print(f"codecs batch series [{CLI_SERIES_N},{CLI_SIZE},{CLI_SIZE}] "
+              f"{syn} on {card}, host {host}: {r['frames_per_s']!r} frames/s "
+              f"(median {r['median_ms']!r} ms of {CODEC_SERIES_REPS}, runs "
+              f"{r['runs_ms']})")
+    for syn in ("le", "ll", "ls"):
+        for name in ("noisy", "cxr"):
+            p = f[syn, name]
+            w = CL.warm_runs(p, f"{os.path.dirname(p)}/out", 5, dev)
+            phases = ", ".join(f"{k} {v!r}" for k, v in w["phases_ms"].items())
+            print(f"codecs warm run_pipeline {syn} {name} on {card}, host "
+                  f"{host}: median {w['median_ms']!r} ms of 5; phases "
+                  f"(median ms): {phases}")
+
+
+def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
+                  dev) -> None:
+    """Phase 15: the lossless JPEG codecs (module doc), their files and DB
+    in a temporary directory."""
+    import os
+    import tempfile
+
+    from mdx_torch.io import native
+
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # 15.1 the host library, built from the checkout's source at first use
+    t0 = time.perf_counter()
+    native.load()
+    print(f"codecs host library: {native.BUILD} (load "
+          f"{time.perf_counter() - t0:.2f} s)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as tmp:
+        os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
+        os.environ.pop("MDX_TV_MODE", None)
+        f, blurred = _codec_inputs(tmp)
+        print(f"codecs inputs written: {time.perf_counter() - t15:.1f} s")
+        _codec_pixels(native, f, blurred)
+        _codec_cli(torch, kernels, parity, check, paths, dev, f)
+        _codec_spatial(kernels, parity, check, paths, card, dev, f)
+        print(f"phase 15 checks: {time.perf_counter() - t15:.1f} s")
+        _codec_times(card, dev, f)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2429,6 +2840,8 @@ def main() -> int:
     _phase_spatial_cli(torch, kernels, parity, check, paths, card, dev)
     # ---- 14. the data axis: sharded entry points, runner, stream --------
     _phase_data(torch, kernels, parity, check, paths, card, dev)
+    # ---- 15. the lossless JPEG codecs: compressed files through the CLI --
+    _phase_codecs(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []

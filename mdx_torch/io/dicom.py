@@ -8,9 +8,16 @@ original, bit for bit, on files of every syntax it reads:
 * Deflated Explicit VR LE          1.2.840.10008.1.2.1.99  (zlib raw inflate)
 * Explicit VR Big Endian (retired) 1.2.840.10008.1.2.2
 * RLE Lossless                     1.2.840.10008.1.2.5     (mdx_torch.io.rle)
+* JPEG Lossless (Process 14)       1.2.840.10008.1.2.4.57  (mdx_torch.io.jpegll)
+* JPEG Lossless SV1 (14, pred 1)   1.2.840.10008.1.2.4.70  (mdx_torch.io.jpegll)
+* JPEG-LS Lossless                 1.2.840.10008.1.2.4.80  (mdx_torch.io.jpegls)
+* JPEG-LS Near-Lossless            1.2.840.10008.1.2.4.81  (mdx_torch.io.jpegls)
 
-plus headerless "raw" datasets (no preamble, implicit VR).  The JPEG-family
-syntaxes the JAX package decodes (JPEG Lossless and SV1, JPEG-LS, baseline
+plus headerless "raw" datasets (no preamble, implicit VR).  The compressed
+frames of a multi-frame file decode on a thread pool (:func:`_map_frames`);
+the codecs' entropy loops run in the port's host C++ library
+(:mod:`mdx_torch.io.native`), which releases the GIL.  The JPEG-family
+syntaxes the JAX package also decodes and the port does not yet (baseline
 and extended DCT, JPEG 2000) raise :class:`CodecNotPorted`, naming the
 transfer-syntax UID: their codecs are a later slice of the port.
 
@@ -44,7 +51,7 @@ class DicomError(ValueError):
 
 class CodecNotPorted(DicomError):
     """A transfer syntax the JAX package decodes and the port does not yet
-    (the JPEG family: ROADMAP Queue 1, the codec slice)."""
+    (DCT JPEG and JPEG 2000: ROADMAP Queue 1, the codec slice)."""
 
 
 # Transfer syntaxes
@@ -61,7 +68,8 @@ TS_JPEG_BASELINE = "1.2.840.10008.1.2.4.50"
 TS_JPEG_EXTENDED = "1.2.840.10008.1.2.4.51"
 TS_J2K_LOSSLESS = "1.2.840.10008.1.2.4.90"
 TS_J2K = "1.2.840.10008.1.2.4.91"
-_ENCAPSULATED_TS = {TS_RLE}
+_ENCAPSULATED_TS = {TS_RLE, TS_JPEG_LL, TS_JPEG_LL_SV1,
+                    TS_JPEG_LS, TS_JPEG_LS_NEAR}
 _SUPPORTED_TS = {TS_IMPLICIT_LE, TS_EXPLICIT_LE, TS_DEFLATED_LE,
                  TS_EXPLICIT_BE} | _ENCAPSULATED_TS
 # the JAX package's JPEG-family syntaxes, by name
@@ -70,6 +78,8 @@ JPEG_FAMILY_TS = {
     TS_JPEG_LS: "JPEG-LS Lossless", TS_JPEG_LS_NEAR: "JPEG-LS Near-Lossless",
     TS_JPEG_BASELINE: "JPEG Baseline", TS_JPEG_EXTENDED: "JPEG Extended",
     TS_J2K_LOSSLESS: "JPEG 2000 Lossless", TS_J2K: "JPEG 2000"}
+# those of them the port does not decode yet
+_NOT_PORTED_TS = set(JPEG_FAMILY_TS) - _ENCAPSULATED_TS
 
 # VRs with the 2-byte-VR + 2-reserved + 4-byte-length layout
 _LONG_VRS = {b"OB", b"OW", b"OF", b"OD", b"OL", b"SQ", b"UC", b"UR", b"UT", b"UN"}
@@ -215,7 +225,7 @@ def read_dataset(path: str) -> DicomDataset:
             if group not in (0x0002, 0x0008, 0x0010, 0x0018, 0x0020, 0x0028):
                 raise DicomError("Invalid or missing DICOM file.")
             ts = TS_IMPLICIT_LE
-        if ts in JPEG_FAMILY_TS:
+        if ts in _NOT_PORTED_TS:
             raise CodecNotPorted(
                 f"transfer syntax {ts} ({JPEG_FAMILY_TS[ts]}) is not yet in "
                 "mdx_torch (ROADMAP Queue 1: the codec slice)")
@@ -324,8 +334,8 @@ def _read_file_meta(f: BinaryIO) -> str:
 
 
 def decode_pixels(ds: DicomDataset) -> np.ndarray:
-    """Raw or RLE-encapsulated pixel bytes → numpy array in stored
-    shape/dtype."""
+    """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS) pixel bytes →
+    numpy array in stored shape/dtype."""
     if not ds.pixel_bytes and ds.fragments is None:
         raise DicomError("DICOM file does not contain pixel data.")
     rows = ds.get("Rows")
@@ -351,18 +361,27 @@ def decode_pixels(ds: DicomDataset) -> np.ndarray:
 
     expect = rows * cols * samples * frames
     if ds.fragments is not None:
-        from mdx_torch.io import rle
+        if ds.transfer_syntax in (TS_JPEG_LL, TS_JPEG_LL_SV1):
+            arr = _decode_jpegll(ds.fragments, rows, cols, samples, frames,
+                                 bits, signed)
+        elif ds.transfer_syntax in (TS_JPEG_LS, TS_JPEG_LS_NEAR):
+            arr = _decode_jpegls(ds.fragments, rows, cols, samples, frames,
+                                 bits, signed)
+        else:
+            from mdx_torch.io import rle
 
-        if len(ds.fragments) != frames:
-            raise DicomError(
-                f"RLE PixelData has {len(ds.fragments)} frame "
-                f"fragments, NumberOfFrames says {frames}.")
-        try:
-            decoded = [rle.decode_frame(frag, rows, cols, samples, bits // 8)
-                       for frag in ds.fragments]
-        except rle.RleError as exc:
-            raise DicomError(f"Corrupt RLE pixel data: {exc}") from exc
-        arr = np.concatenate(decoded).view(dtype)
+            if len(ds.fragments) != frames:
+                raise DicomError(
+                    f"RLE PixelData has {len(ds.fragments)} frame "
+                    f"fragments, NumberOfFrames says {frames}.")
+            try:
+                decoded = _map_frames(
+                    lambda frag: rle.decode_frame(frag, rows, cols,
+                                                  samples, bits // 8),
+                    list(ds.fragments))
+            except rle.RleError as exc:
+                raise DicomError(f"Corrupt RLE pixel data: {exc}") from exc
+            arr = np.concatenate(decoded).view(dtype)
     else:
         arr = np.frombuffer(ds.pixel_bytes, dtype=dtype, count=-1)
     if arr.size < expect:
@@ -389,6 +408,161 @@ def decode_pixels(ds: DicomDataset) -> np.ndarray:
     else:
         arr = arr.reshape(rows, cols)
     return arr
+
+def _decode_jpegll(fragments: list, rows: int, cols: int, samples: int,
+                   frames: int, bits: int, signed: bool) -> np.ndarray:
+    """JPEG Lossless fragments → flat pixel array in the stored dtype.
+
+    Fragment → frame grouping (PS3.5 A.4 allows a frame to span
+    fragments): one-fragment-per-frame when the counts match, otherwise
+    a single frame owns every fragment, otherwise fragments are grouped
+    on their SOI prefix (each codestream starts FF D8).  Signed data is
+    sign-extended from the codestream's own precision P — the encoder
+    codes the unsigned two's-complement representation and the mod-2^16
+    arithmetic makes the round trip exact.
+    """
+    from mdx_torch.io import jpegll
+
+    if bits not in (8, 16):
+        raise DicomError(
+            f"JPEG Lossless carries at most 16 bits (BitsAllocated={bits}).")
+    streams = _group_frame_streams(fragments, frames, "JPEG Lossless")
+
+    def _one(stream: bytes) -> np.ndarray:
+        try:
+            img, p = jpegll.decode(stream)
+        except jpegll.JpegLLError as exc:
+            raise DicomError(
+                f"Corrupt JPEG Lossless pixel data: {exc}") from exc
+        shape = img.shape if img.ndim == 3 else img.shape + (1,)
+        if shape != (rows, cols, samples):
+            raise DicomError(
+                f"JPEG Lossless frame is {shape}, dataset says "
+                f"({rows}, {cols}, {samples}).")
+        a = img.reshape(-1).astype(np.int64)   # composite (interleaved) order
+        if signed:
+            a = np.where(a >= (1 << (p - 1)), a - (1 << p), a)
+        return a
+
+    flat = np.concatenate(_map_frames(_one, streams))
+    base = {8: np.int8 if signed else np.uint8,
+            16: np.int16 if signed else np.uint16}[bits]
+    lo, hi = np.iinfo(base).min, np.iinfo(base).max
+    if flat.size and (int(flat.min()) < lo or int(flat.max()) > hi):
+        raise DicomError(
+            f"JPEG Lossless sample out of range for BitsAllocated={bits}.")
+    return flat.astype(base)
+
+
+def _map_frames(fn, items: list) -> list:
+    """Order-preserving map over per-frame decode work, fanned out over a
+    thread pool when there are multiple frames and cores.
+
+    The compressed codecs' hot loops (``mdx_torch.io.native``) run in C++
+    with the GIL released for the duration of the ctypes call, so
+    frame-level threads scale on multi-core hosts; the Python loops
+    (``MDX_NO_NATIVE=1``) still overlap their NumPy portions.  Serial
+    path (no pool, identical exception propagation) for single-frame
+    input, single-core hosts, or ``MDX_IO_THREADS=1``/``0``.
+    ``MDX_IO_THREADS=N`` caps the pool.
+    """
+    env = os.environ.get("MDX_IO_THREADS")
+    limit = int(env) if env else (os.cpu_count() or 1)
+    workers = min(len(items), limit, 16)
+    if workers <= 1:
+        return [fn(it) for it in items]
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, items))
+
+
+# per-codec frame-start prefixes for fragment grouping.  They must be
+# codec-specific: FF 4F can legally appear inside JPEG-LS bit-stuffed
+# entropy data (any byte with MSB 0 may follow FF), so splitting JLS
+# fragments on the J2K SOC would false-split spanning frames; FF D8
+# can never follow FF inside JPEG-family entropy data, making it safe
+# for those codecs.
+_FRAME_PREFIXES = {
+    "jpeg": (b"\xff\xd8",),
+    "jpeg2k": (b"\xff\x4f", b"\x00\x00\x00\x0cjP\x20\x20"),
+}
+
+
+def _group_frame_streams(fragments: list, frames: int,
+                         codec: str, kind: str = "jpeg") -> list:
+    """Fragment → frame grouping (PS3.5 A.4: a frame may span fragments):
+    one-fragment-per-frame when the counts match, otherwise a single
+    frame owns every fragment, otherwise fragments are grouped on their
+    codec-specific start prefix (``kind``: JPEG-family FF D8; JPEG 2000
+    SOC FF 4F or the JP2 signature box)."""
+    if len(fragments) == frames:
+        return [bytes(f) for f in fragments]
+    if frames == 1:
+        return [b"".join(fragments)]
+    prefixes = _FRAME_PREFIXES[kind]
+
+    def _starts(frag: bytes) -> bool:
+        return any(frag[:len(p)] == p for p in prefixes)
+
+    streams, cur = [], []
+    for frag in fragments:
+        if _starts(frag) and cur:
+            streams.append(b"".join(cur))
+            cur = []
+        cur.append(frag)
+    if cur:
+        streams.append(b"".join(cur))
+    if len(streams) != frames:
+        raise DicomError(
+            f"{codec} PixelData groups into {len(streams)} "
+            f"codestreams, NumberOfFrames says {frames}.")
+    return streams
+
+
+def _decode_jpegls(fragments: list, rows: int, cols: int, samples: int,
+                   frames: int, bits: int, signed: bool) -> np.ndarray:
+    """JPEG-LS fragments → flat pixel array in the stored dtype.
+
+    Same frame grouping and signed-container handling as
+    :func:`_decode_jpegll`: signed data is sign-extended from the
+    codestream's own precision P (the encoder codes the unsigned
+    two's-complement representation).  For the near-lossless syntax the
+    codec's NEAR parameter comes from the codestream itself; values are
+    reconstructed within ±NEAR per T.87.
+    """
+    from mdx_torch.io import jpegls
+
+    if bits not in (8, 16):
+        raise DicomError(
+            f"JPEG-LS carries at most 16 bits (BitsAllocated={bits}).")
+    streams = _group_frame_streams(fragments, frames, "JPEG-LS")
+
+    def _one(stream: bytes) -> np.ndarray:
+        try:
+            img, p, _near = jpegls.decode(stream)
+        except jpegls.JpegLSError as exc:
+            raise DicomError(
+                f"Corrupt JPEG-LS pixel data: {exc}") from exc
+        shape = img.shape if img.ndim == 3 else img.shape + (1,)
+        if shape != (rows, cols, samples):
+            raise DicomError(
+                f"JPEG-LS frame is {shape}, dataset says "
+                f"({rows}, {cols}, {samples}).")
+        a = img.reshape(-1).astype(np.int64)   # composite order
+        if signed:
+            a = np.where(a >= (1 << (p - 1)), a - (1 << p), a)
+        return a
+
+    flat = np.concatenate(_map_frames(_one, streams))
+    base = {8: np.int8 if signed else np.uint8,
+            16: np.int16 if signed else np.uint16}[bits]
+    lo, hi = np.iinfo(base).min, np.iinfo(base).max
+    if flat.size and (int(flat.min()) < lo or int(flat.max()) > hi):
+        raise DicomError(
+            f"JPEG-LS sample out of range for BitsAllocated={bits}.")
+    return flat.astype(base)
+
 
 def _rescale(image: np.ndarray, ds: DicomDataset) -> np.ndarray:
     """Modality rescale (slope/intercept), float32."""

@@ -5,10 +5,12 @@ byte-equal to the original's for the same arguments.  Produces standard
 part-10 files (preamble + DICM + file meta) carrying MONOCHROME1/2 pixel
 data, readable by :mod:`mdx_torch.io.dicom` and by any standard DICOM
 toolkit.  Transfer syntaxes: Explicit VR Little Endian (default), RLE
-Lossless (encapsulated, ``mdx_torch.io.rle``) and Deflated Explicit VR LE
-(zlib raw deflate of the post-meta stream, PS3.5 A.5).  The JPEG-family
-syntaxes the JAX package also writes raise ``ValueError`` until the port
-has their codecs.
+Lossless (encapsulated, ``mdx_torch.io.rle``), JPEG Lossless SV1
+``1.2.840.10008.1.2.4.70`` (encapsulated, ``mdx_torch.io.jpegll``),
+JPEG-LS Lossless ``1.2.840.10008.1.2.4.80`` (encapsulated,
+``mdx_torch.io.jpegls``) and Deflated Explicit VR LE (zlib raw deflate of
+the post-meta stream, PS3.5 A.5).  JPEG 2000 Lossless, which the JAX
+package also writes, raises ``ValueError`` until the port has its codec.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import zlib
 import numpy as np
 
 from mdx_torch.io.dicom import (JPEG_FAMILY_TS, TS_DEFLATED_LE,
-                                TS_EXPLICIT_LE, TS_RLE)
+                                TS_EXPLICIT_LE, TS_J2K_LOSSLESS,
+                                TS_JPEG_LL_SV1, TS_JPEG_LS, TS_RLE)
 
 _SOP_CLASS_SC = "1.2.840.10008.5.1.4.1.1.7"  # Secondary Capture
 
@@ -57,12 +60,13 @@ def write_dicom(
     transfer_syntax: str = TS_EXPLICIT_LE,
 ) -> str:
     """Write ``pixels`` (uint8/uint16/int16 2-D or [F,H,W] 3-D) to *path*."""
-    if transfer_syntax in JPEG_FAMILY_TS:
+    if transfer_syntax == TS_J2K_LOSSLESS:
         raise ValueError(
             f"transfer syntax {transfer_syntax} "
             f"({JPEG_FAMILY_TS[transfer_syntax]}) is not yet in mdx_torch "
             "(ROADMAP Queue 1: the codec slice)")
-    if transfer_syntax not in (TS_EXPLICIT_LE, TS_RLE, TS_DEFLATED_LE):
+    if transfer_syntax not in (TS_EXPLICIT_LE, TS_RLE, TS_DEFLATED_LE,
+                               TS_JPEG_LL_SV1, TS_JPEG_LS):
         raise ValueError(f"unsupported transfer syntax {transfer_syntax!r}")
     pixels = np.ascontiguousarray(pixels)
     if pixels.dtype == np.uint8:
@@ -112,6 +116,10 @@ def write_dicom(
         body += _el(0x0028, 0x1053, b"DS", _txt(f"{rescale_slope:g}"))
     if transfer_syntax == TS_RLE:
         body += _encapsulated_rle(pixels.reshape(frames, rows, cols))
+    elif transfer_syntax == TS_JPEG_LL_SV1:
+        body += _encapsulated_jpegll(pixels.reshape(frames, rows, cols), bits)
+    elif transfer_syntax == TS_JPEG_LS:
+        body += _encapsulated_jpegls(pixels.reshape(frames, rows, cols), bits)
     else:
         pixel_bytes = pixels.astype(pixels.dtype.newbyteorder("<")).tobytes()
         body += _el(0x7FE0, 0x0010, b"OW" if bits == 16 else b"OB",
@@ -147,6 +155,49 @@ def _encapsulated_rle(frames_arr: np.ndarray) -> bytes:
            struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
     for frame in frames_arr:
         frag = rle.encode_frame(frame)
+        if len(frag) % 2:
+            frag += b"\x00"
+        out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
+    out.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    return b"".join(out)
+
+
+def _encapsulated_jpegll(frames_arr: np.ndarray, bits: int) -> bytes:
+    """[F, H, W] → encapsulated JPEG Lossless SV1 PixelData element bytes.
+
+    Signed data is coded as its unsigned two's-complement representation
+    at full container precision; the reader sign-extends from the
+    codestream precision (see mdx_torch/io/dicom.py:_decode_jpegll).
+    """
+    from mdx_torch.io import jpegll
+
+    out = [struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF),
+           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
+    for frame in frames_arr:
+        u = (frame.astype(np.int64) & ((1 << bits) - 1)).astype(np.uint16)
+        frag = jpegll.encode(u, precision=bits, predictor=1)
+        if len(frag) % 2:
+            frag += b"\x00"
+        out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
+    out.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    return b"".join(out)
+
+
+def _encapsulated_jpegls(frames_arr: np.ndarray, bits: int) -> bytes:
+    """[F, H, W] → encapsulated JPEG-LS Lossless PixelData element bytes.
+
+    Same signed-container convention as :func:`_encapsulated_jpegll`:
+    signed data is coded as its unsigned two's-complement representation
+    at full container precision and the reader sign-extends from the
+    codestream precision (mdx_torch/io/dicom.py:_decode_jpegls).
+    """
+    from mdx_torch.io import jpegls
+
+    out = [struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF),
+           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
+    for frame in frames_arr:
+        u = (frame.astype(np.int64) & ((1 << bits) - 1)).astype(np.uint16)
+        frag = jpegls.encode(u, precision=bits)
         if len(frag) % 2:
             frag += b"\x00"
         out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)

@@ -12,6 +12,7 @@ Run each from the root of a checkout:
     python -m mdx_torch.tools.tune_sweep     # ms per autotune sweep
     python -m mdx_torch.tools.spatial_check  # the row-sharded path on k ranks
     python -m mdx_torch.tools.time_tv_shard  # sharded TV solves (kernel 12)
+    python -m mdx_torch.tools.time_codecs    # lossless JPEG codecs, ms a frame
 
 The port keeps its own copies of the JAX package's benchmark batch and
 plans (``bench.py`` ``_make_batch``, ``_PLAN_OPS``, ``_PLAN_PARAMS``;

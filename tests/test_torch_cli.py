@@ -5,13 +5,14 @@
   with its numbers masked (the sweep's rationale mapped as in
   ``test_torch_pipeline.py``), and the numbers of the DB rows the two runs
   wrote within ``mdx_torch.parity``;
-* the flags the port refuses (``--genai``, ``--plan-only``), a
-  JPEG-family input and a missing file exit 1 with main.py's prefixes
+* the flags the port refuses (``--genai``, ``--plan-only``), a JPEG 2000
+  input and a missing file exit 1 with main.py's prefixes
   (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
 * ``.env`` loading and ``--tv-mode`` / ``MDX_TV_MODE``, read once and passed
   on as ``tv_mode``;
 * with JAX, jaxlib, pydantic and matplotlib blocked, a CLI run end to end
-  (single file, autotune, batch, spatial) in a fresh process;
+  (single file, a JPEG Lossless file, autotune, batch, spatial) in a fresh
+  process;
 * without a card, the default ``device="cuda"`` raises before the file is
   read, in-process and as ``python -m mdx_torch``;
 * nothing in the port imports mdx, JAX, bench, pydantic or matplotlib.
@@ -30,7 +31,7 @@ import torch
 
 import main as jax_main
 from mdx.io import dicom_write as JW
-from mdx.io.dicom import TS_JPEG_LS
+from mdx.io.dicom import TS_J2K_LOSSLESS
 from mdx_torch import __main__ as cli
 from mdx_torch import parity
 from mdx_torch.io import write_synthetic_dicom
@@ -101,14 +102,14 @@ def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
         assert cli.main(["--input", path, flag], device="cpu") == 1
         out = capsys.readouterr().out
         assert out.startswith("ERROR: ") and words in out, out
-    jls = JW.write_dicom(str(tmp_path / "ls.dcm"),
+    j2k = JW.write_dicom(str(tmp_path / "j2k.dcm"),
                          np.arange(256, dtype=np.uint16).reshape(16, 16),
-                         transfer_syntax=TS_JPEG_LS)
-    assert cli.main(["--input", jls, "--output", str(tmp_path / "o")],
+                         transfer_syntax=TS_J2K_LOSSLESS)
+    assert cli.main(["--input", j2k, "--output", str(tmp_path / "o")],
                     device="cpu") == 1
     out = capsys.readouterr().out
-    assert re.match(r"ERROR: transfer syntax 1\.2\.840\.10008\.1\.2\.4\.80 "
-                    r"\(JPEG-LS Lossless\) is not yet in mdx_torch", out), out
+    assert re.match(r"ERROR: transfer syntax 1\.2\.840\.10008\.1\.2\.4\.90 "
+                    r"\(JPEG 2000 Lossless\) is not yet in mdx_torch", out), out
     missing = ["--input", str(tmp_path / "nope.dcm"), "--output",
                str(tmp_path / "o"), "--no-show"]
     (rc_j, out_j), (rc_p, out_p) = _outputs(capsys, missing)
@@ -169,15 +170,19 @@ def test_cli_runs_with_jax_pydantic_matplotlib_blocked(tmp_path):
         import torch
         torch.set_num_threads(1)
         from mdx_torch.__main__ import main
-        from mdx_torch.io import write_synthetic_dicom
+        from mdx_torch.io import native, write_synthetic_dicom
+        from mdx_torch.io.dicom import TS_JPEG_LL_SV1
         from mdx_torch.io.visuals import read_png
         from mdx_torch.pipeline import storage
         os.makedirs("series", exist_ok=True)
         write_synthetic_dicom("x.dcm", kind="noisy", size=64)
+        write_synthetic_dicom("ll.dcm", kind="phantom", size=64,
+                              transfer_syntax=TS_JPEG_LL_SV1)
         write_synthetic_dicom("series/s.dcm", kind="phantom", size=64,
                               frames=3)
         outs = []
         for argv in (["--input", "x.dcm", "--output", "out", "--no-show"],
+                     ["--input", "ll.dcm", "--output", "out", "--no-show"],
                      ["--input", "x.dcm", "--output", "out", "--autotune"],
                      ["--input", "series/s.dcm", "--output", "out",
                       "--batch"],
@@ -190,16 +195,17 @@ def test_cli_runs_with_jax_pydantic_matplotlib_blocked(tmp_path):
             outs.append(buf.getvalue())
             assert outs[-1].startswith("# "), outs[-1][:300]
         assert read_png("out/x_before_after.png").shape == (64, 136)
-        assert "GenAI Plan (JSON)" in outs[1]
-        assert outs[2].count("| s.dcm |") == 3
-        assert "Frames processed: **0**" in outs[3]
-        assert outs[4].startswith("# mdx spatial QA report")
+        assert native.CALLS["jpegll_diffs"] == 1, native.CALLS
+        assert "GenAI Plan (JSON)" in outs[2]
+        assert outs[3].count("| s.dcm |") == 3
+        assert "Frames processed: **0**" in outs[4]
+        assert outs[5].startswith("# mdx spatial QA report")
         from mdx_torch.parallel import stream
         (start, frames), = stream.stream_batches(["x.dcm", "x.dcm"], 2,
                                                  device="cpu")
         assert start == 0 and tuple(frames.shape) == (2, 64, 64)
         runs = storage.list_runs()
-        assert len(runs) == 2 + 3 + 1, runs
+        assert len(runs) == 3 + 3 + 1, runs
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx", "bench")]
@@ -244,7 +250,8 @@ def test_port_imports_nothing_of_jax_pydantic_or_matplotlib():
 
 def test_pyproject_ships_every_port_package_and_kernel_source():
     """Every package under mdx_torch is listed, and every CUDA source the
-    kernels and probes build from is package data."""
+    kernels and probes build from, and the host C++ source of the codecs,
+    is package data."""
     import tomllib
 
     cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]
@@ -257,6 +264,7 @@ def test_pyproject_ships_every_port_package_and_kernel_source():
     shipped = {f for g in cfg["setuptools"]["package-data"]["mdx_torch"]
                for f in port.glob(g)}
     sources = {f for f in (port / "csrc").rglob("*")
-               if f.suffix in (".cu", ".cuh")}
+               if f.suffix in (".cu", ".cuh", ".cpp")}
     assert any(f.parent.name == "probes" for f in sources)
+    assert port / "csrc" / "host" / "codecs.cpp" in sources
     assert sources <= shipped

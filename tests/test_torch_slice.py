@@ -292,6 +292,17 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
         out = tv_sp.tv_shard_rebuild_plain(xb, p_out, p_out, it, base, w,
                                            None, None, None, geo, 4)
         assert it.tolist() == [4, 4] and bool(torch.isfinite(out).all())
+        import tempfile
+        from mdx_torch.io import load_dicom, native, write_synthetic_dicom
+        from mdx_torch.io.dicom import TS_JPEG_LL_SV1
+        with tempfile.TemporaryDirectory() as tmp:
+            ll = write_synthetic_dicom(tmp + "/ll.dcm", kind="phantom",
+                                       size=48, transfer_syntax=TS_JPEG_LL_SV1)
+            img, _ = load_dicom(ll)
+        assert native.CALLS["jpegll_pack"] == native.CALLS["jpegll_diffs"] == 1
+        det = qa.qa_deterministic(torch.from_numpy(
+            mdx_torch.io.normalize_image(img))[None])
+        assert det[0].shape == (1, 48, 48)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pydantic",
                                       "matplotlib", "mdx")]

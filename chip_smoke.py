@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths, capability probe, CLI, spatial runner, data axis and lossless JPEG
-codecs on one NVIDIA GPU.
+paths, capability probe, CLI, spatial runner, data axis and lossless JPEG and
+JPEG 2000 codecs on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -192,37 +192,50 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       stream that overlapped a kernel in one traced run;
    4. times: img/s of the three bodies at n_data = 1 and 2 (the slowest
       rank's median call), the launch walls and each rank's compute.
-15. codecs — JPEG Lossless and JPEG-LS (``mdx_torch.io.jpegll``,
-   ``jpegls``, their entropy loops in ``mdx_torch/csrc/host/codecs.cpp``
-   through ``mdx_torch.io.native``), ``MDX_DB_PATH`` in a temporary
-   directory; phase 12's pixels (the four 512^2 CT slices, the 2048^2
-   chest X-ray, the 64-frame series) written again with the port's writer
-   in explicit LE, ``.4.70`` and ``.4.80``, the noisy slice at predictor 7
-   as ``.4.57`` and the blurred phantom at NEAR 2 as ``.4.81`` (the
-   codec's frames, the UID rewritten; its decoded pixels in explicit LE as
-   its twin):
+15. codecs — JPEG Lossless, JPEG-LS and JPEG 2000 (``mdx_torch.io.jpegll``,
+   ``jpegls``, ``jpeg2k``, their entropy and EBCOT Tier-1 loops in
+   ``mdx_torch/csrc/host/codecs.cpp`` through ``mdx_torch.io.native``),
+   ``MDX_DB_PATH`` in a temporary directory; phase 12's pixels (the four
+   512^2 CT slices, the 2048^2 chest X-ray, the 64-frame series) written
+   again with the port's writer in explicit LE, ``.4.70``, ``.4.80`` and
+   ``.4.90``, the noisy slice at predictor 7 as ``.4.57`` and the blurred
+   phantom at NEAR 2 as ``.4.81`` (the codec's frames, the UID rewritten;
+   its decoded pixels in explicit LE as its twin), and the two committed
+   ``.4.91`` codestreams of ``tests/torch_fixtures/j2k/`` (irreversible
+   9/7, made by Pillow) wrapped as DICOM files: a 512^2 CT slice (its
+   decoded pixels in explicit LE as its twin) and a 96 x 80 YBR_ICT
+   colour image:
    1. the host library built from the checkout's source at first use: the
       compiler, its version and the build seconds;
    2. every lossless file's pixels bit-equal to its explicit-LE twin's; the
       ``.4.81`` file within 2 of its source and equal to its decode through
-      the Python loops; one 512^2 frame of each family encoded and decoded
-      alike through the host loops and the Python loops; every host entry
-      point used (``native.CALLS``);
-   3. ``main([...], device="cuda")`` on every compressed single file and
-      its twin, deterministic and ``--autotune``, and ``--batch`` on both
-      compressed series (raw and ``--autotune``), counters reset before the
-      path: rc 0, the report printed equal to the file; each run's records
-      (issues, ops, status, pass flags) equal to its twin's, metrics within
-      ``parity.breaches``, bit-equality printed; B, U, C and 10 launched;
-      the ``.4.70`` blurred slice's kernel calls replayed against the plain
-      versions; ``--spatial`` on the ``.4.70`` chest X-ray at k = 1 against
-      the explicit-LE file's run;
+      the Python loops; one 512^2 frame of each lossless JPEG family
+      encoded and decoded alike through the host loops and the Python
+      loops; the 512^2 frame through JPEG 2000's host loops (bit-equal
+      round trip), its 128^2 corner and the ``.4.91`` colour fixture
+      through both JPEG 2000 loops alike; every host entry point used
+      (``native.CALLS``);
+   3. ``main([...], device="cuda")`` in two paths, counters reset before
+      each and read after: ``codecs`` (the ``.4.57``, ``.4.70``, ``.4.80``
+      and ``.4.81`` files) and ``codecs_j2k`` (the ``.4.90`` and ``.4.91``
+      files): every single file and its twin deterministic and
+      ``--autotune``, ``--batch`` on the path's series (raw and
+      ``--autotune``): rc 0, the report printed equal to the file, records
+      finite; each run's records (issues, ops, status, pass flags) equal
+      to its twin's, metrics within ``parity.breaches``, bit-equality
+      printed; each ``.4.91`` file's deterministic run against its run on
+      the CPU the same way; B, U, C and 10 launched in each path; the
+      ``.4.70`` and ``.4.90`` blurred slices' kernel calls replayed against
+      the plain versions; ``--spatial`` on the ``.4.70`` and ``.4.90``
+      chest X-rays at k = 1 against the explicit-LE file's run;
    4. times beside the card and the host's CPU model and cores: ms a frame
       to encode and decode each family through the host loops at 512^2
-      and 2048^2 and the Python loops at 512^2
-      (``tools/time_codecs.py``), frames/s of the series in explicit LE,
-      ``.4.70`` and ``.4.80`` in turns, the warm ``run_pipeline`` of each
-      syntax at 512^2 and 2048^2 by phase (``decode`` holds the codec).
+      and 2048^2 (the JPEG 2000 decode split into Tier-1, inverse DWT and
+      the rest), the lossless JPEG families' Python loops at 512^2, and
+      JPEG 2000's host and Python loops at 128^2 (``tools/time_codecs.py``),
+      frames/s of the series in explicit LE, ``.4.70``, ``.4.80`` and
+      ``.4.90`` in turns, the warm ``run_pipeline`` of each syntax at 512^2
+      and 2048^2 by phase (``decode`` holds the codec).
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -2239,8 +2252,14 @@ def _data_stream(torch, card, dev, tmp) -> None:
 
 
 # phase 15: the lossless JPEG codecs, compressed files through the CLI
-CODEC_SYNTAXES = ("ll", "ls")          # .4.70 and .4.80, written as phase 12's
+# .4.70, .4.80 and .4.90, written as phase 12's files
+CODEC_SYNTAXES = ("ll", "ls", "j2k")
 CODEC_SERIES_REPS = 3
+# the committed .4.91 codestreams (Pillow's OpenJPEG, irreversible 9/7;
+# tests/test_torch_jpeg2k.py made them): a 512^2 12-bit CT slice and a
+# tiled, two-layer YBR_ICT colour image of 96 x 80
+J2K_FIXTURES = "tests/torch_fixtures/j2k"
+J2K_PY_SIZE = 128            # the frame both Tier-1 loops code (Python: ~1 s)
 _PIXEL_ITEMS = b"\xe0\x7f\x10\x00OB\x00\x00\xff\xff\xff\xff"
 
 
@@ -2267,28 +2286,32 @@ def _refragment(src: str, dst: str, frags: list, uid_from: str,
 
 def _codec_inputs(root) -> tuple[dict, object]:
     """Phase 15's files: phase 12's pixels written again in explicit LE
-    (``le``), ``.4.70`` (``ll``) and ``.4.80`` (``ls``), each syntax in a
-    directory of its own under the same names; a ``.4.57`` file of the
-    noisy slice at predictor 7 and a ``.4.81`` file of the blurred phantom
-    at NEAR 2, with the ``.4.81`` file's decoded pixels in explicit LE as
-    its twin.  Returns the files by (syntax, name) and the blurred
+    (``le``), ``.4.70`` (``ll``), ``.4.80`` (``ls``) and ``.4.90``
+    (``j2k``), each syntax in a directory of its own under the same names;
+    a ``.4.57`` file of the noisy slice at predictor 7 and a ``.4.81`` file
+    of the blurred phantom at NEAR 2, with the ``.4.81`` file's decoded
+    pixels in explicit LE as its twin; the two ``.4.91`` fixtures wrapped
+    as DICOM files (``j2k91``), the CT slice's decoded pixels in explicit
+    LE as its twin.  Returns the files by (syntax, name) and the blurred
     phantom's pixels, the ``.4.81`` file's source."""
     import os
+    from pathlib import Path
 
     import numpy as np
 
     from mdx_torch.io import jpegll, jpegls, write_dicom, write_synthetic_dicom
-    from mdx_torch.io.dicom import (TS_EXPLICIT_LE, TS_JPEG_LL,
-                                    TS_JPEG_LL_SV1, TS_JPEG_LS,
+    from mdx_torch.io.dicom import (TS_EXPLICIT_LE, TS_J2K, TS_J2K_LOSSLESS,
+                                    TS_JPEG_LL, TS_JPEG_LL_SV1, TS_JPEG_LS,
                                     TS_JPEG_LS_NEAR, decode_pixels,
                                     read_dataset)
+    from mdx_torch.io.dicom_write import write_codestreams
     from mdx_torch.tools import make_batch
 
     cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
     blurred = _blurred_phantom(CLI_SIZE)
     f = {}
     for syn, ts in (("le", TS_EXPLICIT_LE), ("ll", TS_JPEG_LL_SV1),
-                    ("ls", TS_JPEG_LS)):
+                    ("ls", TS_JPEG_LS), ("j2k", TS_J2K_LOSSLESS)):
         d = f"{root}/{syn}"
         os.makedirs(d)
         for i, kind in enumerate(CLI_KINDS[:3]):
@@ -2305,7 +2328,7 @@ def _codec_inputs(root) -> tuple[dict, object]:
         f[syn, "series"] = write_synthetic_dicom(
             f"{d}/series.dcm", kind="phantom", size=CLI_SIZE,
             frames=CLI_SERIES_N, seed=3, transfer_syntax=ts)
-    for d in ("p14", "near", "near_le"):
+    for d in ("p14", "near", "near_le", "j2k91", "j2k91_le"):
         os.makedirs(f"{root}/{d}")
     noisy = decode_pixels(read_dataset(f["le", "noisy"]))
     f["p14", "noisy"] = _refragment(
@@ -2320,17 +2343,31 @@ def _codec_inputs(root) -> tuple[dict, object]:
         f"{root}/near_le/blurred.dcm",
         decode_pixels(read_dataset(f["near", "blurred"])),
         rescale_slope=1.0, rescale_intercept=-1024.0)
+    fixtures = Path(__file__).resolve().parent / J2K_FIXTURES
+    f["j2k91", "ct"] = write_codestreams(
+        f"{root}/j2k91/ct.dcm", [(fixtures / "ct512_97.j2k").read_bytes()],
+        512, 512, transfer_syntax=TS_J2K)
+    f["j2k91_le", "ct"] = write_dicom(
+        f"{root}/j2k91_le/ct.dcm",
+        decode_pixels(read_dataset(f["j2k91", "ct"])))
+    f["j2k91", "rgb"] = write_codestreams(
+        f"{root}/j2k91/rgb.dcm",
+        [(fixtures / "rgb_ict_tiled.j2k").read_bytes()], 96, 80,
+        transfer_syntax=TS_J2K, bits=8, samples=3, photometric="YBR_ICT",
+        modality="OT")
     return f, blurred
 
 
 def _codec_pixels(native, f: dict, blurred) -> None:
     """15.2: every lossless file's pixels equal to its explicit-LE twin's;
     the ``.4.81`` file within 2 of its source and equal to its decode
-    through the Python loops; one 512^2 frame of each family through the
-    host loops and the Python loops, encode and decode equal."""
+    through the Python loops; one 512^2 frame of each lossless JPEG family
+    through the host loops and the Python loops, encode and decode equal;
+    JPEG 2000: the 512^2 frame encoded and decoded through the host loops,
+    its 128^2 corner and the ``.4.91`` colour fixture through both."""
     import numpy as np
 
-    from mdx_torch.io import jpegll, jpegls
+    from mdx_torch.io import jpeg2k, jpegll, jpegls
     from mdx_torch.io.dicom import decode_pixels, read_dataset
     from mdx_torch.tools.time_codecs import python_loops
 
@@ -2338,7 +2375,7 @@ def _codec_pixels(native, f: dict, blurred) -> None:
     pix = lambda p: decode_pixels(read_dataset(p))  # noqa: E731
     n = 0
     for (syn, name), p in f.items():
-        if syn in ("ll", "ls", "p14"):
+        if syn in ("ll", "ls", "p14", "j2k"):
             want = pix(f["le", name])
             got = pix(p)
             _require(got.dtype == want.dtype and np.array_equal(got, want),
@@ -2368,6 +2405,26 @@ def _codec_pixels(native, f: dict, blurred) -> None:
                  f"codecs: {name} host loops and Python loops differ")
         print(f"codecs {name} [{CLI_SIZE},{CLI_SIZE}]: host and Python "
               f"loops encode {len(enc)} bytes alike and decode alike")
+    enc = jpeg2k.encode(frame)
+    dec, prec, signed = jpeg2k.decode(enc)
+    _require(np.array_equal(dec, frame) and dec.dtype == frame.dtype
+             and (prec, signed) == (16, False),
+             "codecs: jpeg2k 512^2 round trip through the host loops")
+    print(f"codecs jpeg2k [{CLI_SIZE},{CLI_SIZE}]: host loops encode "
+          f"{len(enc)} bytes, decode bit-equal to the frame")
+    corner = np.ascontiguousarray(frame[:J2K_PY_SIZE, :J2K_PY_SIZE])
+    rgb = read_dataset(f["j2k91", "rgb"]).fragments[0]
+    enc = jpeg2k.encode(corner)
+    got = (enc, jpeg2k.decode(enc)[0], jpeg2k.decode(rgb)[0])
+    with python_loops():
+        want = (jpeg2k.encode(corner), jpeg2k.decode(enc)[0],
+                jpeg2k.decode(rgb)[0])
+    _require(got[0] == want[0] and np.array_equal(got[1], corner)
+             and all(np.array_equal(a, b) for a, b in zip(got[1:], want[1:])),
+             "codecs: jpeg2k host loops and Python loops differ")
+    print(f"codecs jpeg2k [{J2K_PY_SIZE},{J2K_PY_SIZE}]: host and Python "
+          f"loops encode {len(enc)} bytes alike and decode alike; the .4.91 "
+          f"colour fixture {got[2].shape} decodes alike through both")
     print(f"codecs native.CALLS: {dict(native.CALLS)}")
     _require(all(v > 0 for v in native.CALLS.values()),
              f"codecs: a host entry point was not used: {native.CALLS}")
@@ -2403,25 +2460,41 @@ def _metric_tree(rows: list) -> dict:
 
 
 def _against_twin(parity, label: str, got: dict, want: dict, hw: int,
-                  bit: bool) -> None:
-    """A run's records equal to its explicit-LE twin's, its metrics within
-    ``parity.breaches``; prints whether they are bit-equal."""
+                  bit: bool, what: str = "its explicit-LE twin") -> None:
+    """A run's records equal to ``what``'s (its explicit-LE twin's), its
+    metrics within ``parity.breaches``; prints whether they are
+    bit-equal."""
     bad = parity.breaches(parity.flatten(got["metrics"]),
                           parity.flatten(want["metrics"]), hw=hw)
-    print(f"{label} vs its explicit-LE twin: records "
+    print(f"{label} vs {what}: records "
           f"{got['records'] == want['records']}, metric breaches {len(bad)}, "
           f"bit-equal {bit}")
     for line in bad:
         print("  " + line)
     _require(got["records"] == want["records"] and not bad,
-             f"{label}: differs from its explicit-LE twin")
+             f"{label}: differs from {what}")
 
 
-def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
-    """15.3: ``main`` on every single file (deterministic and
-    ``--autotune``) and ``--batch`` on both series (raw and
-    ``--autotune``), each held to its explicit-LE twin's run; B, U, C
-    and 10 launched; one 512^2 deterministic run's kernel calls replayed."""
+# phase 15's CLI paths: (launch path, the single files' syntaxes, the
+# series' syntaxes, the file whose deterministic run's kernel calls are
+# replayed); the JPEG 2000 files are a path of their own
+CODEC_PATHS = (("codecs", ("ll", "ls", "p14", "near"), ("ll", "ls"),
+                ("ll", "blurred")),
+               ("codecs_j2k", ("j2k", "j2k91"), ("j2k",), ("j2k", "blurred")))
+TWIN_DIR = {"near": "near_le", "j2k91": "j2k91_le"}
+
+
+def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
+               path: str, single_syns, series_syns, recorded,
+               cache: dict) -> None:
+    """15.3: ``main`` on every single file of ``single_syns``
+    (deterministic and ``--autotune``) and ``--batch`` on the series of
+    ``series_syns`` (raw and ``--autotune``), counters reset just before and
+    read just after as ``paths[path]``; each run held to its explicit-LE
+    twin's (the twins' runs kept in ``cache`` across calls); B, U, C and 10
+    launched; ``recorded``'s deterministic run's kernel calls replayed.  A
+    ``.4.91`` file's deterministic run is also held to its run on the CPU
+    (the colour fixture has no twin)."""
     import os
 
     import numpy as np
@@ -2429,34 +2502,39 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
     from mdx_torch import __main__ as cli
     from mdx_torch.pipeline import batch_runner as PB
 
-    singles = [k for k in f if k[0] in ("ll", "ls", "p14", "near")
-               and k[1] != "series"]
-    twin_of = lambda k: f["near_le" if k[0] == "near" else "le", k[1]]  # noqa: E731
-    recorded = f["ll", "blurred"]           # its kernel calls are replayed
+    singles = [k for k in f if k[0] in single_syns and k[1] != "series"]
+    twin_of = lambda k: f.get((TWIN_DIR.get(k[0], "le"), k[1]))  # noqa: E731
     recording = [False]
     runs = []
 
-    def one(path, auto):
-        d = os.path.dirname(path)
-        argv = ["--input", path, "--output", f"{d}/out", "--no-show"]
-        recording[0] = path == recorded and not auto
+    def one(p, auto, device=dev):
+        d = os.path.dirname(p)
+        argv = ["--input", p, "--output", f"{d}/out", "--no-show"]
+        recording[0] = p == f[recorded] and not auto
         rc, text = _cli_main(cli, argv + (["--autotune"] if auto else []),
-                             dev)
+                             device)
         recording[0] = False
-        _check_cli_run(path, f"{d}/out", rc, text)
-        row = _row_of(path)
+        _check_cli_run(p, f"{d}/out", rc, text)
+        row = _row_of(p)
         return {"records": _records(row), "metrics": _metric_tree([row]),
                 "row": row}
 
+    def batch(syn, auto):
+        if (syn, auto) not in cache:
+            cache[syn, auto] = PB.run_pipeline_batch(
+                f[syn, "series"], f"{os.path.dirname(f[syn, 'series'])}/out",
+                device=dev, autotune=auto, save_artifacts=False)
+        return cache[syn, auto]
+
     def all_runs():
-        twins = {}
         for auto in (False, True):
             for k in singles:
                 t = twin_of(k)
-                if (t, auto) not in twins:
-                    twins[t, auto] = one(t, auto)
-                runs.append((k, auto, one(f[k], auto), twins[t, auto]))
-        for syn in CODEC_SYNTAXES:
+                if t is not None and (t, auto) not in cache:
+                    cache[t, auto] = one(t, auto)
+                runs.append((k, auto, one(f[k], auto),
+                             cache.get((t, auto))))
+        for syn in series_syns:
             for auto in (False, True):
                 rc, text = _cli_main(cli, [
                     "--input", f[syn, "series"], "--output",
@@ -2465,28 +2543,36 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
                 _require(rc == 0 and f"Frames processed: **{CLI_SERIES_N}**"
                          in text, f"codecs --batch {syn} series: rc {rc}: "
                          f"{text[:300]}")
-        return {(syn, auto): PB.run_pipeline_batch(
-                    f[syn, "series"], f"{os.path.dirname(f[syn, 'series'])}"
-                    "/out", device=dev, autotune=auto, save_artifacts=False)
-                for syn in ("le",) + CODEC_SYNTAXES for auto in (False, True)}
+        return {(syn, auto): batch(syn, auto)
+                for syn in ("le",) + series_syns for auto in (False, True)}
 
     calls: list = []
     with _recording(torch, kernels, calls, when=lambda: recording[0]):
-        batches, paths["codecs"] = _run_path(
-            torch, kernels, "codecs: cli on .4.57/.4.70/.4.80/.4.81 files "
+        batches, paths[path] = _run_path(
+            torch, kernels, f"{path}: cli on {'/'.join(single_syns)} files "
             "and their explicit-LE twins, deterministic and --autotune, "
-            "--batch on the series", all_runs)
+            f"--batch on the {'/'.join(series_syns)} series", all_runs)
     for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
-        _require(paths["codecs"][k] > 0,
-                 f"kernel {k} was not launched by the codec CLI runs")
+        _require(paths[path][k] > 0,
+                 f"kernel {k} was not launched by the {path} CLI runs")
     for k, auto, got, want in runs:
         r = got["row"]
-        hw = CLI_SIZE * CLI_SIZE if k[1] != "cxr" else BIG * BIG
-        bit = (r["metrics_before"] == want["row"]["metrics_before"]
-               and r["metrics_after"] == want["row"]["metrics_after"])
-        _against_twin(parity, f"codecs cli {k[0]} {k[1]}"
-                      f"{' --autotune' if auto else ''}", got, want, hw, bit)
-    for syn in CODEC_SYNTAXES:
+        label = f"{path} cli {k[0]} {k[1]}{' --autotune' if auto else ''}"
+        hw = {"cxr": BIG * BIG, "rgb": 96 * 80, "ct": 512 * 512}.get(
+            k[1], CLI_SIZE * CLI_SIZE)
+        for part in ("metrics_before", "metrics_after"):
+            _require(all(np.isfinite(v) for v in (r[part] or {}).values()),
+                     f"{label}: non-finite {part}")
+        bit = lambda w: (r["metrics_before"]  # noqa: E731
+                         == w["row"]["metrics_before"]
+                         and r["metrics_after"] == w["row"]["metrics_after"])
+        if k[0] == "j2k91" and not auto:
+            cpu = one(f[k], False, "cpu")
+            _against_twin(parity, label, got, cpu, hw, bit(cpu),
+                          "its run on the CPU")
+        if want is not None:
+            _against_twin(parity, label, got, want, hw, bit(want))
+    for syn in series_syns:
         for auto in (False, True):
             g, w = batches[syn, auto]["frames"], batches["le", auto]["frames"]
             rec = lambda fs: [(fr["issues"], fr["passed"])  # noqa: E731
@@ -2495,7 +2581,7 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
                                  if k not in ("run_id", "source")}
                                 for fr in fs]
             _against_twin(
-                parity, f"codecs --batch {syn} series"
+                parity, f"{path} --batch {syn} series"
                 f"{' --autotune' if auto else ''} ({len(g)} frames)",
                 {"records": rec(g), "metrics": parity.flatten_batch(g)},
                 {"records": rec(w), "metrics": parity.flatten_batch(w)},
@@ -2503,17 +2589,17 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict) -> None:
             _require(len(g) == CLI_SERIES_N and all(
                 np.isfinite(fr["metrics"]["sigma"]) for fr in g),
                 f"codecs --batch {syn}: {len(g)} frames")
-    _require(bool(calls), "codecs: no kernel launched in the recorded "
-             ".4.70 blurred run")
-    check.replay(f"codecs cli .4.70 blurred {CLI_SIZE}^2 deterministic",
-                 calls)
+    _require(bool(calls), f"{path}: no kernel launched in the recorded "
+             f"{recorded} run")
+    check.replay(f"{path} cli {recorded[0]} {recorded[1]} {CLI_SIZE}^2 "
+                 "deterministic", calls)
     check.require_ok()
 
 
 def _codec_spatial(kernels, parity, check, paths, card, dev, f: dict) -> None:
-    """15.3: ``--spatial`` on the ``.4.70`` chest X-ray at k = 1 against
-    the explicit-LE file's run: issues and ops equal, metrics within
-    ``parity.breaches``."""
+    """15.3: ``--spatial`` on the ``.4.70`` and ``.4.90`` chest X-rays at
+    k = 1 against the explicit-LE file's run: issues and ops equal, metrics
+    within ``parity.breaches``."""
     import os
 
     import numpy as np
@@ -2522,7 +2608,7 @@ def _codec_spatial(kernels, parity, check, paths, card, dev, f: dict) -> None:
     from mdx_torch.tools import cli_latency as CL
 
     ctxs = {}
-    for syn in ("ll", "le"):
+    for syn in ("ll", "j2k", "le"):
         p = f[syn, "cxr"]
         out = f"{os.path.dirname(p)}/out"
         run, ctx = _spatial_cli_run(
@@ -2538,18 +2624,21 @@ def _codec_spatial(kernels, parity, check, paths, card, dev, f: dict) -> None:
                                         for k in METRIC_KEYS}}
     rec = lambda c: (c["issues"], c["applied_ops"],  # noqa: E731
                      c["noise_amp_guard"])
-    a, b = ctxs["ll"], ctxs["le"]
-    _against_twin(parity, "codecs --spatial .4.70 cxr k = 1",
-                  {"records": rec(a), "metrics": tree(a)},
-                  {"records": rec(b), "metrics": tree(b)}, BIG * BIG,
-                  bool(np.array_equal(a["enhanced"], b["enhanced"])))
+    b = ctxs["le"]
+    for syn, uid in (("ll", ".4.70"), ("j2k", ".4.90")):
+        a = ctxs[syn]
+        _against_twin(parity, f"codecs --spatial {uid} cxr k = 1",
+                      {"records": rec(a), "metrics": tree(a)},
+                      {"records": rec(b), "metrics": tree(b)}, BIG * BIG,
+                      bool(np.array_equal(a["enhanced"], b["enhanced"])))
 
 
 def _codec_times(card: str, dev, f: dict) -> None:
     """15.4: ms per frame to decode and encode (host loops at 512^2 and
-    2048^2, Python loops at 512^2), frames/s of the series in the three
-    syntaxes in turns, and the warm ``run_pipeline`` by phase; each beside
-    the card and the host's CPU."""
+    2048^2; Python loops at 512^2, JPEG 2000's at 128^2 beside its host
+    loops there), frames/s of the series in the four syntaxes in turns, and
+    the warm ``run_pipeline`` by phase; each beside the card and the host's
+    CPU."""
     import os
 
     from mdx_torch.io.dicom import decode_pixels, read_dataset
@@ -2565,12 +2654,22 @@ def _codec_times(card: str, dev, f: dict) -> None:
         t = TC.frame_times(frame, 5)
         print(f"codec ms a frame {label}, host loops (median of 5) on host "
               f"{host} beside {card}: {t}")
+        t = TC.j2k_decode_split(frame, 5)
+        print(f"codec jpeg2k decode {label} split (median ms of 5) on host "
+              f"{host} beside {card}: {t}")
         if py:
-            t = TC.frame_times(frame, 1, python=True)
+            t = TC.frame_times(frame, 1, python=True,
+                               families=TC.FAMILIES[:2])
             print(f"codec ms a frame {label}, Python loops (one call) on host "
                   f"{host} beside {card}: {t}")
+    corner = pix(f["le", "noisy"])[:J2K_PY_SIZE, :J2K_PY_SIZE]
+    for loops, reps, py in (("host loops (median of 5)", 5, False),
+                            ("Python loops (one call)", 1, True)):
+        t = TC.frame_times(corner, reps, python=py, families=("jpeg2k",))
+        print(f"codec ms a frame [{J2K_PY_SIZE},{J2K_PY_SIZE}] noisy corner, "
+              f"{loops} on host {host} beside {card}: {t}")
     fps = {}
-    for syn in ("le", "ll", "ls"):
+    for syn in ("le",) + CODEC_SYNTAXES:
         p = f[syn, "series"]
         fps[syn] = CL.batch_fps(p, f"{os.path.dirname(p)}/out", dev,
                                 reps=CODEC_SERIES_REPS)
@@ -2579,7 +2678,7 @@ def _codec_times(card: str, dev, f: dict) -> None:
               f"{syn} on {card}, host {host}: {r['frames_per_s']!r} frames/s "
               f"(median {r['median_ms']!r} ms of {CODEC_SERIES_REPS}, runs "
               f"{r['runs_ms']})")
-    for syn in ("le", "ll", "ls"):
+    for syn in ("le",) + CODEC_SYNTAXES:
         for name in ("noisy", "cxr"):
             p = f[syn, name]
             w = CL.warm_runs(p, f"{os.path.dirname(p)}/out", 5, dev)
@@ -2591,8 +2690,8 @@ def _codec_times(card: str, dev, f: dict) -> None:
 
 def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
                   dev) -> None:
-    """Phase 15: the lossless JPEG codecs (module doc), their files and DB
-    in a temporary directory."""
+    """Phase 15: the lossless JPEG and JPEG 2000 codecs (module doc), their
+    files and DB in a temporary directory."""
     import os
     import tempfile
 
@@ -2611,7 +2710,10 @@ def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
         f, blurred = _codec_inputs(tmp)
         print(f"codecs inputs written: {time.perf_counter() - t15:.1f} s")
         _codec_pixels(native, f, blurred)
-        _codec_cli(torch, kernels, parity, check, paths, dev, f)
+        cache: dict = {}
+        for path, singles, series, recorded in CODEC_PATHS:
+            _codec_cli(torch, kernels, parity, check, paths, dev, f, path,
+                       singles, series, recorded, cache)
         _codec_spatial(kernels, parity, check, paths, card, dev, f)
         print(f"phase 15 checks: {time.perf_counter() - t15:.1f} s")
         _codec_times(card, dev, f)
@@ -2840,7 +2942,7 @@ def main() -> int:
     _phase_spatial_cli(torch, kernels, parity, check, paths, card, dev)
     # ---- 14. the data axis: sharded entry points, runner, stream --------
     _phase_data(torch, kernels, parity, check, paths, card, dev)
-    # ---- 15. the lossless JPEG codecs: compressed files through the CLI --
+    # ---- 15. the JPEG codecs: compressed files through the CLI ----------
     _phase_codecs(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 

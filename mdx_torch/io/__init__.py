@@ -3,12 +3,12 @@ markdown report and the before/after PNG.
 
 Counterpart of ``mdx.io``, in numpy, ``zlib`` and ``struct`` (no JAX, no
 pydantic, no matplotlib).  The reader covers the uncompressed syntaxes,
-deflate, RLE, JPEG Lossless (``mdx_torch.io.jpegll``) and JPEG-LS
-(``mdx_torch.io.jpegls``), whose entropy loops run in the port's host C++
-library (``mdx_torch.io.native``, built at first use).  The JAX package's
-DCT JPEG and JPEG 2000 codecs, its transcoder and its other C++ fast paths
-are a later slice (:class:`CodecNotPorted` names the transfer syntax it
-meets).
+deflate, RLE, JPEG Lossless (``mdx_torch.io.jpegll``), JPEG-LS
+(``mdx_torch.io.jpegls``) and JPEG 2000 (``mdx_torch.io.jpeg2k``), whose
+entropy loops run in the port's host C++ library (``mdx_torch.io.native``,
+built at first use).  The JAX package's DCT JPEG codec (``.4.50``/``.4.51``),
+its transcoder and its other C++ fast paths are a later slice
+(:class:`CodecNotPorted` names the transfer syntax it meets).
 """
 
 from mdx_torch.io.dicom import (CodecNotPorted, DicomError, load_dicom,

@@ -12,14 +12,16 @@ original, bit for bit, on files of every syntax it reads:
 * JPEG Lossless SV1 (14, pred 1)   1.2.840.10008.1.2.4.70  (mdx_torch.io.jpegll)
 * JPEG-LS Lossless                 1.2.840.10008.1.2.4.80  (mdx_torch.io.jpegls)
 * JPEG-LS Near-Lossless            1.2.840.10008.1.2.4.81  (mdx_torch.io.jpegls)
+* JPEG 2000 Lossless               1.2.840.10008.1.2.4.90  (mdx_torch.io.jpeg2k)
+* JPEG 2000                        1.2.840.10008.1.2.4.91  (mdx_torch.io.jpeg2k)
 
 plus headerless "raw" datasets (no preamble, implicit VR).  The compressed
 frames of a multi-frame file decode on a thread pool (:func:`_map_frames`);
 the codecs' entropy loops run in the port's host C++ library
 (:mod:`mdx_torch.io.native`), which releases the GIL.  The JPEG-family
 syntaxes the JAX package also decodes and the port does not yet (baseline
-and extended DCT, JPEG 2000) raise :class:`CodecNotPorted`, naming the
-transfer-syntax UID: their codecs are a later slice of the port.
+and extended DCT, ``.4.50``/``.4.51``) raise :class:`CodecNotPorted`,
+naming the transfer-syntax UID: their codec is a later slice of the port.
 
 Behavioural contract (ref pipeline/dicom_io.py:29-57): modality rescale
 (slope/intercept), MONOCHROME1 inversion, grayscale / middle-slice
@@ -51,7 +53,7 @@ class DicomError(ValueError):
 
 class CodecNotPorted(DicomError):
     """A transfer syntax the JAX package decodes and the port does not yet
-    (DCT JPEG and JPEG 2000: ROADMAP Queue 1, the codec slice)."""
+    (DCT JPEG: ROADMAP Queue 1, the codec slice)."""
 
 
 # Transfer syntaxes
@@ -69,7 +71,8 @@ TS_JPEG_EXTENDED = "1.2.840.10008.1.2.4.51"
 TS_J2K_LOSSLESS = "1.2.840.10008.1.2.4.90"
 TS_J2K = "1.2.840.10008.1.2.4.91"
 _ENCAPSULATED_TS = {TS_RLE, TS_JPEG_LL, TS_JPEG_LL_SV1,
-                    TS_JPEG_LS, TS_JPEG_LS_NEAR}
+                    TS_JPEG_LS, TS_JPEG_LS_NEAR,
+                    TS_J2K_LOSSLESS, TS_J2K}
 _SUPPORTED_TS = {TS_IMPLICIT_LE, TS_EXPLICIT_LE, TS_DEFLATED_LE,
                  TS_EXPLICIT_BE} | _ENCAPSULATED_TS
 # the JAX package's JPEG-family syntaxes, by name
@@ -334,8 +337,8 @@ def _read_file_meta(f: BinaryIO) -> str:
 
 
 def decode_pixels(ds: DicomDataset) -> np.ndarray:
-    """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS) pixel bytes →
-    numpy array in stored shape/dtype."""
+    """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS, JPEG 2000) pixel
+    bytes → numpy array in stored shape/dtype."""
     if not ds.pixel_bytes and ds.fragments is None:
         raise DicomError("DICOM file does not contain pixel data.")
     rows = ds.get("Rows")
@@ -367,6 +370,9 @@ def decode_pixels(ds: DicomDataset) -> np.ndarray:
         elif ds.transfer_syntax in (TS_JPEG_LS, TS_JPEG_LS_NEAR):
             arr = _decode_jpegls(ds.fragments, rows, cols, samples, frames,
                                  bits, signed)
+        elif ds.transfer_syntax in (TS_J2K_LOSSLESS, TS_J2K):
+            arr = _decode_jpeg2k(ds.fragments, rows, cols, samples,
+                                 frames, bits, signed)
         else:
             from mdx_torch.io import rle
 
@@ -561,6 +567,55 @@ def _decode_jpegls(fragments: list, rows: int, cols: int, samples: int,
     if flat.size and (int(flat.min()) < lo or int(flat.max()) > hi):
         raise DicomError(
             f"JPEG-LS sample out of range for BitsAllocated={bits}.")
+    return flat.astype(base)
+
+
+def _decode_jpeg2k(fragments: list, rows: int, cols: int, samples: int,
+                   frames: int, bits: int, signed: bool) -> np.ndarray:
+    """JPEG 2000 (`.4.90` lossless / `.4.91`) fragments → flat pixels.
+
+    Same frame grouping as the other encapsulated codecs (J2K frame
+    streams start with SOC FF4F or the JP2 signature box).  The
+    codestream's own SIZ signedness must match the container's
+    PixelRepresentation; color output stays in the post-inverse-MCT
+    space (RGB for YBR_RCT/YBR_ICT photometrics — see ``_pixels``)."""
+    from mdx_torch.io import jpeg2k
+
+    if bits not in (8, 16):
+        raise DicomError(
+            f"JPEG 2000 carries at most 16 bits here "
+            f"(BitsAllocated={bits}).")
+    streams = _group_frame_streams(fragments, frames, "JPEG 2000",
+                                   kind="jpeg2k")
+
+    def _one(stream: bytes) -> np.ndarray:
+        try:
+            img, p, s_signed = jpeg2k.decode(stream)
+        except jpeg2k.Jpeg2kError as exc:
+            raise DicomError(
+                f"Corrupt JPEG 2000 pixel data: {exc}") from exc
+        if p > bits:
+            raise DicomError(
+                f"{p}-bit JPEG 2000 codestream in a {bits}-bit "
+                "container.")
+        if s_signed != signed:
+            raise DicomError(
+                "JPEG 2000 codestream signedness disagrees with "
+                "PixelRepresentation.")
+        shape = img.shape if img.ndim == 3 else img.shape + (1,)
+        if shape != (rows, cols, samples):
+            raise DicomError(
+                f"JPEG 2000 frame is {shape}, dataset says "
+                f"({rows}, {cols}, {samples}).")
+        return img.reshape(-1).astype(np.int64)
+
+    flat = np.concatenate(_map_frames(_one, streams))
+    base = {8: np.int8 if signed else np.uint8,
+            16: np.int16 if signed else np.uint16}[bits]
+    lo, hi = np.iinfo(base).min, np.iinfo(base).max
+    if flat.size and (int(flat.min()) < lo or int(flat.max()) > hi):
+        raise DicomError(
+            f"JPEG 2000 sample out of range for BitsAllocated={bits}.")
     return flat.astype(base)
 
 

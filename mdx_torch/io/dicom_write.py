@@ -8,9 +8,9 @@ toolkit.  Transfer syntaxes: Explicit VR Little Endian (default), RLE
 Lossless (encapsulated, ``mdx_torch.io.rle``), JPEG Lossless SV1
 ``1.2.840.10008.1.2.4.70`` (encapsulated, ``mdx_torch.io.jpegll``),
 JPEG-LS Lossless ``1.2.840.10008.1.2.4.80`` (encapsulated,
-``mdx_torch.io.jpegls``) and Deflated Explicit VR LE (zlib raw deflate of
-the post-meta stream, PS3.5 A.5).  JPEG 2000 Lossless, which the JAX
-package also writes, raises ``ValueError`` until the port has its codec.
+``mdx_torch.io.jpegls``), JPEG 2000 Lossless ``1.2.840.10008.1.2.4.90``
+(encapsulated, ``mdx_torch.io.jpeg2k``) and Deflated Explicit VR LE (zlib
+raw deflate of the post-meta stream, PS3.5 A.5).
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ import zlib
 
 import numpy as np
 
-from mdx_torch.io.dicom import (JPEG_FAMILY_TS, TS_DEFLATED_LE,
-                                TS_EXPLICIT_LE, TS_J2K_LOSSLESS,
-                                TS_JPEG_LL_SV1, TS_JPEG_LS, TS_RLE)
+from mdx_torch.io.dicom import (TS_DEFLATED_LE, TS_EXPLICIT_LE,
+                                TS_J2K_LOSSLESS, TS_JPEG_LL_SV1, TS_JPEG_LS,
+                                TS_RLE)
 
 _SOP_CLASS_SC = "1.2.840.10008.5.1.4.1.1.7"  # Secondary Capture
 
@@ -60,13 +60,9 @@ def write_dicom(
     transfer_syntax: str = TS_EXPLICIT_LE,
 ) -> str:
     """Write ``pixels`` (uint8/uint16/int16 2-D or [F,H,W] 3-D) to *path*."""
-    if transfer_syntax == TS_J2K_LOSSLESS:
-        raise ValueError(
-            f"transfer syntax {transfer_syntax} "
-            f"({JPEG_FAMILY_TS[transfer_syntax]}) is not yet in mdx_torch "
-            "(ROADMAP Queue 1: the codec slice)")
     if transfer_syntax not in (TS_EXPLICIT_LE, TS_RLE, TS_DEFLATED_LE,
-                               TS_JPEG_LL_SV1, TS_JPEG_LS):
+                               TS_JPEG_LL_SV1, TS_JPEG_LS,
+                               TS_J2K_LOSSLESS):
         raise ValueError(f"unsupported transfer syntax {transfer_syntax!r}")
     pixels = np.ascontiguousarray(pixels)
     if pixels.dtype == np.uint8:
@@ -86,26 +82,8 @@ def write_dicom(
     else:
         raise ValueError("pixels must be 2-D or 3-D")
 
-    sop_uid = "1.2.826.0.1.3680043.9.9999.1.1"
-    body = b"".join([
-        _el(0x0008, 0x0016, b"UI", _txt(_SOP_CLASS_SC)),
-        _el(0x0008, 0x0018, b"UI", _txt(sop_uid)),
-        _el(0x0008, 0x0060, b"CS", _txt(modality)),
-        _el(0x0008, 0x1030, b"LO", _txt(study_description)),
-        _el(0x0018, 0x0015, b"CS", _txt(body_part)),
-        _el(0x0028, 0x0002, b"US", struct.pack("<H", 1)),
-        _el(0x0028, 0x0004, b"CS", _txt(photometric)),
-    ])
-    if frames > 1:
-        body += _el(0x0028, 0x0008, b"IS", _txt(str(frames)))
-    body += b"".join([
-        _el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
-        _el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
-        _el(0x0028, 0x0100, b"US", struct.pack("<H", bits)),
-        _el(0x0028, 0x0101, b"US", struct.pack("<H", bits)),
-        _el(0x0028, 0x0102, b"US", struct.pack("<H", bits - 1)),
-        _el(0x0028, 0x0103, b"US", struct.pack("<H", 1 if signed else 0)),
-    ])
+    body = _image_elements(modality, study_description, body_part, 1,
+                           photometric, frames, rows, cols, bits, signed)
     if window_center is not None:
         body += _el(0x0028, 0x1050, b"DS", _txt(f"{window_center:g}"))
     if window_width is not None:
@@ -120,15 +98,53 @@ def write_dicom(
         body += _encapsulated_jpegll(pixels.reshape(frames, rows, cols), bits)
     elif transfer_syntax == TS_JPEG_LS:
         body += _encapsulated_jpegls(pixels.reshape(frames, rows, cols), bits)
+    elif transfer_syntax == TS_J2K_LOSSLESS:
+        body += _encapsulated_jpeg2k(pixels.reshape(frames, rows, cols),
+                                     bits, signed)
     else:
         pixel_bytes = pixels.astype(pixels.dtype.newbyteorder("<")).tobytes()
         body += _el(0x7FE0, 0x0010, b"OW" if bits == 16 else b"OB",
                     pixel_bytes)
 
+    return _write_part10(path, transfer_syntax, body)
+
+
+_SOP_UID = "1.2.826.0.1.3680043.9.9999.1.1"
+
+
+def _image_elements(modality: str, study_description: str, body_part: str,
+                    samples: int, photometric: str, frames: int, rows: int,
+                    cols: int, bits: int, signed: bool) -> bytes:
+    """The dataset's elements up to the pixel module's last, in tag order."""
+    body = b"".join([
+        _el(0x0008, 0x0016, b"UI", _txt(_SOP_CLASS_SC)),
+        _el(0x0008, 0x0018, b"UI", _txt(_SOP_UID)),
+        _el(0x0008, 0x0060, b"CS", _txt(modality)),
+        _el(0x0008, 0x1030, b"LO", _txt(study_description)),
+        _el(0x0018, 0x0015, b"CS", _txt(body_part)),
+        _el(0x0028, 0x0002, b"US", struct.pack("<H", samples)),
+        _el(0x0028, 0x0004, b"CS", _txt(photometric)),
+    ])
+    if samples > 1:
+        body += _el(0x0028, 0x0006, b"US", struct.pack("<H", 0))
+    if frames > 1:
+        body += _el(0x0028, 0x0008, b"IS", _txt(str(frames)))
+    return body + b"".join([
+        _el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        _el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        _el(0x0028, 0x0100, b"US", struct.pack("<H", bits)),
+        _el(0x0028, 0x0101, b"US", struct.pack("<H", bits)),
+        _el(0x0028, 0x0102, b"US", struct.pack("<H", bits - 1)),
+        _el(0x0028, 0x0103, b"US", struct.pack("<H", 1 if signed else 0)),
+    ])
+
+
+def _write_part10(path: str, transfer_syntax: str, body: bytes) -> str:
+    """Preamble, file meta and ``body`` (deflated for that syntax)."""
     meta_elements = b"".join([
         _el(0x0002, 0x0001, b"OB", b"\x00\x01"),
         _el(0x0002, 0x0002, b"UI", _txt(_SOP_CLASS_SC)),
-        _el(0x0002, 0x0003, b"UI", _txt(sop_uid)),
+        _el(0x0002, 0x0003, b"UI", _txt(_SOP_UID)),
         _el(0x0002, 0x0010, b"UI", _txt(transfer_syntax)),
         _el(0x0002, 0x0012, b"UI", _txt("1.2.826.0.1.3680043.9.9999")),
     ])
@@ -147,19 +163,46 @@ def write_dicom(
     return path
 
 
-def _encapsulated_rle(frames_arr: np.ndarray) -> bytes:
-    """[F, H, W] → encapsulated RLE PixelData element bytes."""
-    from mdx_torch.io import rle
-
+def _fragments(frags) -> bytes:
+    """Encapsulated PixelData: an empty offset table, one item a fragment
+    (padded to even length), the sequence delimiter."""
     out = [struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF),
-           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
-    for frame in frames_arr:
-        frag = rle.encode_frame(frame)
+           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]
+    for frag in frags:
         if len(frag) % 2:
             frag += b"\x00"
         out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
     out.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
     return b"".join(out)
+
+
+def write_codestreams(path: str, streams: list, rows: int, cols: int, *,
+                      transfer_syntax: str, bits: int = 16,
+                      samples: int = 1, photometric: str = "MONOCHROME2",
+                      signed: bool = False, modality: str = "CT",
+                      body_part: str = "CHEST",
+                      study_description: str = "mdx synthetic") -> str:
+    """Write frame codestreams another encoder made, one fragment a frame,
+    as an encapsulated part-10 file of ``transfer_syntax`` (for example a
+    ``.4.91`` JPEG 2000 file from irreversible 9/7 codestreams, which no
+    encoder of the port writes).  The streams are written as given."""
+    body = _image_elements(modality, study_description, body_part, samples,
+                           photometric, len(streams), rows, cols, bits,
+                           signed)
+    return _write_part10(path, transfer_syntax,
+                         body + _fragments(bytes(s) for s in streams))
+
+
+def _encapsulated_rle(frames_arr: np.ndarray) -> bytes:
+    """[F, H, W] → encapsulated RLE PixelData element bytes."""
+    from mdx_torch.io import rle
+
+    return _fragments(rle.encode_frame(frame) for frame in frames_arr)
+
+
+def _twos_complement(frame: np.ndarray, bits: int) -> np.ndarray:
+    """A frame's unsigned two's-complement representation in ``bits``."""
+    return (frame.astype(np.int64) & ((1 << bits) - 1)).astype(np.uint16)
 
 
 def _encapsulated_jpegll(frames_arr: np.ndarray, bits: int) -> bytes:
@@ -171,16 +214,9 @@ def _encapsulated_jpegll(frames_arr: np.ndarray, bits: int) -> bytes:
     """
     from mdx_torch.io import jpegll
 
-    out = [struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF),
-           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
-    for frame in frames_arr:
-        u = (frame.astype(np.int64) & ((1 << bits) - 1)).astype(np.uint16)
-        frag = jpegll.encode(u, precision=bits, predictor=1)
-        if len(frag) % 2:
-            frag += b"\x00"
-        out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
-    out.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
-    return b"".join(out)
+    return _fragments(
+        jpegll.encode(_twos_complement(frame, bits), precision=bits,
+                      predictor=1) for frame in frames_arr)
 
 
 def _encapsulated_jpegls(frames_arr: np.ndarray, bits: int) -> bytes:
@@ -193,16 +229,29 @@ def _encapsulated_jpegls(frames_arr: np.ndarray, bits: int) -> bytes:
     """
     from mdx_torch.io import jpegls
 
-    out = [struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF),
-           struct.pack("<HHI", 0xFFFE, 0xE000, 0)]  # empty offset table
-    for frame in frames_arr:
-        u = (frame.astype(np.int64) & ((1 << bits) - 1)).astype(np.uint16)
-        frag = jpegls.encode(u, precision=bits)
-        if len(frag) % 2:
-            frag += b"\x00"
-        out.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
-    out.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
-    return b"".join(out)
+    return _fragments(jpegls.encode(_twos_complement(frame, bits),
+                                    precision=bits) for frame in frames_arr)
+
+
+def _encapsulated_jpeg2k(frames_arr: np.ndarray, bits: int,
+                         signed: bool) -> bytes:
+    """[F, H, W] → encapsulated JPEG 2000 Lossless PixelData bytes.
+
+    Unlike the JPEG-LL/LS convention, J2K codes signedness in the
+    codestream itself (SIZ sign flag, no DC shift for signed data), and
+    the reader cross-checks it against PixelRepresentation
+    (mdx_torch/io/dicom.py:_decode_jpeg2k)."""
+    from mdx_torch.io import jpeg2k
+
+    # depth follows the container: int8 keeps an 8-bit SIZ (a 16-bit
+    # codestream in a BitsAllocated=8 container would be refused by the
+    # reader's p > bits check)
+    if signed:
+        dt = np.int8 if bits == 8 else np.int16
+    else:
+        dt = np.uint8 if bits == 8 else np.uint16
+    return _fragments(jpeg2k.encode(frame.astype(dt), signed=signed)
+                      for frame in frames_arr)
 
 
 def write_synthetic_dicom(path: str, kind: str = "noisy", size: int = 256,

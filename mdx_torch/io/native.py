@@ -1,11 +1,13 @@
 """ctypes bindings of the port's host C++ codec loops
 (``mdx_torch/csrc/host/codecs.cpp``).
 
-The counterpart of the JAX package's ``mdx/io/native.py`` for the four
-entropy loops of the lossless JPEG codecs: JPEG Lossless's Huffman decode
-and bit packer (:mod:`mdx_torch.io.jpegll`) and JPEG-LS's scan decode and
-encode (:mod:`mdx_torch.io.jpegls`).  The wrappers take the same arguments,
-give the same returns and raise the same errors as the JAX package's.
+The counterpart of the JAX package's ``mdx/io/native.py`` for the six
+entropy loops of the lossless JPEG and JPEG 2000 codecs: JPEG Lossless's
+Huffman decode and bit packer (:mod:`mdx_torch.io.jpegll`), JPEG-LS's scan
+decode and encode (:mod:`mdx_torch.io.jpegls`) and JPEG 2000's EBCOT
+Tier-1 decode and encode of one code-block (:mod:`mdx_torch.io.jpeg2k`).
+The wrappers take the same arguments, give the same returns and raise the
+same errors as the JAX package's.
 
 At first use the source is compiled with the host C++ compiler (``$CXX``,
 else ``g++``, else ``c++``) into ``build/mdx_torch_host/`` at the root of
@@ -21,7 +23,9 @@ loops, a failed build raises :class:`NativeBuildError` with the compiler's
 output.  The codecs run their Python loops only where the JAX package does
 with its library built (a multi-component JPEG Lossless scan), or when the
 caller sets ``MDX_NO_NATIVE=1``, the variable the JAX package reads.
-``CALLS`` counts the calls of each wrapper.
+``CALLS`` counts the calls of each wrapper that reach the library (a
+JPEG 2000 code-block with no coding pass is zeros without a call, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -52,11 +56,15 @@ SIGNATURES = {
     + (_I64, _I32, _I32, _I32, _P, ctypes.POINTER(_I64)),
     "mdx_torch_io_jpegls_encode": (_P,) + (_I32,) * 8
     + (_I64, _I32, _I32, _I32, _P, _I64),
+    "mdx_torch_io_jpeg2k_t1": (_P,) * 5 + (_I32,) * 7 + (_P,),
+    "mdx_torch_io_jpeg2k_t1_enc": (_P, _P, _I32, _I32, _I32, _P, _I64,
+                                   ctypes.POINTER(_I32),
+                                   ctypes.POINTER(_I32)),
 }
 
 # calls of each wrapper since the last reset_calls()
 CALLS = {"jpegll_diffs": 0, "jpegll_pack": 0, "jpegls_decode": 0,
-         "jpegls_encode": 0}
+         "jpegls_encode": 0, "jpeg2k_t1_block": 0, "jpeg2k_t1_encode": 0}
 # how the loaded library came to be: compiler, its version, build seconds
 # (None where an earlier build was reused) and the library's path
 BUILD: dict = {}
@@ -260,3 +268,71 @@ def jpegls_encode(plane: np.ndarray, params) -> bytes:
     if rc < 0:
         _jpegls_raise(int(rc))
     return out[:int(rc)].tobytes()
+
+
+def _check_block(w: int, h: int, btype: int) -> None:
+    if w < 1 or h < 1 or not 0 <= btype <= 3:
+        raise ValueError(f"jpeg2k Tier-1: code-block of {h} x {w} "
+                         f"samples, band type {btype}")
+
+
+def jpeg2k_t1_block(chunks, btype: int, mb: int, zbp: int, total: int,
+                    w: int, h: int, cb_style: int) -> np.ndarray:
+    """EBCOT Tier-1 decode of one code-block, bit-identical values
+    (including the in-loop half-LSB reconstruction) and errors to
+    ``jpeg2k._t1_decode_block``, its plain version."""
+    from mdx_torch.io.jpeg2k import Jpeg2kError, _Block, _codeword_segments
+
+    numbps = mb - zbp
+    if total <= 0 or numbps <= 0 or not chunks:
+        return np.zeros((h, w), np.int32)
+    _check_block(w, h, btype)
+    blk = _Block(0, 0, w, h)
+    blk.chunks = chunks
+    segments = _codeword_segments(blk, cb_style, numbps)
+    seg_data = b"".join(s[0] for s in segments)
+    lens = np.array([len(s[0]) for s in segments], np.int64)
+    firsts = np.array([s[1] for s in segments], np.int32)
+    npasses = np.array([s[2] for s in segments], np.int32)
+    raws = np.array([1 if s[3] else 0 for s in segments], np.uint8)
+    buf = np.frombuffer(seg_data, np.uint8) if seg_data else \
+        np.zeros(1, np.uint8)
+    lib = load()
+    out = np.zeros((h, w), np.int32)
+    _count("jpeg2k_t1_block")
+    rc = lib.mdx_torch_io_jpeg2k_t1(
+        _ptr(buf), _ptr(lens), _ptr(firsts), _ptr(npasses), _ptr(raws),
+        len(segments), w, h, btype, numbps, total, cb_style, _ptr(out))
+    if rc == -1:
+        raise Jpeg2kError(
+            "Segmentation symbol mismatch (corrupt entropy data).")
+    if rc != 0:
+        raise Jpeg2kError(f"native Tier-1 error {rc}")
+    return out
+
+
+def jpeg2k_t1_encode(vals: np.ndarray, btype: int):
+    """EBCOT Tier-1 encode of one code-block, byte-identical codewords to
+    ``jpeg2k._t1_encode_block``, its plain version.  Returns ``(bytes,
+    numbps, npasses)``."""
+    v = np.asarray(vals).astype(np.int64)
+    if v.ndim != 2:
+        raise ValueError(f"jpeg2k Tier-1: a code-block of {v.ndim} axes")
+    h, w = v.shape
+    _check_block(w, h, btype)
+    mag = np.abs(v)
+    if mag.size and int(mag.max()) >= 1 << 30:
+        raise ValueError("jpeg2k Tier-1: a coefficient of 31 bits or more")
+    mag = np.ascontiguousarray(mag, dtype=np.int32)
+    neg = np.ascontiguousarray(v < 0, dtype=np.uint8)
+    lib = load()
+    cap = int(h * w * 8 + 4096)
+    out = np.empty(cap, np.uint8)
+    numbps, npasses = _I32(), _I32()
+    _count("jpeg2k_t1_encode")
+    rc = lib.mdx_torch_io_jpeg2k_t1_enc(
+        _ptr(mag), _ptr(neg), w, h, btype, _ptr(out), cap,
+        ctypes.byref(numbps), ctypes.byref(npasses))
+    if rc < 0:
+        raise RuntimeError("native Tier-1 encode overflow")
+    return bytes(out[:rc]), int(numbps.value), int(npasses.value)

@@ -31,7 +31,7 @@ import torch
 
 import main as jax_main
 from mdx.io import dicom_write as JW
-from mdx.io.dicom import TS_J2K_LOSSLESS
+from mdx.io.dicom import TS_J2K_LOSSLESS, TS_JPEG_BASELINE
 from mdx_torch import __main__ as cli
 from mdx_torch import parity
 from mdx_torch.io import write_synthetic_dicom
@@ -102,14 +102,20 @@ def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
         assert cli.main(["--input", path, flag], device="cpu") == 1
         out = capsys.readouterr().out
         assert out.startswith("ERROR: ") and words in out, out
+    # a DCT JPEG file: the .4.90 file with its UID rewritten (both 22
+    # characters); the port does not decode .4.50 yet
     j2k = JW.write_dicom(str(tmp_path / "j2k.dcm"),
                          np.arange(256, dtype=np.uint16).reshape(16, 16),
                          transfer_syntax=TS_J2K_LOSSLESS)
-    assert cli.main(["--input", j2k, "--output", str(tmp_path / "o")],
+    dct = str(tmp_path / "dct.dcm")
+    with open(dct, "wb") as f:
+        f.write(open(j2k, "rb").read().replace(TS_J2K_LOSSLESS.encode(),
+                                                TS_JPEG_BASELINE.encode()))
+    assert cli.main(["--input", dct, "--output", str(tmp_path / "o")],
                     device="cpu") == 1
     out = capsys.readouterr().out
-    assert re.match(r"ERROR: transfer syntax 1\.2\.840\.10008\.1\.2\.4\.90 "
-                    r"\(JPEG 2000 Lossless\) is not yet in mdx_torch", out), out
+    assert re.match(r"ERROR: transfer syntax 1\.2\.840\.10008\.1\.2\.4\.50 "
+                    r"\(JPEG Baseline\) is not yet in mdx_torch", out), out
     missing = ["--input", str(tmp_path / "nope.dcm"), "--output",
                str(tmp_path / "o"), "--no-show"]
     (rc_j, out_j), (rc_p, out_p) = _outputs(capsys, missing)

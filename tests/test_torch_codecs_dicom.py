@@ -1,6 +1,7 @@
-"""The port's reader and writer on JPEG Lossless (``.4.57``, ``.4.70``) and
-JPEG-LS (``.4.80``, ``.4.81``) files, against the JAX package's on the same
-files, and the port's CLI on such files.
+"""The port's reader and writer on JPEG Lossless (``.4.57``, ``.4.70``),
+JPEG-LS (``.4.80``, ``.4.81``) and JPEG 2000 (``.4.90``, ``.4.91``) files,
+against the JAX package's on the same files, and the port's CLI on such
+files.
 
 * ``load_dicom``, ``load_series`` and ``load_frames_raw`` (and
   ``decode_pixels``) equal to JAX's, bit for bit, on files written by JAX's
@@ -11,12 +12,18 @@ files, and the port's CLI on such files.
   groupings that disagree with the dataset;
 * frames decoded on threads equal to frames decoded serially, RLE frames
   through the same pool;
-* the writer: ``.4.90``, ``.4.57`` and ``.4.81`` refused with their UID
-  (the byte-equal files of ``.4.70`` and ``.4.80`` are in
-  ``tests/test_torch_io.py``);
-* ``main(["--input", f], device="cpu")`` on a 64^2 ``.4.70`` slice and,
-  with ``--batch``, a 3-frame ``.4.80`` series: rc 0, records equal to its
-  explicit-LE twin's run and to JAX's ``main.py`` within ``parity``.
+* the writer: ``.4.91``, ``.4.57`` and ``.4.81`` refused with their UID
+  by both packages (the byte-equal files of ``.4.70``, ``.4.80`` and
+  ``.4.90`` are in ``tests/test_torch_io.py``);
+* ``main(["--input", f], device="cpu")`` on a 64^2 ``.4.70`` and ``.4.90``
+  slice and, with ``--batch``, a 3-frame ``.4.80`` and ``.4.90`` series:
+  rc 0, records equal to its explicit-LE twin's run and to JAX's
+  ``main.py`` within ``parity``; and on the committed ``.4.91`` fixture
+  (``tests/torch_fixtures/j2k/``, a YBR_ICT file): rc 0, the report and
+  records as JAX's.
+
+JPEG 2000 frames from Pillow's encoder (9/7, colour, JP2, grouping) are in
+``tests/test_torch_jpeg2k.py``.
 
 The JAX reader sends a modality rescale to its C++ loop, which differs from
 numpy's by one ulp (ROADMAP Queue 3); the comparisons run its numpy body,
@@ -25,6 +32,7 @@ as ``tests/test_torch_io.py`` does.
 
 import re
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,7 +47,11 @@ from mdx_torch.io import dicom as PD
 from mdx_torch.io import dicom_write as PW
 from mdx_torch.io import native
 
-SYNTAXES = {"jpeg_ll": JD.TS_JPEG_LL_SV1, "jpeg_ls": JD.TS_JPEG_LS}
+SYNTAXES = {"jpeg_ll": JD.TS_JPEG_LL_SV1, "jpeg_ls": JD.TS_JPEG_LS,
+            "j2k": JD.TS_J2K_LOSSLESS}
+# the host entry point each syntax decodes through
+DECODE_CALL = {"jpeg_ll": "jpegll_diffs", "jpeg_ls": "jpegls_decode",
+               "j2k": "jpeg2k_t1_block"}
 
 
 @pytest.fixture
@@ -106,9 +118,13 @@ def test_reader_matches_jax(tmp_path, _jax_numpy_rescale, syntax, case):
     path = JW.write_dicom(str(tmp_path / "f.dcm"), pix,
                           transfer_syntax=SYNTAXES[syntax], **kw)
     native.reset_calls()
+    PD.decode_pixels(PD.read_dataset(path))
+    once = native.CALLS[DECODE_CALL[syntax]]  # JPEG 2000: one a code-block
+    if syntax != "j2k":
+        assert once == (pix.shape[0] if pix.ndim == 3 else 1)
+    native.reset_calls()
     _assert_reads_equal(path)
-    key = "jpegll_diffs" if syntax == "jpeg_ll" else "jpegls_decode"
-    assert native.CALLS[key] == 7 * (pix.shape[0] if pix.ndim == 3 else 1)
+    assert native.CALLS[DECODE_CALL[syntax]] == 7 * once > 0
     twin = JW.write_dicom(str(tmp_path / "le.dcm"), pix, **kw)
     _same(PD.load_frames_raw(path), PD.load_frames_raw(twin))
 
@@ -215,6 +231,8 @@ def test_decode_errors_same(tmp_path, syntax, defect, match):
     rng = np.random.default_rng(7)
     pix = rng.integers(300, 4096, (3, 24, 20)).astype(np.uint16)
     p_ds, j_ds = _dataset_pair(tmp_path, syntax, pix)
+    if syntax == "j2k" and defect == "bits8":   # J2K checks the depth first
+        match = "16-bit JPEG 2000 codestream in a 8-bit container"
     for ds in (p_ds, j_ds):
         if defect == "bits8":
             ds.attrs["BitsAllocated"] = 8
@@ -257,15 +275,14 @@ def test_threads_match_serial(tmp_path, monkeypatch, syntax):
         PD.decode_pixels(ds)
 
 
-@pytest.mark.parametrize("ts", [JD.TS_J2K_LOSSLESS, JD.TS_JPEG_LL,
+@pytest.mark.parametrize("ts", [JD.TS_J2K, JD.TS_JPEG_LL,
                                 JD.TS_JPEG_LS_NEAR])
 def test_writer_refuses_what_it_does_not_write(tmp_path, ts):
     pix = np.arange(64, dtype=np.uint16).reshape(8, 8)
-    with pytest.raises(ValueError, match=re.escape(ts)):
-        PW.write_dicom(str(tmp_path / "p.dcm"), pix, transfer_syntax=ts)
-    if ts != JD.TS_J2K_LOSSLESS:          # JAX's writer refuses these too
+    for writer in (PW, JW):               # both refuse, naming the UID
         with pytest.raises(ValueError, match=re.escape(ts)):
-            JW.write_dicom(str(tmp_path / "j.dcm"), pix, transfer_syntax=ts)
+            writer.write_dicom(str(tmp_path / "w.dcm"), pix,
+                               transfer_syntax=ts)
 
 
 @pytest.mark.parametrize("syntax", sorted(SYNTAXES))
@@ -320,7 +337,8 @@ def _rows_tree(rows: list[dict]) -> dict:
 
 
 @pytest.mark.parametrize("syntax,flags", [("jpeg_ll", []),
-                                          ("jpeg_ls", ["--batch"])])
+                                          ("jpeg_ls", ["--batch"]),
+                                          ("j2k", []), ("j2k", ["--batch"])])
 def test_cli_on_compressed_files(tmp_path, db, capsys, _jax_numpy_rescale,
                                  syntax, flags):
     from mdx_torch.io import write_synthetic_dicom
@@ -338,8 +356,7 @@ def test_cli_on_compressed_files(tmp_path, db, capsys, _jax_numpy_rescale,
     native.reset_calls()
     assert cli.main(argv(comp), device="cpu") == 0
     text_p = capsys.readouterr().out
-    assert native.CALLS["jpegll_diffs" if syntax == "jpeg_ll"
-                        else "jpegls_decode"] >= frames
+    assert native.CALLS[DECODE_CALL[syntax]] >= frames
     assert cli.main(argv(twin), device="cpu") == 0
     text_twin = capsys.readouterr().out
     port, port_twin = _runs()[:frames], _runs(frames)[:frames]
@@ -357,3 +374,30 @@ def test_cli_on_compressed_files(tmp_path, db, capsys, _jax_numpy_rescale,
     assert [r["issues"] for r in jax_rows] == [r["issues"] for r in port]
     assert not parity.breaches(_rows_tree(port), _rows_tree(jax_rows),
                                hw=64 * 64)
+
+
+def test_cli_on_lossy_j2k_fixture(tmp_path, db, capsys, _jax_numpy_rescale):
+    """A ``.4.91`` YBR_ICT file of the committed 9/7 fixture: the port's CLI
+    exits 0 with JAX's report and records.  On this file no op changes the
+    noise: the port's ``noise_change`` is -0.0 and JAX's a float32 residue
+    below zero, so the reports print "+-0.0%" and "-0.0%"; the mask takes a
+    number's sign prefix with it, and the records hold the numbers."""
+    fixture = Path(__file__).resolve().parent / "torch_fixtures" / "j2k"
+    stream = (fixture / "rgb_ict_tiled.j2k").read_bytes()
+    path = PW.write_codestreams(str(tmp_path / "x.dcm"), [stream], 96, 80,
+                                transfer_syntax=JD.TS_J2K, bits=8, samples=3,
+                                photometric="YBR_ICT")
+    argv = ["--input", path, "--output", str(tmp_path / "out"), "--no-show"]
+    native.reset_calls()
+    assert cli.main(argv, device="cpu") == 0
+    text_p = capsys.readouterr().out
+    assert native.CALLS["jpeg2k_t1_block"] > 0
+    assert jax_main.main(argv) == 0
+    text_j = capsys.readouterr().out
+    text_j = text_j.replace("one compiled program", "one batched pass")
+    signed = re.compile(r"[+-]*\d+(?:\.\d+)?")
+    assert signed.sub("#", text_p) == signed.sub("#", text_j)
+    port, jax_rows = _runs()[:1], _runs(1)
+    assert [r["issues"] for r in jax_rows] == [r["issues"] for r in port]
+    assert not parity.breaches(_rows_tree(port), _rows_tree(jax_rows),
+                               hw=96 * 80)

@@ -841,26 +841,26 @@ def test_sharded_qa_two_ranks_equal_one_on_the_card(dev):
     assert not bad, bad
 
 
-def test_run_pipeline_jpeg_lossless_equals_its_twin_on_the_card(
-        dev, tmp_path, monkeypatch):
-    """A 512^2 JPEG Lossless SV1 (``.4.70``) file through ``run_pipeline``
-    on the card: the host C++ decode ran, and the run's records (issues,
-    ops, status, flags, metrics, enhanced image) are equal to its
-    explicit-LE twin's, bit for bit: the same pixels reach the card."""
+def _compressed_run_equals_twin(dev, tmp_path, monkeypatch, ts: str,
+                                host_call: str):
+    """A 512^2 file of syntax ``ts`` through ``run_pipeline`` on the card:
+    the host C++ decode ran (``native.CALLS[host_call]``), and the run's
+    records (issues, ops, status, flags, metrics, enhanced image) are equal
+    to its explicit-LE twin's, bit for bit: the same pixels reach the
+    card."""
     from mdx_torch.io import native, write_synthetic_dicom
-    from mdx_torch.io.dicom import TS_JPEG_LL_SV1
     from mdx_torch.pipeline.runner import run_pipeline
 
     monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
     kw = dict(kind="phantom", size=512, seed=3)
-    comp = write_synthetic_dicom(str(tmp_path / "ll.dcm"),
-                                 transfer_syntax=TS_JPEG_LL_SV1, **kw)
+    comp = write_synthetic_dicom(str(tmp_path / "comp.dcm"),
+                                 transfer_syntax=ts, **kw)
     twin = write_synthetic_dicom(str(tmp_path / "le.dcm"), **kw)
     native.reset_calls()
     kernels.reset_launches()
     got = run_pipeline(comp, str(tmp_path / "o"), device=dev,
                        save_artifacts=False)
-    assert native.CALLS["jpegll_diffs"] > 0
+    assert native.CALLS[host_call] > 0
     assert kernels.LAUNCHES["box_stats"] > 0
     want = run_pipeline(twin, str(tmp_path / "o"), device=dev,
                         save_artifacts=False)
@@ -871,3 +871,21 @@ def test_run_pipeline_jpeg_lossless_equals_its_twin_on_the_card(
     assert a.keys() == b.keys()
     for k in a:
         assert np.array_equal(a[k], b[k], equal_nan=True), k
+
+
+def test_run_pipeline_jpeg_lossless_equals_its_twin_on_the_card(
+        dev, tmp_path, monkeypatch):
+    """``.4.70`` (JPEG Lossless SV1) against its explicit-LE twin."""
+    from mdx_torch.io.dicom import TS_JPEG_LL_SV1
+
+    _compressed_run_equals_twin(dev, tmp_path, monkeypatch, TS_JPEG_LL_SV1,
+                                "jpegll_diffs")
+
+
+def test_run_pipeline_jpeg2k_equals_its_twin_on_the_card(
+        dev, tmp_path, monkeypatch):
+    """``.4.90`` (JPEG 2000 Lossless) against its explicit-LE twin."""
+    from mdx_torch.io.dicom import TS_J2K_LOSSLESS
+
+    _compressed_run_equals_twin(dev, tmp_path, monkeypatch, TS_J2K_LOSSLESS,
+                                "jpeg2k_t1_block")

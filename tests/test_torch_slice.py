@@ -294,12 +294,17 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
         assert it.tolist() == [4, 4] and bool(torch.isfinite(out).all())
         import tempfile
         from mdx_torch.io import load_dicom, native, write_synthetic_dicom
-        from mdx_torch.io.dicom import TS_JPEG_LL_SV1
+        from mdx_torch.io.dicom import TS_J2K_LOSSLESS, TS_JPEG_LL_SV1
         with tempfile.TemporaryDirectory() as tmp:
             ll = write_synthetic_dicom(tmp + "/ll.dcm", kind="phantom",
                                        size=48, transfer_syntax=TS_JPEG_LL_SV1)
             img, _ = load_dicom(ll)
+            j2k = write_synthetic_dicom(tmp + "/j2k.dcm", kind="phantom",
+                                        size=48, transfer_syntax=TS_J2K_LOSSLESS)
+            assert np.array_equal(load_dicom(j2k)[0], img)
         assert native.CALLS["jpegll_pack"] == native.CALLS["jpegll_diffs"] == 1
+        assert native.CALLS["jpeg2k_t1_encode"] > 0
+        assert native.CALLS["jpeg2k_t1_block"] > 0
         det = qa.qa_deterministic(torch.from_numpy(
             mdx_torch.io.normalize_image(img))[None])
         assert det[0].shape == (1, 48, 48)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
-paths, capability probe, CLI, spatial runner, data axis and lossless JPEG and
-JPEG 2000 codecs on one NVIDIA GPU.
+paths, capability probe, CLI, spatial runner, data axis, JPEG codecs
+(lossless JPEG, JPEG-LS, DCT JPEG, JPEG 2000) and transcoder on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -192,9 +193,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       stream that overlapped a kernel in one traced run;
    4. times: img/s of the three bodies at n_data = 1 and 2 (the slowest
       rank's median call), the launch walls and each rank's compute.
-15. codecs — JPEG Lossless, JPEG-LS and JPEG 2000 (``mdx_torch.io.jpegll``,
-   ``jpegls``, ``jpeg2k``, their entropy and EBCOT Tier-1 loops in
-   ``mdx_torch/csrc/host/codecs.cpp`` through ``mdx_torch.io.native``),
+15. codecs — JPEG Lossless, JPEG-LS, DCT JPEG and JPEG 2000
+   (``mdx_torch.io.jpegll``, ``jpegls``, ``jpegdct``, ``jpeg2k``, their
+   entropy and EBCOT Tier-1 loops and PackBits in
+   ``mdx_torch/csrc/host/codecs.cpp`` through ``mdx_torch.io.native``) and
+   the transcoder (``mdx_torch.io.transcode``),
    ``MDX_DB_PATH`` in a temporary directory; phase 12's pixels (the four
    512^2 CT slices, the 2048^2 chest X-ray, the 64-frame series) written
    again with the port's writer in explicit LE, ``.4.70``, ``.4.80`` and
@@ -204,7 +207,14 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    ``.4.91`` codestreams of ``tests/torch_fixtures/j2k/`` (irreversible
    9/7, made by Pillow) wrapped as DICOM files: a 512^2 CT slice (its
    decoded pixels in explicit LE as its twin) and a 96 x 80 YBR_ICT
-   colour image:
+   colour image; the four committed DCT JPEG codestreams of
+   ``tests/torch_fixtures/jpegdct/`` (Pillow's libjpeg and a test-only
+   12-bit encoder) wrapped as DICOM files: a 512^2 8-bit slice with restart
+   intervals, the same progressive, a 480 x 640 YBR_FULL_422 ultrasound
+   frame (``.4.50``) and a 256^2 12-bit slice (``.4.51``), a 16-frame
+   ``.4.50`` series of the two 512^2 streams, and config 5's mixed
+   directory with the ultrasound frame as its 8 ultrasound files; each DCT
+   file's twin is its transcode to explicit LE:
    1. the host library built from the checkout's source at first use: the
       compiler, its version and the build seconds;
    2. every lossless file's pixels bit-equal to its explicit-LE twin's; the
@@ -213,12 +223,15 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       encoded and decoded alike through the host loops and the Python
       loops; the 512^2 frame through JPEG 2000's host loops (bit-equal
       round trip), its 128^2 corner and the ``.4.91`` colour fixture
-      through both JPEG 2000 loops alike; every host entry point used
-      (``native.CALLS``);
-   3. ``main([...], device="cuda")`` in two paths, counters reset before
+      through both JPEG 2000 loops alike; every DCT file's pixels equal to
+      its twin's, each DCT fixture decoded alike through the host and
+      Python loops, a 512^2 RLE fragment (PackBits) encoded and decoded
+      alike through both; every host entry point used (``native.CALLS``);
+   3. ``main([...], device="cuda")`` in three paths, counters reset before
       each and read after: ``codecs`` (the ``.4.57``, ``.4.70``, ``.4.80``
-      and ``.4.81`` files) and ``codecs_j2k`` (the ``.4.90`` and ``.4.91``
-      files): every single file and its twin deterministic and
+      and ``.4.81`` files), ``codecs_j2k`` (the ``.4.90`` and ``.4.91``
+      files) and ``codecs_dct`` (the ``.4.50`` and ``.4.51`` files): every
+      single file and its twin deterministic and
       ``--autotune``, ``--batch`` on the path's series (raw and
       ``--autotune``): rc 0, the report printed equal to the file, records
       finite; each run's records (issues, ops, status, pass flags) equal
@@ -226,8 +239,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       printed; each ``.4.91`` file's deterministic run against its run on
       the CPU the same way; B, U, C and 10 launched in each path; the
       ``.4.70`` and ``.4.90`` blurred slices' kernel calls replayed against
-      the plain versions; ``--spatial`` on the ``.4.70`` and ``.4.90``
-      chest X-rays at k = 1 against the explicit-LE file's run;
+      the plain versions (and the ``.4.50`` slice with restarts); the
+      mixed directory with ``.4.50`` ultrasound under ``--batch --window``
+      against its twin directory (path ``codecs_dct_mixed``);
+      ``--spatial`` on the ``.4.70`` and ``.4.90`` chest X-rays at k = 1
+      against the explicit-LE file's run;
    4. times beside the card and the host's CPU model and cores: ms a frame
       to encode and decode each family through the host loops at 512^2
       and 2048^2 (the JPEG 2000 decode split into Tier-1, inverse DWT and
@@ -235,7 +251,15 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       JPEG 2000's host and Python loops at 128^2 (``tools/time_codecs.py``),
       frames/s of the series in explicit LE, ``.4.70``, ``.4.80`` and
       ``.4.90`` in turns, the warm ``run_pipeline`` of each syntax at 512^2
-      and 2048^2 by phase (``decode`` holds the codec).
+      and 2048^2 by phase (``decode`` holds the codec), each DCT fixture's
+      decode split into the entropy loops, the IDCT and the rest, the
+      transcoder's ms from explicit LE to each lossless target at 512^2
+      and 2048^2 and from ``.4.50`` to explicit LE, the warm
+      ``run_pipeline`` of the ``.4.50`` slice and ultrasound frame and
+      their twins;
+   5. every phase-15 file transcoded to each target the transcoder accepts
+      for it (colour: explicit LE and deflated) on a pool of worker
+      processes and read back pixel-equal to the source's decode.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -837,13 +861,16 @@ def _time_kernels(torch, kernels, check, x, params, card: str) -> dict:
 
 def _run_path(torch, kernels, label: str, fn):
     """``fn()`` with every launch counter reset just before and read just
-    after; returns (result, launches)."""
+    after; returns (result, launches).  Prints the launches and the wall
+    seconds of ``fn``."""
     torch.cuda.synchronize()
     kernels.reset_launches()
+    t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"launches in {label}: {launches}")
+    print(f"launches in {label}: {launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
     return res, launches
 
 
@@ -1544,6 +1571,26 @@ def _blurred_phantom(size: int):
     return np.rint(p).astype(np.uint16)
 
 
+def _mixed_ct_cxr(d: str, also_ct=()) -> None:
+    """Config 5's CT slices (VOI windows) and chest X-rays, written into
+    ``d``; the CT slices also into each directory of ``also_ct``."""
+    import numpy as np
+
+    from mdx_torch.io import write_dicom, write_synthetic_dicom
+    from mdx_torch.tools import make_batch
+
+    for i in range(MIXED_CT):
+        for dd in (d, *also_ct):
+            write_synthetic_dicom(f"{dd}/ct{i}.dcm", kind="phantom",
+                                  size=CLI_SIZE, seed=30 + i,
+                                  window_center=1024.0 + 16 * i,
+                                  window_width=2048.0)
+    for i in range(MIXED_CXR):
+        pix = np.rint(make_batch(1, BIG, seed=40 + i)[0] * 65535)
+        write_dicom(f"{d}/cxr{i}.dcm", pix.astype(np.uint16),
+                    modality="DX", body_part="CHEST")
+
+
 def _cli_inputs(root) -> dict:
     """Phase 12's files, written with the port's writer under ``root``."""
     import os
@@ -1574,16 +1621,7 @@ def _cli_inputs(root) -> dict:
     os.makedirs(mixed)
     os.makedirs(ct_only)
     rng = np.random.default_rng(9)
-    for i in range(MIXED_CT):
-        for d in (mixed, ct_only):
-            write_synthetic_dicom(f"{d}/ct{i}.dcm", kind="phantom",
-                                  size=CLI_SIZE, seed=30 + i,
-                                  window_center=1024.0 + 16 * i,
-                                  window_width=2048.0)
-    for i in range(MIXED_CXR):
-        pix = np.rint(make_batch(1, BIG, seed=40 + i)[0] * 65535)
-        write_dicom(f"{mixed}/cxr{i}.dcm", pix.astype(np.uint16),
-                    modality="DX", body_part="CHEST")
+    _mixed_ct_cxr(mixed, also_ct=(ct_only,))
     yy, xx = np.mgrid[0:US_SHAPE[0], 0:US_SHAPE[1]]
     for i in range(MIXED_US):
         speckle = rng.gamma(4.0, 0.25, US_SHAPE)
@@ -2358,6 +2396,66 @@ def _codec_inputs(root) -> tuple[dict, object]:
     return f, blurred
 
 
+# the committed DCT JPEG codestreams (tests/test_torch_jpegdct.py made them:
+# Pillow's libjpeg and a test-only SOF1 encoder): a 512^2 8-bit slice with
+# restart intervals and the same progressive, a 480 x 640 colour ultrasound
+# frame at YBR 4:2:2, a 256^2 12-bit slice (.4.51)
+DCT_FIXTURES = "tests/torch_fixtures/jpegdct"
+DCT_FILES = {"ct_rst": ("ct512_rst.jpg", (512, 512), {}),
+             "ct_prog": ("ct512_prog.jpg", (512, 512), {}),
+             "us": ("us480x640_422.jpg", US_SHAPE,
+                    {"samples": 3, "photometric": "YBR_FULL_422",
+                     "modality": "US", "body_part": "ABDOMEN"}),
+             "ct12": ("ct256_12bit.jpg", (256, 256), {})}
+DCT_SERIES_N = 16
+SERIES_N = {"dct": DCT_SERIES_N}
+
+
+def _dct_inputs(root, f: dict) -> None:
+    """Phase 15's DCT JPEG files, added to ``f``: the four fixtures wrapped
+    as DICOM files (``dct``; ``.4.51`` for the 12-bit one, ``.4.50`` for the
+    rest), a ``DCT_SERIES_N``-frame ``.4.50`` series of the two 512^2
+    streams in turns, and a copy of phase 12's mixed directory whose 8
+    ultrasound files are the ``.4.50`` colour frame (``dct_mixed``).  Each
+    file's twin is its transcode to explicit LE (``dct_le``,
+    ``dct_mixed_le``): the same pixels, uncompressed."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from mdx_torch.io import transcode
+    from mdx_torch.io.dicom import TS_JPEG_BASELINE, TS_JPEG_EXTENDED
+    from mdx_torch.io.dicom_write import write_codestreams
+
+    fx = Path(__file__).resolve().parent / DCT_FIXTURES
+    for d in ("dct", "dct_le", "dct_mixed", "dct_mixed_le"):
+        os.makedirs(f"{root}/{d}")
+    streams = {}
+    for name, (fname, (h, w), kw) in DCT_FILES.items():
+        streams[name] = (fx / fname).read_bytes()
+        twelve = name == "ct12"
+        f["dct", name] = write_codestreams(
+            f"{root}/dct/{name}.dcm", [streams[name]], h, w,
+            transfer_syntax=TS_JPEG_EXTENDED if twelve else TS_JPEG_BASELINE,
+            bits=16 if twelve else 8, **kw)
+    f["dct", "series"] = write_codestreams(
+        f"{root}/dct/series.dcm",
+        [streams[("ct_rst", "ct_prog")[i % 2]] for i in range(DCT_SERIES_N)],
+        512, 512, transfer_syntax=TS_JPEG_BASELINE, bits=8)
+    for name in list(DCT_FILES) + ["series"]:
+        f["dct_le", name] = transcode(f["dct", name],
+                                      f"{root}/dct_le/{name}.dcm",
+                                      "explicit-le")
+    mixed, twin = f"{root}/dct_mixed", f"{root}/dct_mixed_le"
+    _mixed_ct_cxr(mixed)
+    for name in os.listdir(mixed):
+        shutil.copyfile(f"{mixed}/{name}", f"{twin}/{name}")
+    for i in range(MIXED_US):
+        shutil.copyfile(f["dct", "us"], f"{mixed}/us{i}.dcm")
+        shutil.copyfile(f["dct_le", "us"], f"{twin}/us{i}.dcm")
+    f["dct_mixed", "dir"], f["dct_mixed_le", "dir"] = mixed, twin
+
+
 def _codec_pixels(native, f: dict, blurred) -> None:
     """15.2: every lossless file's pixels equal to its explicit-LE twin's;
     the ``.4.81`` file within 2 of its source and equal to its decode
@@ -2425,9 +2523,110 @@ def _codec_pixels(native, f: dict, blurred) -> None:
     print(f"codecs jpeg2k [{J2K_PY_SIZE},{J2K_PY_SIZE}]: host and Python "
           f"loops encode {len(enc)} bytes alike and decode alike; the .4.91 "
           f"colour fixture {got[2].shape} decodes alike through both")
+    _dct_pixels(f)
     print(f"codecs native.CALLS: {dict(native.CALLS)}")
     _require(all(v > 0 for v in native.CALLS.values()),
              f"codecs: a host entry point was not used: {native.CALLS}")
+
+
+def _dct_pixels(f: dict) -> None:
+    """15.2, DCT JPEG and PackBits: each DCT file's pixels equal to its
+    explicit-LE twin's (the colour frame YBR, 3 samples; the 12-bit slice
+    uint16); each fixture decoded alike through the host loops and the
+    Python loops (the CPU tests hold the same decodes to the JAX package's
+    and to the pixels they were made from); a 512^2 frame's RLE fragment
+    (PackBits) encoded and decoded alike through both."""
+    import numpy as np
+
+    from mdx_torch.io import jpegdct, rle
+    from mdx_torch.io.dicom import decode_pixels, read_dataset
+    from mdx_torch.tools.time_codecs import dct_fixtures, python_loops
+
+    pix = lambda p: decode_pixels(read_dataset(p))  # noqa: E731
+    for name in list(DCT_FILES) + ["series"]:
+        got, want = pix(f["dct", name]), pix(f["dct_le", name])
+        _require(got.dtype == want.dtype and got.shape == want.shape
+                 and np.array_equal(got, want),
+                 f"codecs: dct {name} differs from its explicit-LE twin")
+        print(f"codecs dct {name}: {got.shape} {got.dtype} equal to its "
+              "explicit-LE twin")
+    for name, stream in dct_fixtures().items():
+        host = jpegdct.decode(stream)
+        with python_loops():
+            py = jpegdct.decode(stream)
+        _require(host[1] == py[1] and np.array_equal(host[0], py[0]),
+                 f"codecs: {name} host and Python loops differ")
+        print(f"codecs jpegdct {name} {host[0].shape} P={host[1]}: host and "
+              "Python loops decode alike")
+    frame = pix(f["le", "noisy"])
+    enc = rle.encode_frame(frame)
+    dec = rle.decode_frame(enc, *frame.shape, 1, 2)
+    with python_loops():
+        enc_py = rle.encode_frame(frame)
+        dec_py = rle.decode_frame(enc, *frame.shape, 1, 2)
+    _require(enc == enc_py and np.array_equal(dec, dec_py)
+             and np.array_equal(dec.reshape(frame.shape), frame),
+             "codecs: PackBits host and Python loops differ")
+    print(f"codecs rle [{CLI_SIZE},{CLI_SIZE}]: host and Python PackBits "
+          f"encode {len(enc)} bytes alike and decode alike")
+
+
+def _transcode_check(job) -> bool:
+    """``job`` = (source, target alias, output path): transcode, read back,
+    and compare with the source's decode (the pixels, their dtype and the
+    transfer syntax).  Runs in a worker process of
+    :func:`_codec_transcodes`."""
+    import os
+
+    import numpy as np
+
+    from mdx_torch.io import transcode
+    from mdx_torch.io.dicom import decode_pixels, read_dataset
+    from mdx_torch.io.transcode import TARGET_ALIASES
+
+    src, target, out = job
+    want = decode_pixels(read_dataset(src))
+    transcode(src, out, target)
+    ds = read_dataset(out)
+    got = decode_pixels(ds)
+    os.unlink(out)
+    return (ds.transfer_syntax == TARGET_ALIASES[target]
+            and got.dtype == want.dtype and np.array_equal(got, want))
+
+
+def _codec_transcodes(f: dict) -> None:
+    """15.5: every phase-15 file (twins and series included) transcoded on
+    the host to each target the transcoder accepts for it (a colour source
+    to explicit LE and deflated only) and read back: its pixels equal to
+    the source's decode.  The transcodes run largest source first on a pool
+    of one process a core (``spawn``: the workers import the codecs and
+    never touch the card)."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+    import tempfile
+
+    from mdx_torch.io.dicom import read_dataset
+    from mdx_torch.io.transcode import TARGET_ALIASES
+
+    t0 = time.perf_counter()
+    files = sorted({p for p in f.values() if p.endswith(".dcm")},
+                   key=os.path.getsize, reverse=True)
+    colour = {p: (read_dataset(p).get("SamplesPerPixel", 1) or 1) > 1
+              for p in files}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_transcode_") as tmp:
+        jobs = [(src, target, f"{tmp}/{i}_{target}.dcm")
+                for i, src in enumerate(files) for target in TARGET_ALIASES
+                if not colour[src] or target in ("explicit-le", "deflated")]
+        with cf.ProcessPoolExecutor(
+                os.cpu_count() or 1,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            ok = list(ex.map(_transcode_check, jobs))
+    bad = [j[:2] for j, good in zip(jobs, ok) if not good]
+    print(f"codecs transcode: {len(files)} files, {len(jobs)} transcodes "
+          f"read back pixel-equal {len(jobs) - len(bad)} "
+          f"({time.perf_counter() - t0:.1f} s, {os.cpu_count()} processes)")
+    _require(not bad, f"codecs transcode: pixels differ in {bad}")
 
 
 def _row_of(path: str):
@@ -2480,8 +2679,12 @@ def _against_twin(parity, label: str, got: dict, want: dict, hw: int,
 # replayed); the JPEG 2000 files are a path of their own
 CODEC_PATHS = (("codecs", ("ll", "ls", "p14", "near"), ("ll", "ls"),
                 ("ll", "blurred")),
-               ("codecs_j2k", ("j2k", "j2k91"), ("j2k",), ("j2k", "blurred")))
-TWIN_DIR = {"near": "near_le", "j2k91": "j2k91_le"}
+               ("codecs_j2k", ("j2k", "j2k91"), ("j2k",), ("j2k", "blurred")),
+               ("codecs_dct", ("dct",), ("dct",), ("dct", "ct_rst")))
+TWIN_DIR = {"near": "near_le", "j2k91": "j2k91_le", "dct": "dct_le"}
+# pixels a frame of the files that are not CLI_SIZE^2
+FILE_HW = {"cxr": BIG * BIG, "rgb": 96 * 80, "ct": 512 * 512,
+           "us": US_SHAPE[0] * US_SHAPE[1], "ct12": 256 * 256}
 
 
 def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
@@ -2491,7 +2694,8 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
     (deterministic and ``--autotune``) and ``--batch`` on the series of
     ``series_syns`` (raw and ``--autotune``), counters reset just before and
     read just after as ``paths[path]``; each run held to its explicit-LE
-    twin's (the twins' runs kept in ``cache`` across calls); B, U, C and 10
+    twin's (the twins' runs kept in ``cache`` across calls; a series' twin
+    is the ``le`` series unless ``TWIN_DIR`` names another); B, U, C and 10
     launched; ``recorded``'s deterministic run's kernel calls replayed.  A
     ``.4.91`` file's deterministic run is also held to its run on the CPU
     (the colour fixture has no twin)."""
@@ -2503,7 +2707,8 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
     from mdx_torch.pipeline import batch_runner as PB
 
     singles = [k for k in f if k[0] in single_syns and k[1] != "series"]
-    twin_of = lambda k: f.get((TWIN_DIR.get(k[0], "le"), k[1]))  # noqa: E731
+    twin_syn = lambda syn: TWIN_DIR.get(syn, "le")  # noqa: E731
+    twin_of = lambda k: f.get((twin_syn(k[0]), k[1]))  # noqa: E731
     recording = [False]
     runs = []
 
@@ -2535,16 +2740,18 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
                 runs.append((k, auto, one(f[k], auto),
                              cache.get((t, auto))))
         for syn in series_syns:
+            n = SERIES_N.get(syn, CLI_SERIES_N)
             for auto in (False, True):
                 rc, text = _cli_main(cli, [
                     "--input", f[syn, "series"], "--output",
                     f"{os.path.dirname(f[syn, 'series'])}/out", "--batch",
                     "--no-show"] + (["--autotune"] if auto else []), dev)
-                _require(rc == 0 and f"Frames processed: **{CLI_SERIES_N}**"
-                         in text, f"codecs --batch {syn} series: rc {rc}: "
+                _require(rc == 0 and f"Frames processed: **{n}**" in text,
+                         f"codecs --batch {syn} series: rc {rc}: "
                          f"{text[:300]}")
-        return {(syn, auto): batch(syn, auto)
-                for syn in ("le",) + series_syns for auto in (False, True)}
+        return {(s_, auto): batch(s_, auto)
+                for syn in series_syns for s_ in (twin_syn(syn), syn)
+                for auto in (False, True)}
 
     calls: list = []
     with _recording(torch, kernels, calls, when=lambda: recording[0]):
@@ -2558,8 +2765,7 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
     for k, auto, got, want in runs:
         r = got["row"]
         label = f"{path} cli {k[0]} {k[1]}{' --autotune' if auto else ''}"
-        hw = {"cxr": BIG * BIG, "rgb": 96 * 80, "ct": 512 * 512}.get(
-            k[1], CLI_SIZE * CLI_SIZE)
+        hw = FILE_HW.get(k[1], CLI_SIZE * CLI_SIZE)
         for part in ("metrics_before", "metrics_after"):
             _require(all(np.isfinite(v) for v in (r[part] or {}).values()),
                      f"{label}: non-finite {part}")
@@ -2573,8 +2779,10 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
         if want is not None:
             _against_twin(parity, label, got, want, hw, bit(want))
     for syn in series_syns:
+        n = SERIES_N.get(syn, CLI_SERIES_N)
         for auto in (False, True):
-            g, w = batches[syn, auto]["frames"], batches["le", auto]["frames"]
+            g = batches[syn, auto]["frames"]
+            w = batches[twin_syn(syn), auto]["frames"]
             rec = lambda fs: [(fr["issues"], fr["passed"])  # noqa: E731
                               for fr in fs]
             strip = lambda fs: [{k: v for k, v in fr.items()  # noqa: E731
@@ -2586,7 +2794,7 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
                 {"records": rec(g), "metrics": parity.flatten_batch(g)},
                 {"records": rec(w), "metrics": parity.flatten_batch(w)},
                 CLI_SIZE * CLI_SIZE, strip(g) == strip(w))
-            _require(len(g) == CLI_SERIES_N and all(
+            _require(len(g) == n and all(
                 np.isfinite(fr["metrics"]["sigma"]) for fr in g),
                 f"codecs --batch {syn}: {len(g)} frames")
     _require(bool(calls), f"{path}: no kernel launched in the recorded "
@@ -2594,6 +2802,54 @@ def _codec_cli(torch, kernels, parity, check, paths, dev, f: dict,
     check.replay(f"{path} cli {recorded[0]} {recorded[1]} {CLI_SIZE}^2 "
                  "deterministic", calls)
     check.require_ok()
+
+
+def _dct_mixed(torch, kernels, parity, paths, dev, f: dict) -> None:
+    """15.3: config 5's mixed directory with its 8 ultrasound files as the
+    ``.4.50`` YBR 4:2:2 frame, ``main([... "--batch", "--window"])`` and
+    ``run_pipeline_batch(window=True)`` (counters reset before, read after
+    as ``paths["codecs_dct_mixed"]``) against the same directory with
+    explicit-LE twins: every frame's issues, pass flag and metrics equal,
+    bit for bit printed; B and 10 launched."""
+    import numpy as np
+
+    from mdx_torch import __main__ as cli
+    from mdx_torch.pipeline import batch_runner as PB
+
+    d, twin = f["dct_mixed", "dir"], f["dct_mixed_le", "dir"]
+    n = MIXED_CT + MIXED_CXR + MIXED_US
+
+    def runs():
+        rc, text = _cli_main(cli, ["--input", d, "--output", f"{d}/out",
+                                   "--batch", "--window", "--no-show"], dev)
+        _require(rc == 0 and f"Frames processed: **{n}**" in text,
+                 f"codecs --batch --window dct mixed: rc {rc}: {text[:300]}")
+        return [PB.run_pipeline_batch(p, f"{p}/out", device=dev, window=True,
+                                      save_artifacts=False)
+                for p in (d, twin)]
+
+    (got, want), paths["codecs_dct_mixed"] = _run_path(
+        torch, kernels, f"codecs_dct_mixed: --batch --window on the mixed "
+        f"directory with .4.50 ultrasound ({MIXED_CT} CT, {MIXED_CXR} CXR, "
+        f"{MIXED_US} US) and its explicit-LE twin", runs)
+    for k in ("box_stats", "wavelet_denoise"):
+        _require(paths["codecs_dct_mixed"][k] > 0,
+                 f"kernel {k} was not launched by the dct mixed directory")
+    g, w = got["frames"], want["frames"]
+    _require(len(g) == len(w) == n and [fr["source"] for fr in g] == [
+        fr["source"] for fr in w], f"codecs dct mixed: {len(g)} frames")
+    strip = lambda fs: [{k: v for k, v in fr.items()  # noqa: E731
+                         if k not in ("run_id", "source")} for fr in fs]
+    rec = lambda fs: [(fr["issues"], fr["passed"]) for fr in fs]  # noqa: E731
+    for fr in g:
+        _require(np.isfinite(fr["metrics"]["sigma"]),
+                 f"codecs dct mixed: non-finite sigma in {fr['source']}")
+    _against_twin(parity, f"codecs_dct_mixed --batch --window ({n} frames, "
+                  f"buckets {sorted({tuple(fr['shape']) for fr in g})})",
+                  {"records": rec(g), "metrics": parity.flatten_batch(g)},
+                  {"records": rec(w), "metrics": parity.flatten_batch(w)},
+                  CLI_SIZE * CLI_SIZE, strip(g) == strip(w),
+                  "the directory of explicit-LE twins")
 
 
 def _codec_spatial(kernels, parity, check, paths, card, dev, f: dict) -> None:
@@ -2640,6 +2896,7 @@ def _codec_times(card: str, dev, f: dict) -> None:
     the warm ``run_pipeline`` by phase; each beside the card and the host's
     CPU."""
     import os
+    import tempfile
 
     from mdx_torch.io.dicom import decode_pixels, read_dataset
     from mdx_torch.tools import cli_latency as CL
@@ -2668,6 +2925,14 @@ def _codec_times(card: str, dev, f: dict) -> None:
         t = TC.frame_times(corner, reps, python=py, families=("jpeg2k",))
         print(f"codec ms a frame [{J2K_PY_SIZE},{J2K_PY_SIZE}] noisy corner, "
               f"{loops} on host {host} beside {card}: {t}")
+    for name, t in TC.dct_decode_split_all(5).items():
+        print(f"codec jpegdct decode {name} split, host loops (median ms of "
+              f"5) on host {host} beside {card}: {t}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tc_") as tmp:
+        t = TC.transcode_times(tmp, {"512": pix(f["le", "noisy"]),
+                                     "2048": pix(f["le", "cxr"])}, 3)
+    print(f"codec transcode ms (median of 3) on host {host} beside {card}: "
+          f"{t}")
     fps = {}
     for syn in ("le",) + CODEC_SYNTAXES:
         p = f[syn, "series"]
@@ -2678,14 +2943,17 @@ def _codec_times(card: str, dev, f: dict) -> None:
               f"{syn} on {card}, host {host}: {r['frames_per_s']!r} frames/s "
               f"(median {r['median_ms']!r} ms of {CODEC_SERIES_REPS}, runs "
               f"{r['runs_ms']})")
-    for syn in ("le",) + CODEC_SYNTAXES:
-        for name in ("noisy", "cxr"):
-            p = f[syn, name]
-            w = CL.warm_runs(p, f"{os.path.dirname(p)}/out", 5, dev)
-            phases = ", ".join(f"{k} {v!r}" for k, v in w["phases_ms"].items())
-            print(f"codecs warm run_pipeline {syn} {name} on {card}, host "
-                  f"{host}: median {w['median_ms']!r} ms of 5; phases "
-                  f"(median ms): {phases}")
+    warm = [(syn, name) for syn in ("le",) + CODEC_SYNTAXES
+            for name in ("noisy", "cxr")]
+    warm += [(syn, name) for name in ("ct_rst", "us")
+             for syn in ("dct", "dct_le")]
+    for syn, name in warm:
+        p = f[syn, name]
+        w = CL.warm_runs(p, f"{os.path.dirname(p)}/out", 5, dev)
+        phases = ", ".join(f"{k} {v!r}" for k, v in w["phases_ms"].items())
+        print(f"codecs warm run_pipeline {syn} {name} on {card}, host "
+              f"{host}: median {w['median_ms']!r} ms of 5; phases "
+              f"(median ms): {phases}")
 
 
 def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
@@ -2708,13 +2976,16 @@ def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
         os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
         os.environ.pop("MDX_TV_MODE", None)
         f, blurred = _codec_inputs(tmp)
+        _dct_inputs(tmp, f)
         print(f"codecs inputs written: {time.perf_counter() - t15:.1f} s")
         _codec_pixels(native, f, blurred)
         cache: dict = {}
         for path, singles, series, recorded in CODEC_PATHS:
             _codec_cli(torch, kernels, parity, check, paths, dev, f, path,
                        singles, series, recorded, cache)
+        _dct_mixed(torch, kernels, parity, paths, dev, f)
         _codec_spatial(kernels, parity, check, paths, card, dev, f)
+        _codec_transcodes(f)
         print(f"phase 15 checks: {time.perf_counter() - t15:.1f} s")
         _codec_times(card, dev, f)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")

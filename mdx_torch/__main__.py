@@ -137,11 +137,9 @@ def main(argv=None, device="cuda") -> int:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
 
-    from mdx_torch.io.dicom import CodecNotPorted
-
     try:
         context = run(args, device)
-    except (RuntimeError, CodecNotPorted) as exc:
+    except RuntimeError as exc:
         print(f"ERROR: {exc}")
         return 1
     except Exception as exc:

@@ -1,7 +1,8 @@
-// Host-side entropy loops of the port's lossless JPEG and JPEG 2000 codecs
-// (mdx_torch/io/jpegll.py, mdx_torch/io/jpegls.py, mdx_torch/io/jpeg2k.py).
+// Host-side entropy loops of the port's JPEG codecs and PackBits
+// (mdx_torch/io/jpegll.py, jpegls.py, jpeg2k.py, jpegdct.py and rle.py).
 //
-// The JAX package's native/mdxio.cpp holds the same six loops; this is the
+// The JAX package's native/mdxio.cpp holds these ten loops (beside its
+// rescale and normalise passes, which the port runs in numpy); this is the
 // port's own copy of them, with the same C ABI under the mdx_torch_io_
 // prefix, the same return codes and the same control flow, so that a stream
 // decodes and encodes bit for bit as there.  The loops are serial (one
@@ -19,6 +20,11 @@
 //   mdx_torch_io_jpeg2k_t1      : JPEG 2000 EBCOT Tier-1 code-block decode
 //   mdx_torch_io_jpeg2k_t1_enc  : JPEG 2000 EBCOT Tier-1 code-block encode
 //                                 (ISO/IEC 15444-1 Annexes C and D)
+//   mdx_torch_io_jpegdct_segment       : DCT JPEG sequential restart-segment
+//                                        decode (T.81 F.2)
+//   mdx_torch_io_jpegdct_prog_segment  : DCT JPEG progressive restart-segment
+//                                        decode (T.81 Annex G, Huffman)
+//   mdx_torch_io_packbits_decode / _encode : PackBits (PS3.5 Annex G)
 //
 // Build: c++ -O3 -std=c++17 -fPIC -shared -ffp-contract=off (no OpenMP, no
 // -march=native, no PyTorch headers).
@@ -1452,6 +1458,379 @@ int64_t mdx_torch_io_jpeg2k_t1_enc(const int32_t *mag, const uint8_t *neg,
   }
   *npasses_out = npasses;
   return t1.mq.flush();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG Baseline/Extended (T.81 sequential DCT) entropy decode: the serial
+// loop of mdx_torch/io/jpegdct.py::_decode_segment_py.  One restart
+// segment (destuffed bytes, DC predictors reset) per call; Huffman per F.2.2.3,
+// DC category + EXTEND, AC run/size with ZRL/EOB.  Bit-identical
+// coefficients and error taxonomy: -1 truncated, -2 invalid Huffman code,
+// -3 AC run overflow, -4 invalid DC category.
+// ---------------------------------------------------------------------------
+
+namespace jdct {
+
+struct Huff {
+  int32_t mincode[17], maxcode[17], valptr[17];
+  const uint8_t *values;
+};
+
+static void build(const uint8_t *counts, const uint8_t *values, Huff *h) {
+  int32_t code = 0, k = 0;
+  for (int L = 1; L <= 16; ++L) {
+    const int c = counts[L - 1];
+    h->maxcode[L] = -1;
+    h->valptr[L] = 0;
+    h->mincode[L] = 0;
+    if (c) {
+      h->valptr[L] = k;
+      h->mincode[L] = code;
+      code += c;
+      h->maxcode[L] = code - 1;
+      k += c;
+    }
+    code <<= 1;
+  }
+  h->values = values;
+}
+
+struct Bits {
+  const uint8_t *buf;
+  int64_t n, pos;
+  uint32_t cache;
+  int32_t nbits;
+};
+
+static inline int read_bit(Bits *b, int64_t *err) {
+  if (b->nbits == 0) {
+    if (b->pos >= b->n) {
+      *err = -1;
+      return 0;
+    }
+    b->cache = b->buf[b->pos++];
+    b->nbits = 8;
+  }
+  b->nbits--;
+  return (b->cache >> b->nbits) & 1;
+}
+
+static inline int32_t read_bits(Bits *b, int32_t k, int64_t *err) {
+  int32_t v = 0;
+  for (int32_t i = 0; i < k; ++i) v = (v << 1) | read_bit(b, err);
+  return v;
+}
+
+static inline int32_t decode_symbol(Bits *b, const Huff *h, int64_t *err) {
+  int32_t code = 0;
+  for (int L = 1; L <= 16; ++L) {
+    code = (code << 1) | read_bit(b, err);
+    if (*err) return 0;
+    if (h->maxcode[L] >= code)
+      return h->values[h->valptr[L] + code - h->mincode[L]];
+  }
+  *err = -2;
+  return 0;
+}
+
+static inline int32_t extend(int32_t v, int32_t t) {
+  if (t == 0) return 0;
+  return (v >= (1 << (t - 1))) ? v : v - (1 << t) + 1;
+}
+
+}  // namespace jdct
+
+extern "C" {
+
+// Decode `cnt` MCUs starting at MCU index `mcu0` from a destuffed
+// segment.  Per scan component i (ncomp <= 4): sampling h[i], v[i],
+// block-grid width bx[i], int32 coefficient base out[i] (layout
+// [by, bx, 64] zigzag).  Huffman tables arrive flattened per component:
+// dc_counts/ac_counts 16 bytes each, dc_values/ac_values 256 bytes each.
+int64_t mdx_torch_io_jpegdct_segment(
+    const uint8_t *seg, int64_t n, int32_t ncomp, const int32_t *hs,
+    const int32_t *vs, const int32_t *bxs, int32_t **outs,
+    const uint8_t *dc_counts, const uint8_t *dc_values,
+    const uint8_t *ac_counts, const uint8_t *ac_values, int64_t mcu0,
+    int64_t cnt, int32_t interleaved, int32_t mcus_x) {
+  jdct::Huff dc[4], ac[4];
+  for (int32_t i = 0; i < ncomp; ++i) {
+    jdct::build(dc_counts + 16 * i, dc_values + 256 * i, &dc[i]);
+    jdct::build(ac_counts + 16 * i, ac_values + 256 * i, &ac[i]);
+  }
+  jdct::Bits bits{seg, n, 0, 0, 0};
+  int64_t err = 0;
+  int32_t pred[4] = {0, 0, 0, 0};
+
+  for (int64_t m = mcu0; m < mcu0 + cnt; ++m) {
+    for (int32_t i = 0; i < ncomp; ++i) {
+      int32_t nv = interleaved ? vs[i] : 1;
+      int32_t nh = interleaved ? hs[i] : 1;
+      for (int32_t dv = 0; dv < nv; ++dv) {
+        for (int32_t dh = 0; dh < nh; ++dh) {
+          int64_t row, col;
+          if (interleaved) {
+            const int64_t my = m / mcus_x, mx = m % mcus_x;
+            row = my * vs[i] + dv;
+            col = mx * hs[i] + dh;
+          } else {
+            row = m / bxs[i];
+            col = m % bxs[i];
+          }
+          int32_t *blk = outs[i] + (row * bxs[i] + col) * 64;
+          const int32_t t = jdct::decode_symbol(&bits, &dc[i], &err);
+          if (err) return err;
+          if (t > 15) return -4;
+          const int32_t d =
+              t ? jdct::extend(jdct::read_bits(&bits, t, &err), t) : 0;
+          if (err) return err;
+          pred[i] += d;
+          blk[0] = pred[i];
+          int32_t k = 1;
+          while (k < 64) {
+            const int32_t rs = jdct::decode_symbol(&bits, &ac[i], &err);
+            if (err) return err;
+            const int32_t r = rs >> 4, s = rs & 0x0F;
+            if (s == 0) {
+              if (r == 15) {
+                k += 16;
+                continue;
+              }
+              break;
+            }
+            k += r;
+            if (k > 63) return -3;
+            blk[k] = jdct::extend(jdct::read_bits(&bits, s, &err), s);
+            if (err) return err;
+            ++k;
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// Progressive (T.81 Annex G, Huffman) restart-segment decode: the four
+// scan modes of mdx_torch/io/jpegdct.py::_decode_prog_segment_py: DC first
+// (dc_scan, ah==0, may interleave), DC refinement (one raw bit), AC
+// first with EOB runs, AC refinement with correction bits.  Bit-identical
+// coefficients, same error taxonomy plus -5 invalid refinement
+// magnitude / band overflow.
+int64_t mdx_torch_io_jpegdct_prog_segment(
+    const uint8_t *seg, int64_t n, int32_t ncomp, const int32_t *hs,
+    const int32_t *vs, const int32_t *bxs, const int32_t *strides,
+    int32_t **outs,
+    const uint8_t *dc_counts, const uint8_t *dc_values,
+    const uint8_t *ac_counts, const uint8_t *ac_values, int64_t mcu0,
+    int64_t cnt, int32_t interleaved, int32_t mcus_x, int32_t ss,
+    int32_t se, int32_t ah, int32_t al, int32_t dc_scan) {
+  // bxs = this scan's block-grid width (MCU -> row/col); strides = the
+  // coefficient ARRAY's allocated width (a DC scan may have allocated it
+  // at the wider interleaved grid) — indexing must use the stride.
+  jdct::Huff dc[4], ac[4];
+  for (int32_t i = 0; i < ncomp; ++i) {
+    jdct::build(dc_counts + 16 * i, dc_values + 256 * i, &dc[i]);
+    jdct::build(ac_counts + 16 * i, ac_values + 256 * i, &ac[i]);
+  }
+  jdct::Bits bits{seg, n, 0, 0, 0};
+  int64_t err = 0;
+  int32_t pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  const int32_t p1 = 1 << al;
+  const int32_t m1 = -(1 << al);
+
+  for (int64_t m = mcu0; m < mcu0 + cnt; ++m) {
+    const int32_t nci = interleaved ? ncomp : 1;
+    for (int32_t i = 0; i < nci; ++i) {
+      const int32_t nv = interleaved ? vs[i] : 1;
+      const int32_t nh = interleaved ? hs[i] : 1;
+      for (int32_t dv = 0; dv < nv; ++dv) {
+        for (int32_t dh = 0; dh < nh; ++dh) {
+          int64_t row, col;
+          if (interleaved) {
+            const int64_t my = m / mcus_x, mx = m % mcus_x;
+            row = my * vs[i] + dv;
+            col = mx * hs[i] + dh;
+          } else {
+            row = m / bxs[i];
+            col = m % bxs[i];
+          }
+          int32_t *blk = outs[i] + (row * strides[i] + col) * 64;
+          if (dc_scan) {
+            if (ah == 0) {
+              const int32_t t = jdct::decode_symbol(&bits, &dc[i], &err);
+              if (err) return err;
+              if (t > 15) return -4;
+              const int32_t d =
+                  t ? jdct::extend(jdct::read_bits(&bits, t, &err), t) : 0;
+              if (err) return err;
+              pred[i] += d;
+              blk[0] = pred[i] << al;
+            } else {
+              if (jdct::read_bit(&bits, &err)) blk[0] |= p1;
+              if (err) return err;
+            }
+          } else if (ah == 0) {  // AC first
+            if (eobrun > 0) {
+              --eobrun;
+              continue;
+            }
+            int32_t k = ss;
+            while (k <= se) {
+              const int32_t rs = jdct::decode_symbol(&bits, &ac[i], &err);
+              if (err) return err;
+              const int32_t r = rs >> 4, s = rs & 0x0F;
+              if (s) {
+                k += r;
+                if (k > se) return -3;
+                blk[k] = jdct::extend(jdct::read_bits(&bits, s, &err), s)
+                         << al;
+                if (err) return err;
+                ++k;
+              } else {
+                if (r != 15) {
+                  eobrun = int64_t(1) << r;
+                  if (r) eobrun += jdct::read_bits(&bits, r, &err);
+                  if (err) return err;
+                  --eobrun;
+                  break;
+                }
+                k += 16;
+              }
+            }
+          } else {  // AC refinement
+            int32_t k = ss;
+            if (eobrun == 0) {
+              while (k <= se) {
+                const int32_t rs =
+                    jdct::decode_symbol(&bits, &ac[i], &err);
+                if (err) return err;
+                int32_t r = rs >> 4;
+                int32_t s = rs & 0x0F;
+                int32_t newval = 0;
+                if (s == 0) {
+                  if (r != 15) {
+                    eobrun = int64_t(1) << r;
+                    if (r) eobrun += jdct::read_bits(&bits, r, &err);
+                    if (err) return err;
+                    break;
+                  }
+                } else {
+                  if (s != 1) return -5;
+                  newval = jdct::read_bit(&bits, &err) ? p1 : m1;
+                  if (err) return err;
+                }
+                while (k <= se) {
+                  const int32_t coef = blk[k];
+                  if (coef != 0) {
+                    const int32_t b = jdct::read_bit(&bits, &err);
+                    if (err) return err;
+                    if (b && (coef & p1) == 0)
+                      blk[k] = coef + (coef >= 0 ? p1 : m1);
+                  } else {
+                    if (r == 0) break;
+                    --r;
+                  }
+                  ++k;
+                }
+                if (newval) {
+                  if (k > se) return -5;
+                  blk[k] = newval;
+                }
+                ++k;
+              }
+            }
+            if (eobrun > 0) {
+              while (k <= se) {
+                const int32_t coef = blk[k];
+                if (coef != 0) {
+                  const int32_t b = jdct::read_bit(&bits, &err);
+                  if (err) return err;
+                  if (b && (coef & p1) == 0)
+                    blk[k] = coef + (coef >= 0 ? p1 : m1);
+                }
+                ++k;
+              }
+              --eobrun;
+            }
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// PackBits (DICOM RLE Lossless, PS3.5 Annex G): the byte-serial loops of
+// mdx_torch/io/rle.py, with the control flow of its Python bodies, so the
+// output bytes are the same.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// Decode up to `expected` output bytes.  Returns the number of bytes
+// produced (== expected on success; < expected means the stream was too
+// short), or -1 for a literal run truncated by the input end, -2 for a
+// replicate run with no byte to repeat: the error taxonomy of the Python
+// loop.
+int64_t mdx_torch_io_packbits_decode(const uint8_t *src, int64_t n,
+                                     uint8_t *out, int64_t expected) {
+  int64_t i = 0, o = 0;
+  while (i < n && o < expected) {
+    const uint8_t ctrl = src[i++];
+    if (ctrl < 128) {
+      const int64_t cnt = static_cast<int64_t>(ctrl) + 1;
+      if (i + cnt > n) return -1;
+      const int64_t c = std::min(cnt, expected - o);
+      for (int64_t k = 0; k < c; ++k) out[o + k] = src[i + k];
+      o += c;
+      i += cnt;
+    } else if (ctrl > 128) {
+      if (i >= n) return -2;
+      const int64_t cnt = 257 - static_cast<int64_t>(ctrl);
+      const int64_t c = std::min(cnt, expected - o);
+      const uint8_t v = src[i++];
+      for (int64_t k = 0; k < c; ++k) out[o + k] = v;
+      o += c;
+    }
+    // ctrl == 128: no-op
+  }
+  return o;
+}
+
+// Encode `n` bytes; `out` needs capacity >= n + n/128 + 2 (worst case:
+// all literal blocks).  Returns bytes written.  The run/literal boundaries
+// of the Python encoder (replicate runs >=3, literals <=128, a literal
+// block stops before the next replicate run of >=3).
+int64_t mdx_torch_io_packbits_encode(const uint8_t *src, int64_t n,
+                                     uint8_t *out) {
+  int64_t i = 0, o = 0;
+  while (i < n) {
+    int64_t run = 1;
+    while (i + run < n && run < 128 && src[i + run] == src[i]) ++run;
+    if (run >= 3) {
+      out[o++] = static_cast<uint8_t>(257 - run);
+      out[o++] = src[i];
+      i += run;
+      continue;
+    }
+    int64_t j = i + 1;
+    while (j < n && (j - i) < 128) {
+      if (j + 2 < n && src[j] == src[j + 1] && src[j + 1] == src[j + 2])
+        break;
+      ++j;
+    }
+    out[o++] = static_cast<uint8_t>(j - i - 1);
+    for (int64_t k = i; k < j; ++k) out[o++] = src[k];
+    i = j;
+  }
+  return o;
 }
 
 }  // extern "C"

@@ -12,16 +12,15 @@ original, bit for bit, on files of every syntax it reads:
 * JPEG Lossless SV1 (14, pred 1)   1.2.840.10008.1.2.4.70  (mdx_torch.io.jpegll)
 * JPEG-LS Lossless                 1.2.840.10008.1.2.4.80  (mdx_torch.io.jpegls)
 * JPEG-LS Near-Lossless            1.2.840.10008.1.2.4.81  (mdx_torch.io.jpegls)
+* JPEG Baseline (Process 1)        1.2.840.10008.1.2.4.50  (mdx_torch.io.jpegdct)
+* JPEG Extended (Process 2 & 4)    1.2.840.10008.1.2.4.51  (mdx_torch.io.jpegdct)
 * JPEG 2000 Lossless               1.2.840.10008.1.2.4.90  (mdx_torch.io.jpeg2k)
 * JPEG 2000                        1.2.840.10008.1.2.4.91  (mdx_torch.io.jpeg2k)
 
 plus headerless "raw" datasets (no preamble, implicit VR).  The compressed
 frames of a multi-frame file decode on a thread pool (:func:`_map_frames`);
 the codecs' entropy loops run in the port's host C++ library
-(:mod:`mdx_torch.io.native`), which releases the GIL.  The JPEG-family
-syntaxes the JAX package also decodes and the port does not yet (baseline
-and extended DCT, ``.4.50``/``.4.51``) raise :class:`CodecNotPorted`,
-naming the transfer-syntax UID: their codec is a later slice of the port.
+(:mod:`mdx_torch.io.native`), which releases the GIL.
 
 Behavioural contract (ref pipeline/dicom_io.py:29-57): modality rescale
 (slope/intercept), MONOCHROME1 inversion, grayscale / middle-slice
@@ -51,11 +50,6 @@ class DicomError(ValueError):
     """Invalid, truncated, or unsupported DICOM input."""
 
 
-class CodecNotPorted(DicomError):
-    """A transfer syntax the JAX package decodes and the port does not yet
-    (DCT JPEG: ROADMAP Queue 1, the codec slice)."""
-
-
 # Transfer syntaxes
 TS_IMPLICIT_LE = "1.2.840.10008.1.2"
 TS_EXPLICIT_LE = "1.2.840.10008.1.2.1"
@@ -72,17 +66,10 @@ TS_J2K_LOSSLESS = "1.2.840.10008.1.2.4.90"
 TS_J2K = "1.2.840.10008.1.2.4.91"
 _ENCAPSULATED_TS = {TS_RLE, TS_JPEG_LL, TS_JPEG_LL_SV1,
                     TS_JPEG_LS, TS_JPEG_LS_NEAR,
+                    TS_JPEG_BASELINE, TS_JPEG_EXTENDED,
                     TS_J2K_LOSSLESS, TS_J2K}
 _SUPPORTED_TS = {TS_IMPLICIT_LE, TS_EXPLICIT_LE, TS_DEFLATED_LE,
                  TS_EXPLICIT_BE} | _ENCAPSULATED_TS
-# the JAX package's JPEG-family syntaxes, by name
-JPEG_FAMILY_TS = {
-    TS_JPEG_LL: "JPEG Lossless", TS_JPEG_LL_SV1: "JPEG Lossless SV1",
-    TS_JPEG_LS: "JPEG-LS Lossless", TS_JPEG_LS_NEAR: "JPEG-LS Near-Lossless",
-    TS_JPEG_BASELINE: "JPEG Baseline", TS_JPEG_EXTENDED: "JPEG Extended",
-    TS_J2K_LOSSLESS: "JPEG 2000 Lossless", TS_J2K: "JPEG 2000"}
-# those of them the port does not decode yet
-_NOT_PORTED_TS = set(JPEG_FAMILY_TS) - _ENCAPSULATED_TS
 
 # VRs with the 2-byte-VR + 2-reserved + 4-byte-length layout
 _LONG_VRS = {b"OB", b"OW", b"OF", b"OD", b"OL", b"SQ", b"UC", b"UR", b"UT", b"UN"}
@@ -228,10 +215,6 @@ def read_dataset(path: str) -> DicomDataset:
             if group not in (0x0002, 0x0008, 0x0010, 0x0018, 0x0020, 0x0028):
                 raise DicomError("Invalid or missing DICOM file.")
             ts = TS_IMPLICIT_LE
-        if ts in _NOT_PORTED_TS:
-            raise CodecNotPorted(
-                f"transfer syntax {ts} ({JPEG_FAMILY_TS[ts]}) is not yet in "
-                "mdx_torch (ROADMAP Queue 1: the codec slice)")
         if ts not in _SUPPORTED_TS:
             raise DicomError(f"Unsupported transfer syntax {ts!r}.")
         if ts == TS_DEFLATED_LE:
@@ -337,8 +320,8 @@ def _read_file_meta(f: BinaryIO) -> str:
 
 
 def decode_pixels(ds: DicomDataset) -> np.ndarray:
-    """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS, JPEG 2000) pixel
-    bytes → numpy array in stored shape/dtype."""
+    """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS, DCT JPEG, JPEG
+    2000) pixel bytes → numpy array in stored shape/dtype."""
     if not ds.pixel_bytes and ds.fragments is None:
         raise DicomError("DICOM file does not contain pixel data.")
     rows = ds.get("Rows")
@@ -370,6 +353,9 @@ def decode_pixels(ds: DicomDataset) -> np.ndarray:
         elif ds.transfer_syntax in (TS_JPEG_LS, TS_JPEG_LS_NEAR):
             arr = _decode_jpegls(ds.fragments, rows, cols, samples, frames,
                                  bits, signed)
+        elif ds.transfer_syntax in (TS_JPEG_BASELINE, TS_JPEG_EXTENDED):
+            arr = _decode_jpegdct(ds.fragments, rows, cols, samples,
+                                  frames, bits, signed)
         elif ds.transfer_syntax in (TS_J2K_LOSSLESS, TS_J2K):
             arr = _decode_jpeg2k(ds.fragments, rows, cols, samples,
                                  frames, bits, signed)
@@ -567,6 +553,46 @@ def _decode_jpegls(fragments: list, rows: int, cols: int, samples: int,
     if flat.size and (int(flat.min()) < lo or int(flat.max()) > hi):
         raise DicomError(
             f"JPEG-LS sample out of range for BitsAllocated={bits}.")
+    return flat.astype(base)
+
+
+def _decode_jpegdct(fragments: list, rows: int, cols: int, samples: int,
+                    frames: int, bits: int, signed: bool) -> np.ndarray:
+    """JPEG Baseline/Extended (lossy DCT) fragments → flat pixel array.
+
+    Same frame grouping as the lossless codecs.  Lossy JPEG samples are
+    unsigned by construction (level-shifted DCT); a signed container
+    (PixelRepresentation=1) is not meaningful for these syntaxes and
+    raises.  Color output stays in the STORED color space (YBR for
+    `.4.50` ultrasound): the grayscale path takes the Y plane
+    (see ``_pixels``)."""
+    from mdx_torch.io import jpegdct
+
+    if signed:
+        raise DicomError(
+            "Signed pixel data is not defined for lossy JPEG syntaxes.")
+    if bits not in (8, 16):
+        raise DicomError(
+            f"JPEG (DCT) carries 8/12-bit samples (BitsAllocated={bits}).")
+    streams = _group_frame_streams(fragments, frames, "JPEG")
+
+    def _one(stream: bytes) -> np.ndarray:
+        try:
+            img, p = jpegdct.decode(stream)
+        except jpegdct.JpegDctError as exc:
+            raise DicomError(f"Corrupt JPEG pixel data: {exc}") from exc
+        if p == 12 and bits == 8:
+            raise DicomError(
+                "12-bit JPEG codestream in an 8-bit container.")
+        shape = img.shape if img.ndim == 3 else img.shape + (1,)
+        if shape != (rows, cols, samples):
+            raise DicomError(
+                f"JPEG frame is {shape}, dataset says "
+                f"({rows}, {cols}, {samples}).")
+        return img.reshape(-1).astype(np.int64)
+
+    flat = np.concatenate(_map_frames(_one, streams))
+    base = np.uint8 if bits == 8 else np.uint16
     return flat.astype(base)
 
 

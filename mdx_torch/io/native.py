@@ -1,28 +1,34 @@
 """ctypes bindings of the port's host C++ codec loops
 (``mdx_torch/csrc/host/codecs.cpp``).
 
-The counterpart of the JAX package's ``mdx/io/native.py`` for the six
-entropy loops of the lossless JPEG and JPEG 2000 codecs: JPEG Lossless's
-Huffman decode and bit packer (:mod:`mdx_torch.io.jpegll`), JPEG-LS's scan
-decode and encode (:mod:`mdx_torch.io.jpegls`) and JPEG 2000's EBCOT
-Tier-1 decode and encode of one code-block (:mod:`mdx_torch.io.jpeg2k`).
-The wrappers take the same arguments, give the same returns and raise the
-same errors as the JAX package's.
+The counterpart of the JAX package's ``mdx/io/native.py`` for its ten
+entropy loops: JPEG Lossless's Huffman decode and bit packer
+(:mod:`mdx_torch.io.jpegll`), JPEG-LS's scan decode and encode
+(:mod:`mdx_torch.io.jpegls`), JPEG 2000's EBCOT Tier-1 decode and encode of
+one code-block (:mod:`mdx_torch.io.jpeg2k`), DCT JPEG's sequential and
+progressive restart-segment decodes (:mod:`mdx_torch.io.jpegdct`) and
+PackBits decode and encode (:mod:`mdx_torch.io.rle`).  The wrappers take
+the same arguments, give the same returns and raise the same errors as the
+JAX package's.
 
 At first use the source is compiled with the host C++ compiler (``$CXX``,
 else ``g++``, else ``c++``) into ``build/mdx_torch_host/`` at the root of
 the checkout, named by a hash of the source and the flags: an edit builds a
 new library and an unchanged tree reuses the old one.  The library is built
-to a temporary file in that directory and renamed into place, so processes
-that build at once never load a half-written file, and a lock makes one
-thread of a process build and bind it.  ``ctypes`` releases the GIL during
-each call, so the reader's frame threads decode in parallel.
+to a temporary file in that directory and linked into place only if no
+other process installed it first, so processes that build at once never
+load a half-written file and an installed library is never replaced; a
+lock makes one thread of a process build and bind it.  ``ctypes``
+releases the GIL during each call, so the reader's frame threads decode
+in parallel.
 
 Unlike the JAX package, whose failed build falls back quietly to the Python
 loops, a failed build raises :class:`NativeBuildError` with the compiler's
 output.  The codecs run their Python loops only where the JAX package does
 with its library built (a multi-component JPEG Lossless scan), or when the
-caller sets ``MDX_NO_NATIVE=1``, the variable the JAX package reads.
+caller sets ``MDX_NO_NATIVE=1``, the variable the JAX package reads.  (The
+JAX package's rescale and normalise passes are not bound: the port does
+both in numpy.)
 ``CALLS`` counts the calls of each wrapper that reach the library (a
 JPEG 2000 code-block with no coding pass is zeros without a call, as in
 the JAX package).
@@ -60,11 +66,19 @@ SIGNATURES = {
     "mdx_torch_io_jpeg2k_t1_enc": (_P, _P, _I32, _I32, _I32, _P, _I64,
                                    ctypes.POINTER(_I32),
                                    ctypes.POINTER(_I32)),
+    "mdx_torch_io_jpegdct_segment": (_P, _I64, _I32, _P, _P, _P, _P)
+    + (_P,) * 4 + (_I64, _I64, _I32, _I32),
+    "mdx_torch_io_jpegdct_prog_segment": (_P, _I64, _I32) + (_P,) * 5
+    + (_P,) * 4 + (_I64, _I64) + (_I32,) * 7,
+    "mdx_torch_io_packbits_decode": (_P, _I64, _P, _I64),
+    "mdx_torch_io_packbits_encode": (_P, _I64, _P),
 }
 
 # calls of each wrapper since the last reset_calls()
 CALLS = {"jpegll_diffs": 0, "jpegll_pack": 0, "jpegls_decode": 0,
-         "jpegls_encode": 0, "jpeg2k_t1_block": 0, "jpeg2k_t1_encode": 0}
+         "jpegls_encode": 0, "jpeg2k_t1_block": 0, "jpeg2k_t1_encode": 0,
+         "jpegdct_segment": 0, "jpegdct_prog_segment": 0,
+         "packbits_decode": 0, "packbits_encode": 0}
 # how the loaded library came to be: compiler, its version, build seconds
 # (None where an earlier build was reused) and the library's path
 BUILD: dict = {}
@@ -132,7 +146,10 @@ def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> dict:
             raise NativeBuildError(
                 f"{cxx} {' '.join(CXX_FLAGS)} {source} failed "
                 f"(rc {r.returncode}):\n{r.stdout}")
-        os.replace(tmp, lib)
+        try:
+            os.link(tmp, lib)
+        except FileExistsError:
+            pass            # a concurrent build installed the same library
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -336,3 +353,119 @@ def jpeg2k_t1_encode(vals: np.ndarray, btype: int):
     if rc < 0:
         raise RuntimeError("native Tier-1 encode overflow")
     return bytes(out[:rc]), int(numbps.value), int(npasses.value)
+
+
+def packbits_decode(data: bytes, expected: int) -> tuple[int, bytes]:
+    """PackBits decode.  Returns ``(rc, out)``: rc == expected on success,
+    rc < expected for a short stream, -1/-2 for a truncated literal/replicate
+    run; the caller (``rle``) maps rc to the Python loop's RleError."""
+    src = np.frombuffer(data, np.uint8)
+    lib = load()
+    out = np.empty(max(expected, 1), np.uint8)
+    _count("packbits_decode")
+    rc = lib.mdx_torch_io_packbits_decode(_ptr(src), src.size, _ptr(out),
+                                          expected)
+    return int(rc), out[:expected].tobytes()
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits encode, byte-identical to ``rle._packbits_encode_py``."""
+    src = np.frombuffer(data, np.uint8)
+    lib = load()
+    out = np.empty(src.size + src.size // 128 + 2, np.uint8)
+    _count("packbits_encode")
+    n = lib.mdx_torch_io_packbits_encode(_ptr(src), src.size, _ptr(out))
+    return out[:int(n)].tobytes()
+
+
+_JPEGDCT_ERRORS = {
+    -1: "Truncated JPEG entropy segment.",
+    -2: "Invalid Huffman code in scan data.",
+    -3: "AC run overflows the block.",
+    -4: "Invalid DC category.",
+    -5: "Invalid progressive refinement symbol.",
+}
+
+
+def _jpegdct_marshal(seg, scan_comps, dc_tabs, ac_tabs, grids, coeffs):
+    """The arguments both DCT segment loops share: the segment, per scan
+    component its sampling factors, block-grid width and coefficient array,
+    and its Huffman tables flattened (16 code counts and 256 values a
+    table, zeros for a table the scan mode never reads).  The arrays are
+    returned so that they live through the call."""
+    from mdx_torch.io.jpegdct import JpegDctError
+
+    ncomp = len(scan_comps)
+    if not 1 <= ncomp <= 4:
+        raise JpegDctError(f"A scan of {ncomp} components.")
+    hs = np.array([c.h for c in scan_comps], np.int32)
+    vs = np.array([c.v for c in scan_comps], np.int32)
+    bxs = np.array([grids[c.cid][1] for c in scan_comps], np.int32)
+    dc_counts = np.zeros((ncomp, 16), np.uint8)
+    dc_values = np.zeros((ncomp, 256), np.uint8)
+    ac_counts = np.zeros((ncomp, 16), np.uint8)
+    ac_values = np.zeros((ncomp, 256), np.uint8)
+    outs = (ctypes.c_void_p * ncomp)()
+    for i, c in enumerate(scan_comps):
+        for tab, counts, values in ((dc_tabs.get(c.td), dc_counts, dc_values),
+                                    (ac_tabs.get(c.ta), ac_counts, ac_values)):
+            if tab is None:
+                continue
+            counts[i, :] = [
+                tab.maxcode[L] - tab.mincode[L] + 1
+                if tab.maxcode[L] >= 0 else 0 for L in range(1, 17)]
+            values[i, :len(tab.values)] = np.frombuffer(
+                bytes(tab.values), np.uint8)
+        arr = coeffs[c.cid]
+        if arr.dtype != np.int32 or not arr.flags.c_contiguous:
+            raise ValueError("jpegdct: coefficients must be C-contiguous "
+                             "int32")
+        outs[i] = arr.ctypes.data
+    src = np.frombuffer(seg, np.uint8) if seg else np.zeros(1, np.uint8)
+    return (src, len(seg), ncomp, hs, vs, bxs, outs,
+            dc_counts, dc_values, ac_counts, ac_values)
+
+
+def _jpegdct_raise(rc: int) -> None:
+    from mdx_torch.io.jpegdct import JpegDctError
+
+    raise JpegDctError(_JPEGDCT_ERRORS.get(rc, f"native error {rc}"))
+
+
+def jpegdct_segment(seg: bytes, scan_comps, dc_tabs, ac_tabs, grids,
+                    coeffs, mcu0: int, cnt: int, interleaved: bool,
+                    mcus_x: int) -> None:
+    """Sequential DCT restart-segment decode into ``coeffs``, bit-identical
+    coefficients and errors to ``jpegdct._decode_segment_py``."""
+    (src, n, ncomp, hs, vs, bxs, outs, dcc, dcv, acc, acv) = \
+        _jpegdct_marshal(seg, scan_comps, dc_tabs, ac_tabs, grids, coeffs)
+    lib = load()
+    _count("jpegdct_segment")
+    rc = lib.mdx_torch_io_jpegdct_segment(
+        _ptr(src), n, ncomp, _ptr(hs), _ptr(vs), _ptr(bxs), outs,
+        _ptr(dcc), _ptr(dcv), _ptr(acc), _ptr(acv), mcu0, cnt,
+        int(interleaved), mcus_x)
+    if rc != 0:
+        _jpegdct_raise(int(rc))
+
+
+def jpegdct_prog_segment(seg: bytes, scan_comps, dc_tabs, ac_tabs, grids,
+                         coeffs, mcu0: int, cnt: int, interleaved: bool,
+                         mcus_x: int, ss: int, se: int, ah: int, al: int,
+                         dc_scan: bool) -> None:
+    """Progressive (Annex G) restart-segment decode into ``coeffs``,
+    bit-identical coefficients to ``jpegdct._decode_prog_segment_py``."""
+    (src, n, ncomp, hs, vs, bxs, outs, dcc, dcv, acc, acv) = \
+        _jpegdct_marshal(seg, scan_comps, dc_tabs, ac_tabs, grids, coeffs)
+    # a coefficient array may be wider than this scan's block grid (it is
+    # allocated at the interleaved grid): rows step by the array's width
+    strides = np.array([coeffs[c.cid].shape[1] for c in scan_comps],
+                       np.int32)
+    lib = load()
+    _count("jpegdct_prog_segment")
+    rc = lib.mdx_torch_io_jpegdct_prog_segment(
+        _ptr(src), n, ncomp, _ptr(hs), _ptr(vs), _ptr(bxs), _ptr(strides),
+        outs, _ptr(dcc), _ptr(dcv), _ptr(acc), _ptr(acv), mcu0, cnt,
+        int(interleaved), mcus_x, ss, se, ah, al, int(dc_scan))
+    if rc != 0:
+        _jpegdct_raise(int(rc))

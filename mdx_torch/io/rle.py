@@ -1,14 +1,17 @@
 """DICOM RLE Lossless codec (PS3.5 Annex G): PackBits byte segments.
 
-The port's copy of ``mdx/io/rle.py``, without its C++ fast path (the JAX
-package's ``native/mdxio.cpp``, which the port does not build yet).  The
-decoder is the original's Python loop, one iteration per control byte.
-The encoder makes the same greedy choices as the original's Python loop
-(replicate runs of 3 to 128, literals up to 128 that stop before the next
-run of 3), but finds each run's end and the next run of 3 from arrays
-computed with numpy, so its Python loop takes one iteration per output
-run and not one per byte; a CPU test holds its output byte-equal to both
-of the JAX package's encoders.
+The port's copy of ``mdx/io/rle.py``.  PackBits decode and encode run in
+the port's host C++ loops (:mod:`mdx_torch.io.native`:
+``packbits_decode``, ``packbits_encode``), as the JAX package's run in its
+``native/mdxio.cpp``; the Python bodies here are their plain versions,
+taken only under ``MDX_NO_NATIVE=1``.  The plain decoder is the original's
+Python loop, one iteration per control byte.  The plain encoder makes the
+same greedy choices as the original's Python loop (replicate runs of 3 to
+128, literals up to 128 that stop before the next run of 3), but finds
+each run's end and the next run of 3 from arrays computed with numpy, so
+its Python loop takes one iteration per output run and not one per byte.
+CPU tests hold both paths byte-equal to each other and to the JAX
+package's.
 
 Format recap (PS3.5 Annex G):
 
@@ -28,6 +31,8 @@ import struct
 
 import numpy as np
 
+from mdx_torch.io import native as _native
+
 _HEADER_LEN = 64
 _MAX_SEGMENTS = 15
 
@@ -42,6 +47,21 @@ def packbits_decode(data: bytes, expected: int) -> bytes:
     Control byte n: 0..127 → copy the next n+1 literal bytes; 129..255 →
     repeat the next byte 257-n times; 128 → no-op.  Trailing pad bytes
     beyond ``expected`` are ignored (segments are even-padded)."""
+    if _native.disabled():
+        return _packbits_decode_py(data, expected)
+    rc, out = _native.packbits_decode(data, expected)
+    if rc == -1:
+        raise RleError("Truncated PackBits literal run.")
+    if rc == -2:
+        raise RleError("Truncated PackBits replicate run.")
+    if rc < expected:
+        raise RleError(
+            f"PackBits stream too short: {rc} < {expected} bytes.")
+    return out
+
+
+def _packbits_decode_py(data: bytes, expected: int) -> bytes:
+    """The plain version of ``native.packbits_decode``."""
     out = bytearray()
     i, n = 0, len(data)
     while i < n and len(out) < expected:
@@ -67,6 +87,13 @@ def packbits_decode(data: bytes, expected: int) -> bytes:
 
 def packbits_encode(data: bytes) -> bytes:
     """Encode ``data`` with PackBits (replicate runs ≥3, literals ≤128)."""
+    if _native.disabled():
+        return _packbits_encode_py(data)
+    return _native.packbits_encode(bytes(data))
+
+
+def _packbits_encode_py(data: bytes) -> bytes:
+    """The plain version of ``native.packbits_encode``."""
     data = bytes(data)
     n = len(data)
     if n == 0:

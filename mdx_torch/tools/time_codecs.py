@@ -1,4 +1,4 @@
-"""The lossless JPEG and JPEG 2000 codecs on the host: ms per frame, and a
+"""The JPEG codecs and the transcoder on the host: ms per frame, and a
 compressed series through ``--batch`` on the card.
 
     python -m mdx_torch.tools.time_codecs [--reps 5] [--python-reps 1]
@@ -20,6 +20,16 @@ host's CPU model and core count, and the card's ``name, power.limit``:
   where the host loops are timed too;
 * a ``.4.90`` decode at 512^2 and 2048^2 split into the Tier-1 block
   decodes, the inverse DWT and the rest (``j2k_decode_split``);
+* a DCT JPEG (``.4.50``/``.4.51``) decode of each committed fixture of
+  ``tests/torch_fixtures/jpegdct/`` (a 512^2 8-bit slice sequential with
+  restart intervals and progressive, a 480 x 640 YBR 4:2:2 ultrasound
+  frame, a 256^2 12-bit slice; the card's machine has no JPEG encoder),
+  through the host C++ loops, split into the entropy loops, the
+  reconstruction (dequantisation and the float64 IDCT einsum) and the rest
+  (``dct_decode_split``);
+* ms to transcode (``mdx_torch.io.transcode``) the 512^2 and the 2048^2
+  frame from explicit VR LE to each lossless target, and the 512^2 and the
+  480 x 640 ``.4.50`` fixtures to explicit VR LE (``transcode_times``);
 * frames/s of ``run_pipeline_batch`` on a ``--frames``-frame 512^2 12-bit
   series stored in explicit VR LE, ``.4.70``, ``.4.80`` and ``.4.90``, one
   warm-up each, median of 3 (``cli_latency.batch_fps``), in turns in one
@@ -73,6 +83,17 @@ def host_line() -> str:
     return f"{model} ({platform.machine()}), {os.cpu_count()} cores"
 
 
+def _timing(spent: dict, key: str, fn):
+    """``fn`` adding its wall ms to ``spent[key]`` at each call."""
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[key] += (time.perf_counter() - t0) * 1e3
+    return wrapper
+
+
 def j2k_decode_split(frame: np.ndarray, reps: int) -> dict[str, float]:
     """Median ms of a ``.4.90`` decode of ``frame`` and of its parts: the
     Tier-1 code-block decodes (the wall of ``jpeg2k._map_parallel``, the
@@ -83,19 +104,9 @@ def j2k_decode_split(frame: np.ndarray, reps: int) -> dict[str, float]:
 
     stream = jpeg2k.encode(frame)
     spent = {"tier1_ms": 0.0, "dwt_ms": 0.0}
-
-    def timed(key, fn):
-        def wrapper(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[key] += (time.perf_counter() - t0) * 1e3
-        return wrapper
-
     real = jpeg2k._map_parallel, jpeg2k._inverse_dwt
-    jpeg2k._map_parallel = timed("tier1_ms", real[0])
-    jpeg2k._inverse_dwt = timed("dwt_ms", real[1])
+    jpeg2k._map_parallel = _timing(spent, "tier1_ms", real[0])
+    jpeg2k._inverse_dwt = _timing(spent, "dwt_ms", real[1])
     rows = []
     try:
         jpeg2k.decode(stream)
@@ -110,6 +121,89 @@ def j2k_decode_split(frame: np.ndarray, reps: int) -> dict[str, float]:
     total, tier1, dwt = (statistics.median(c) for c in zip(*rows))
     return {"total_ms": total, "tier1_ms": tier1, "dwt_ms": dwt,
             "rest_ms": total - tier1 - dwt}
+
+
+DCT_FIXTURES = ("ct512_rst.jpg", "ct512_prog.jpg", "us480x640_422.jpg",
+                "ct256_12bit.jpg")
+
+
+def dct_fixtures() -> dict[str, bytes]:
+    """The committed DCT JPEG codestreams, by file name."""
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parents[2] / "tests" / "torch_fixtures" \
+        / "jpegdct"
+    return {name: (d / name).read_bytes() for name in DCT_FIXTURES}
+
+
+def dct_decode_split(stream: bytes, reps: int) -> dict[str, float]:
+    """Median ms of a DCT JPEG decode of ``stream`` and of its parts: the
+    entropy loops (every restart segment's host C++ call, sequential or
+    progressive), the reconstruction of each component (dequantisation,
+    inverse zigzag, the float64 IDCT einsum, round and clip) and the rest
+    (marker parsing, destuffing, cropping, chroma upsampling), timed by
+    wrapping the module functions for the duration."""
+    from mdx_torch.io import jpegdct
+
+    keys = ("entropy_ms", "idct_ms")
+    spent = dict.fromkeys(keys, 0.0)
+    real = (jpegdct._decode_segment, jpegdct._decode_prog_segment,
+            jpegdct._reconstruct)
+    jpegdct._decode_segment = _timing(spent, "entropy_ms", real[0])
+    jpegdct._decode_prog_segment = _timing(spent, "entropy_ms", real[1])
+    jpegdct._reconstruct = _timing(spent, "idct_ms", real[2])
+    rows = []
+    try:
+        jpegdct.decode(stream)
+        for _ in range(reps):
+            spent.update(dict.fromkeys(keys, 0.0))
+            t0 = time.perf_counter()
+            jpegdct.decode(stream)
+            total = (time.perf_counter() - t0) * 1e3
+            rows.append((total, spent["entropy_ms"], spent["idct_ms"]))
+    finally:
+        (jpegdct._decode_segment, jpegdct._decode_prog_segment,
+         jpegdct._reconstruct) = real
+    total, entropy, idct = (statistics.median(c) for c in zip(*rows))
+    return {"total_ms": total, "entropy_ms": entropy, "idct_ms": idct,
+            "rest_ms": total - entropy - idct}
+
+
+def dct_decode_split_all(reps: int) -> dict[str, dict[str, float]]:
+    """:func:`dct_decode_split` of every committed fixture, by file name."""
+    return {name: dct_decode_split(s, reps)
+            for name, s in dct_fixtures().items()}
+
+
+def transcode_times(tmp: str, frames_by_size: dict, reps: int
+                    ) -> dict[str, float]:
+    """Median ms of ``transcode`` (one warm-up): each uint16 frame of
+    ``frames_by_size`` from explicit VR LE to every lossless target, and
+    the 512^2 and 480 x 640 ``.4.50`` fixtures to explicit VR LE."""
+    from mdx_torch.io import transcode, write_dicom
+    from mdx_torch.io.dicom import TS_JPEG_BASELINE
+    from mdx_torch.io.dicom_write import write_codestreams
+    from mdx_torch.io.transcode import TARGET_ALIASES
+
+    out = {}
+    dst = os.path.join(tmp, "transcoded.dcm")
+    for size, frame in frames_by_size.items():
+        src = write_dicom(os.path.join(tmp, f"le_{size}.dcm"), frame)
+        for target in TARGET_ALIASES:
+            if target != "explicit-le":
+                out[f"explicit-le_{size}_to_{target}_ms"] = _median_ms(
+                    lambda: transcode(src, dst, target), reps)
+    fx = dct_fixtures()
+    for name, shape, kw in (("ct512_rst.jpg", (512, 512), {}),
+                            ("us480x640_422.jpg", (480, 640),
+                             {"samples": 3, "photometric": "YBR_FULL_422",
+                              "modality": "US"})):
+        src = write_codestreams(os.path.join(tmp, f"{name}.dcm"), [fx[name]],
+                                *shape, transfer_syntax=TS_JPEG_BASELINE,
+                                bits=8, **kw)
+        out[f"4.50_{shape[0]}x{shape[1]}_to_explicit-le_ms"] = _median_ms(
+            lambda: transcode(src, dst, "explicit-le"), reps)
+    return out
 
 
 @contextmanager
@@ -213,9 +307,13 @@ def main(argv=None) -> int:
     times["128_python"] = frame_times(corner, args.python_reps, python=True,
                                       families=("jpeg2k",))
     res_split = {size: j2k_decode_split(f, args.reps) for size, f in fr.items()}
+    dct = dct_decode_split_all(args.reps)
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = transcode_times(tmp, fr, args.reps)
     res = {"tool": "time_codecs", "host": host_line(),
            "build": dict(native.BUILD), "ms_per_frame": times,
-           "j2k_decode_split": res_split}
+           "j2k_decode_split": res_split, "dct_decode_split": dct,
+           "transcode_ms": tc}
     if args.device != "cpu":
         import torch
 

@@ -5,8 +5,9 @@
   with its numbers masked (the sweep's rationale mapped as in
   ``test_torch_pipeline.py``), and the numbers of the DB rows the two runs
   wrote within ``mdx_torch.parity``;
-* the flags the port refuses (``--genai``, ``--plan-only``), a JPEG 2000
-  input and a missing file exit 1 with main.py's prefixes
+* the flags the port refuses (``--genai``, ``--plan-only``), a DCT JPEG
+  file whose body is a JPEG 2000 codestream and a missing file exit 1 with
+  main.py's prefixes and lines
   (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
 * ``.env`` loading and ``--tv-mode`` / ``MDX_TV_MODE``, read once and passed
   on as ``tv_mode``;
@@ -102,8 +103,9 @@ def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
         assert cli.main(["--input", path, flag], device="cpu") == 1
         out = capsys.readouterr().out
         assert out.startswith("ERROR: ") and words in out, out
-    # a DCT JPEG file: the .4.90 file with its UID rewritten (both 22
-    # characters); the port does not decode .4.50 yet
+    # a DCT JPEG file whose body is the .4.90 file's (the UID rewritten,
+    # both 22 characters): both CLIs exit 1 with the reader's error, a
+    # DicomError (a ValueError), so "Error:" and not "ERROR:"
     j2k = JW.write_dicom(str(tmp_path / "j2k.dcm"),
                          np.arange(256, dtype=np.uint16).reshape(16, 16),
                          transfer_syntax=TS_J2K_LOSSLESS)
@@ -111,11 +113,12 @@ def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
     with open(dct, "wb") as f:
         f.write(open(j2k, "rb").read().replace(TS_J2K_LOSSLESS.encode(),
                                                 TS_JPEG_BASELINE.encode()))
-    assert cli.main(["--input", dct, "--output", str(tmp_path / "o")],
-                    device="cpu") == 1
-    out = capsys.readouterr().out
-    assert re.match(r"ERROR: transfer syntax 1\.2\.840\.10008\.1\.2\.4\.50 "
-                    r"\(JPEG Baseline\) is not yet in mdx_torch", out), out
+    (rc_j, out_j), (rc_p, out_p) = _outputs(
+        capsys, ["--input", dct, "--output", str(tmp_path / "o"),
+                 "--no-show"])
+    assert rc_j == rc_p == 1
+    assert out_p == out_j == ("Error: Corrupt JPEG pixel data: Not a JPEG "
+                              "stream (missing SOI).\n"), out_p
     missing = ["--input", str(tmp_path / "nope.dcm"), "--output",
                str(tmp_path / "o"), "--no-show"]
     (rc_j, out_j), (rc_p, out_p) = _outputs(capsys, missing)

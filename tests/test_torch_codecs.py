@@ -648,6 +648,28 @@ def test_second_process_reuses_the_library():
                                                  before.st_mtime_ns)
 
 
+def test_a_late_concurrent_build_keeps_the_installed_library(tmp_path,
+                                                              monkeypatch):
+    """A build that compiled while another process installed the library
+    (it saw no library when it started) leaves the installed file in place:
+    a process that loaded it keeps the same file, and no temporary is
+    left."""
+    src = tmp_path / "codecs.cpp"
+    shutil.copy(native.SOURCE, src)
+    first = native.build(src, tmp_path / "b")
+    lib = Path(first["path"])
+    before = lib.stat()
+    real = type(lib).exists
+    monkeypatch.setattr(type(lib), "exists",
+                        lambda self: False if self == lib else real(self))
+    late = native.build(src, tmp_path / "b")
+    assert late["seconds"] is not None and late["path"] == str(lib)
+    after = lib.stat()
+    assert (after.st_ino, after.st_mtime_ns) == (before.st_ino,
+                                                 before.st_mtime_ns)
+    assert sorted(p.name for p in (tmp_path / "b").iterdir()) == [lib.name]
+
+
 def test_build_names_by_source_and_reuses(tmp_path):
     src = tmp_path / "codecs.cpp"
     shutil.copy(native.SOURCE, src)
@@ -708,13 +730,17 @@ def test_calls_count_each_entry_point():
     native.reset_calls()
     ll = PL.encode(img, precision=12, restart_rows=6)   # 4 intervals
     ls = PS.encode(img, precision=12, restart_rows=8)   # 3 intervals
-    j2k = {"jpeg2k_t1_block": 0, "jpeg2k_t1_encode": 0}  # test_torch_jpeg2k
+    # the other codecs' entry points (test_torch_jpeg2k, _jpegdct,
+    # _transcode count them)
+    rest = {"jpeg2k_t1_block": 0, "jpeg2k_t1_encode": 0,
+            "jpegdct_segment": 0, "jpegdct_prog_segment": 0,
+            "packbits_decode": 0, "packbits_encode": 0}
     assert native.CALLS == {"jpegll_diffs": 0, "jpegll_pack": 4,
-                            "jpegls_decode": 0, "jpegls_encode": 3, **j2k}
+                            "jpegls_decode": 0, "jpegls_encode": 3, **rest}
     PL.decode(ll)
     PS.decode(ls)
     assert native.CALLS == {"jpegll_diffs": 4, "jpegll_pack": 4,
-                            "jpegls_decode": 3, "jpegls_encode": 3, **j2k}
+                            "jpegls_decode": 3, "jpegls_encode": 3, **rest}
     native.reset_calls()
     assert set(native.CALLS.values()) == {0}
 

@@ -889,3 +889,42 @@ def test_run_pipeline_jpeg2k_equals_its_twin_on_the_card(
 
     _compressed_run_equals_twin(dev, tmp_path, monkeypatch, TS_J2K_LOSSLESS,
                                 "jpeg2k_t1_block")
+
+
+def test_run_pipeline_jpeg_dct_equals_its_twin_on_the_card(
+        dev, tmp_path, monkeypatch):
+    """``.4.50`` (the committed 512^2 fixture with restart intervals, and
+    the 480 x 640 YBR 4:2:2 frame) against its transcode to explicit LE:
+    the host DCT decode ran, and the runs are equal bit for bit."""
+    from pathlib import Path
+
+    from mdx_torch.io import native, transcode
+    from mdx_torch.io.dicom import TS_JPEG_BASELINE
+    from mdx_torch.io.dicom_write import write_codestreams
+    from mdx_torch.pipeline.runner import run_pipeline
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    fx = Path(__file__).resolve().parent / "torch_fixtures" / "jpegdct"
+    for name, shape, kw in (("ct512_rst.jpg", (512, 512), {}),
+                            ("us480x640_422.jpg", (480, 640),
+                             {"samples": 3, "photometric": "YBR_FULL_422",
+                              "modality": "US"})):
+        comp = write_codestreams(str(tmp_path / "dct.dcm"),
+                                 [(fx / name).read_bytes()], *shape,
+                                 transfer_syntax=TS_JPEG_BASELINE, bits=8,
+                                 **kw)
+        twin = transcode(comp, str(tmp_path / "le.dcm"), "explicit-le")
+        native.reset_calls()
+        kernels.reset_launches()
+        got = run_pipeline(comp, str(tmp_path / "o"), device=dev,
+                           save_artifacts=False)
+        assert native.CALLS["jpegdct_segment"] > 0
+        assert kernels.LAUNCHES["box_stats"] > 0
+        want = run_pipeline(twin, str(tmp_path / "o"), device=dev,
+                            save_artifacts=False)
+        assert got["issues"] == want["issues"], name
+        assert got["applied_ops"] == want["applied_ops"], name
+        a, b = parity.flatten_run(got), parity.flatten_run(want)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), (name, k)

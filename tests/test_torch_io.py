@@ -6,7 +6,8 @@
   16-bit, signed, MONOCHROME1, rescale, window, multi-frame and RGB;
 * writer: byte-equal files for the same arguments, JPEG Lossless,
   JPEG-LS and JPEG 2000 included; RLE frames byte-equal and round-tripping;
-  DCT JPEG refused with its UID;
+  DCT JPEG refused by both writers with its UID, and a DCT JPEG file whose
+  body is not JPEG raising the same error in both readers;
 * normalisation, the markdown report (string-equal on the same contexts)
   and the PNG (decoded here with ``zlib`` alone).
 
@@ -269,9 +270,10 @@ def test_synthetic_writer_byte_equal_to_jax(tmp_path, kind):
 
 @pytest.mark.parametrize("ts", [JD.TS_JPEG_BASELINE, JD.TS_JPEG_EXTENDED])
 def test_jpeg_family_is_refused_with_its_uid(tmp_path, ts):
-    """The syntaxes the port does not decode yet (DCT JPEG); JAX's writer
-    writes neither, so each is a .4.90 file with its UID rewritten (the
-    UIDs are all 22 characters)."""
+    """A .4.90 body under a DCT JPEG UID (the UIDs are all 22 characters):
+    both readers decode the syntax and raise the same "Corrupt JPEG pixel
+    data" error on the JPEG 2000 codestream; both writers refuse to write
+    it, naming the UID."""
     pix = np.arange(16 * 16, dtype=np.uint16).reshape(16, 16)
     j2k = JW.write_dicom(str(tmp_path / "j.dcm"), pix,
                          transfer_syntax=JD.TS_J2K_LOSSLESS)
@@ -281,12 +283,19 @@ def test_jpeg_family_is_refused_with_its_uid(tmp_path, ts):
         f.write(open(j2k, "rb").read().replace(
             JD.TS_J2K_LOSSLESS.encode(), ts.encode()))
     assert JD.read_dataset(path).transfer_syntax == ts
-    for load in (PD.load_dicom, PD.load_series, PD.load_frames_raw):
-        with pytest.raises(PD.CodecNotPorted,
-                           match=re.escape(ts) + r".*not yet in mdx_torch"):
-            load(path)
-    with pytest.raises(ValueError, match=re.escape(ts)):
-        PW.write_dicom(str(tmp_path / "p.dcm"), pix, transfer_syntax=ts)
+    assert PD.read_dataset(path).transfer_syntax == ts
+    for name in ("load_dicom", "load_series", "load_frames_raw"):
+        with pytest.raises(JD.DicomError) as want:
+            getattr(JD, name)(path)
+        with pytest.raises(PD.DicomError) as got:
+            getattr(PD, name)(path)
+        assert str(got.value) == str(want.value)
+        assert str(got.value).startswith(
+            "Corrupt JPEG pixel data: Not a JPEG stream (missing SOI)")
+    for writer in (JW, PW):
+        with pytest.raises(ValueError, match=re.escape(ts)):
+            writer.write_dicom(str(tmp_path / "p.dcm"), pix,
+                               transfer_syntax=ts)
 
 
 @pytest.mark.parametrize("shape,dtype", [((17, 23), "uint8"),

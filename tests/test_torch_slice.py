@@ -302,9 +302,19 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
             j2k = write_synthetic_dicom(tmp + "/j2k.dcm", kind="phantom",
                                         size=48, transfer_syntax=TS_J2K_LOSSLESS)
             assert np.array_equal(load_dicom(j2k)[0], img)
+            rle = mdx_torch.io.transcode(j2k, tmp + "/rle.dcm", "rle")
+            assert np.array_equal(load_dicom(rle)[0], img)
+        from mdx_torch.io import jpegdct
+        dct, p = jpegdct.decode(open(
+            "tests/torch_fixtures/jpegdct/ct512_prog.jpg", "rb").read())
+        assert dct.shape == (512, 512) and p == 8
         assert native.CALLS["jpegll_pack"] == native.CALLS["jpegll_diffs"] == 1
         assert native.CALLS["jpeg2k_t1_encode"] > 0
         assert native.CALLS["jpeg2k_t1_block"] > 0
+        # one PackBits call a byte plane: two planes of uint16
+        assert native.CALLS["packbits_encode"] == 2
+        assert native.CALLS["packbits_decode"] == 2
+        assert native.CALLS["jpegdct_prog_segment"] > 0
         det = qa.qa_deterministic(torch.from_numpy(
             mdx_torch.io.normalize_image(img))[None])
         assert det[0].shape == (1, 48, 48)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
 paths, capability probe, CLI, spatial runner, data axis, JPEG codecs
-(lossless JPEG, JPEG-LS, DCT JPEG, JPEG 2000) and transcoder on one NVIDIA
-GPU.
+(lossless JPEG, JPEG-LS, DCT JPEG, JPEG 2000), transcoder and JSON API on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -260,6 +260,27 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    5. every phase-15 file transcoded to each target the transcoder accepts
       for it (colour: explicit LE and deflated) on a pool of worker
       processes and read back pixel-equal to the source's decode.
+16. serve  — the JSON API (``mdx_torch.serve``) on phase 12's four 512^2
+   files, ``MDX_DB_PATH``, ``UPLOAD_DIR`` and ``OUTPUT_DIR`` in a temporary
+   directory, no ``OPENAI_API_KEY``:
+   1. ``python -m mdx_torch.serve.api`` as a subprocess on a free ``PORT``:
+      ``GET /`` answered within 120 s, one upload run to ``completed``,
+      then stopped; the seconds from start to the first answer and the
+      cold run's ms from ``POST /api/run`` to ``completed``;
+   2. the port's ``App`` on a free port in a thread of this process: the
+      blurred slice uploaded, run and polled (counters reset before, read
+      after: B, U, C and 10 launched; its kernel calls replayed against
+      the plain versions), detail, report, logs and before/after answered;
+      its DB row equal, field for field, to an in-process ``run_pipeline``
+      of the uploaded file, the served PNG (``io.visuals.read_png``)
+      bit-equal to that run's, ``POST /api/runs/<id>/chat`` 200 with the
+      stored-data summary and both messages stored; warm runs' ms;
+   3. the four files posted back to back (the executor's four workers run
+      them at once): all ``completed``, each row equal to its serial
+      ``run_pipeline`` row; the wall against four serial calls;
+   4. ``{"genai": true}`` and ``{"genai": true, "autotune": true}``: both
+      complete, their rows equal to the deterministic run's and to
+      ``run_pipeline(autotune=True)``'s.
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -268,7 +289,7 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-15, summed over the ranks in phases 9, 10,
+launches per path of phases 5-16, summed over the ranks in phases 9, 10,
 13, 14 and 15's ``--spatial`` runs);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -1591,6 +1612,21 @@ def _mixed_ct_cxr(d: str, also_ct=()) -> None:
                     modality="DX", body_part="CHEST")
 
 
+def _cli_singles(root) -> dict:
+    """Phase 12's four 512^2 16-bit CT slices (``CLI_KINDS``), written with
+    the port's writer under ``root``: kind → path."""
+    from mdx_torch.io import write_dicom, write_synthetic_dicom
+
+    f = {}
+    for i, kind in enumerate(CLI_KINDS[:3]):
+        f[kind] = write_synthetic_dicom(f"{root}/{kind}.dcm", kind=kind,
+                                        size=CLI_SIZE, seed=20 + i)
+    f["blurred"] = write_dicom(f"{root}/blurred.dcm",
+                               _blurred_phantom(CLI_SIZE),
+                               rescale_slope=1.0, rescale_intercept=-1024.0)
+    return f
+
+
 def _cli_inputs(root) -> dict:
     """Phase 12's files, written with the port's writer under ``root``."""
     import os
@@ -1601,13 +1637,7 @@ def _cli_inputs(root) -> dict:
     from mdx_torch.io.dicom import TS_RLE
     from mdx_torch.tools import make_batch
 
-    f = {}
-    for i, kind in enumerate(CLI_KINDS[:3]):
-        f[kind] = write_synthetic_dicom(f"{root}/{kind}.dcm", kind=kind,
-                                        size=CLI_SIZE, seed=20 + i)
-    f["blurred"] = write_dicom(f"{root}/blurred.dcm",
-                               _blurred_phantom(CLI_SIZE),
-                               rescale_slope=1.0, rescale_intercept=-1024.0)
+    f = _cli_singles(root)
     cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
     f["cxr"] = write_dicom(f"{root}/cxr.dcm", cxr, modality="DX",
                            body_part="CHEST", study_description="CXR PA")
@@ -2991,6 +3021,319 @@ def _phase_codecs(torch, kernels, parity, check, paths: dict, card: str,
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
 
+# phase 16: the JSON API on the card (mdx_torch/serve), phase 12's four
+# 512^2 files; the blurred slice runs B, U, C and 10 (CLAHE, unsharp, the
+# light and corrective wavelet denoises)
+SERVE_START_S = 120
+SERVE_RUN_S = 300
+SERVE_WARM = 3
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"",
+          ctype: str = "application/json") -> tuple[int, dict, bytes]:
+    """One request to the server on this machine's ``port``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body or None,
+                     headers={"Content-Type": ctype} if body else {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _http_json(port: int, method: str, path: str, data=None):
+    s, _, body = _http(port, method, path,
+                       json.dumps(data).encode() if data is not None else b"")
+    return s, json.loads(body)
+
+
+def _serve_upload(port: int, path: str) -> dict:
+    """``POST /api/upload`` of the file at ``path`` (multipart field
+    ``file``) → the JSON body."""
+    import os
+
+    boundary = "chipsmokeboundary16"
+    with open(path, "rb") as fh:
+        content = fh.read()
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{os.path.basename(path)}\"\r\nContent-Type: "
+            f"application/octet-stream\r\n\r\n").encode() + content + (
+        f"\r\n--{boundary}--\r\n").encode()
+    s, _, out = _http(port, "POST", "/api/upload", body,
+                      f"multipart/form-data; boundary={boundary}")
+    _require(s == 200, f"serve upload {path}: {s} {out[:300]!r}")
+    return json.loads(out)
+
+
+def _serve_post_run(port: int, file_id: str, **flags) -> tuple[str, float]:
+    """``POST /api/run`` → (run id, the request's start on the host clock)."""
+    t0 = time.perf_counter()
+    s, run = _http_json(port, "POST", "/api/run", {"file_id": file_id,
+                                                   **flags})
+    _require(s == 202 and run["status"] == "pending", f"serve run: {s} {run}")
+    return run["run_id"], t0
+
+
+def _serve_poll(port: int, run_id: str, t0: float) -> float:
+    """Polls the run's status until it completes → ms from ``t0`` to the
+    answer that said so; fails on ``error`` or after ``SERVE_RUN_S``."""
+    while True:
+        s, st = _http_json(port, "GET", f"/api/runs/{run_id}/status")
+        _require(s == 200, f"serve status {run_id}: {s} {st}")
+        if st["status"] == "completed":
+            return (time.perf_counter() - t0) * 1e3
+        if st["status"] == "error":
+            from mdx_torch.pipeline import storage
+
+            raise SmokeFailure(f"serve run {run_id} ended in error: "
+                               f"{storage.get_run_status(run_id)}")
+        _require(time.perf_counter() - t0 < SERVE_RUN_S,
+                 f"serve run {run_id}: not completed in {SERVE_RUN_S} s")
+        time.sleep(0.005)
+
+
+def _serve_posted(port: int, file_id: str, **flags) -> tuple[str, float]:
+    """Run and poll one uploaded file → (run id, request-to-completed ms)."""
+    run_id, t0 = _serve_post_run(port, file_id, **flags)
+    return run_id, _serve_poll(port, run_id, t0)
+
+
+def _serve_run(port: int, path: str, **flags) -> tuple[str, float]:
+    """Upload, run and poll one file → (run id, request-to-completed ms)."""
+    return _serve_posted(port, _serve_upload(port, path)["file_id"], **flags)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_subprocess(tmp: str, f: dict, card: str) -> None:
+    """16.1: ``python -m mdx_torch.serve.api`` as users start it, on a free
+    ``PORT``: the seconds to its first answer, one cold run, then stopped."""
+    import os
+    import subprocess
+
+    port = _free_port()
+    env = dict(os.environ, PORT=str(port))
+    log = open(f"{tmp}/serve_api.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mdx_torch.serve.api"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            _require(proc.poll() is None,
+                     f"serve subprocess exited {proc.returncode}: "
+                     f"{open(log.name).read()[-2000:]}")
+            try:
+                s, index = _http_json(port, "GET", "/")
+                break
+            except OSError:
+                _require(time.perf_counter() - t0 < SERVE_START_S,
+                         f"serve subprocess: no answer in {SERVE_START_S} "
+                         f"s: {open(log.name).read()[-2000:]}")
+                time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        _require(s == 200 and "mdx_torch" in index["name"],
+                 f"serve subprocess GET /: {s} {index}")
+        run_id, cold_ms = _serve_run(port, f["blurred"])
+        s, detail = _http_json(port, "GET", f"/api/runs/{run_id}")
+        _require(s == 200 and detail["issues"],
+                 f"serve subprocess detail: {s}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"serve subprocess python -m mdx_torch.serve.api on {card}: start "
+          f"to first answer {start_s!r} s, cold run (blurred {CLI_SIZE}^2) "
+          f"request to completed {cold_ms!r} ms; stopped (rc "
+          f"{proc.returncode})")
+
+
+def _same_rows(label: str, parity, got_id: str, want_id: str) -> None:
+    from mdx_torch.pipeline import storage
+
+    diff = parity.row_differences(storage.get_run(got_id),
+                                  storage.get_run(want_id))
+    _require(not diff, f"serve {label}: row differs from run_pipeline's: "
+             f"{diff}")
+
+
+def _phase_serve(torch, kernels, parity, check, paths: dict, card: str,
+                 dev) -> None:
+    """Phase 16: the JSON API on the card (module doc), its uploads,
+    outputs and DB in a temporary directory."""
+    import os
+    import tempfile
+
+    t16 = time.perf_counter()
+    keys = ("MDX_DB_PATH", "UPLOAD_DIR", "OUTPUT_DIR", "OPENAI_API_KEY")
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+            os.environ.update(MDX_DB_PATH=f"{tmp}/runs.db",
+                              UPLOAD_DIR=f"{tmp}/uploads",
+                              OUTPUT_DIR=f"{tmp}/outputs")
+            # the chat answers from the stored data; no model is called
+            os.environ.pop("OPENAI_API_KEY", None)
+            f = _cli_singles(tmp)
+            _serve_subprocess(tmp, f, card)
+            _serve_in_process(torch, kernels, parity, check, paths, card,
+                              dev, tmp, f)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
+
+def _serve_in_process(torch, kernels, parity, check, paths, card, dev, tmp,
+                      f) -> None:
+    import importlib
+    import os
+    import threading
+
+    import numpy as np
+
+    from mdx_torch.io.visuals import read_png
+    from mdx_torch.pipeline import storage
+    from mdx_torch.pipeline.runner import run_pipeline
+    from mdx_torch.serve import api, config
+
+    importlib.reload(config)
+    app = api.create_app(device=dev)
+    server = app.make_server("127.0.0.1", 0)
+    port = server.server_port
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    serial = f"{tmp}/serial"
+    uploaded = lambda run_id: os.path.join(  # noqa: E731
+        config.UPLOAD_DIR, storage.get_run(run_id)["input_filename"])
+    try:
+        # 16.2 one run through the server, its kernel calls recorded
+        up = _serve_upload(port, f["blurred"])
+        calls: list = []
+        with _recording(torch, kernels, calls):
+            (run_id, ms), paths["serve_512"] = _run_path(
+                torch, kernels, f"serve run [1,{CLI_SIZE},{CLI_SIZE}] "
+                "blurred", lambda: _serve_posted(port, up["file_id"]))
+        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+            _require(paths["serve_512"][k] > 0,
+                     f"kernel {k} was not launched by the served run")
+        check.replay(f"serve {CLI_SIZE}^2 blurred", calls)
+        del calls
+        check.require_ok()
+        got = {}
+        for route in ("", "/report", "/logs", "/before_after"):
+            s, headers, body = _http(port, "GET", f"/api/runs/{run_id}{route}")
+            _require(s == 200, f"serve GET /api/runs/<id>{route}: {s}")
+            got[route] = (headers, body)
+        detail = json.loads(got[""][1])
+        _require(detail["status"] == "completed" and detail["issues"]
+                 and json.loads(got["/report"][1])["markdown"].startswith("# "),
+                 f"serve detail / report: {detail['status']}")
+        want = run_pipeline(uploaded(run_id), serial, device=dev)
+        _same_rows("blurred", parity, run_id, want["run_id"])
+        png_path = f"{tmp}/served.png"
+        with open(png_path, "wb") as fh:
+            fh.write(got["/before_after"][1])
+        served, direct = read_png(png_path), read_png(
+            want["visuals"]["before_after"])
+        _require(got["/before_after"][0].get("Content-Type") == "image/png"
+                 and served.shape == direct.shape
+                 and np.array_equal(served, direct),
+                 "serve: the before/after PNG differs from run_pipeline's")
+        s, chat = _http_json(port, "POST", f"/api/runs/{run_id}/chat",
+                             {"message": "What did this run change?"})
+        _require(s == 200 and "stored-data summary" in chat["reply"],
+                 f"serve chat: {s} {chat}")
+        s, hist = _http_json(port, "GET", f"/api/runs/{run_id}")
+        _require([m["role"] for m in hist["chat_history"]] == [
+            "user", "assistant"], f"serve chat history: {hist}")
+        print(f"serve run blurred: row equal to run_pipeline's, PNG "
+              f"{served.shape} bit-equal, issues {detail['issues']}, chat "
+              f"200 ({chat['reply'][:60]!r}...)")
+        warm = [_serve_run(port, f["blurred"])[1] for _ in range(SERVE_WARM)]
+        print(f"serve in-process run blurred {CLI_SIZE}^2 on {card}: first "
+              f"request to completed {ms!r} ms, warm {warm} ms (median "
+              f"{statistics.median(warm)!r})")
+
+        # 16.3 four runs posted back to back: the four workers at once
+        ups = [_serve_upload(port, f[k]) for k in CLI_KINDS]
+        posted = {}
+
+        def four():
+            t0 = time.perf_counter()
+            for k, u in zip(CLI_KINDS, ups):
+                posted[k] = _serve_post_run(port, u["file_id"])[0]
+            for rid in posted.values():
+                _serve_poll(port, rid, t0)
+            return (time.perf_counter() - t0) * 1e3
+
+        wall, paths["serve_concurrent"] = _run_path(
+            torch, kernels, f"serve 4 concurrent runs [1,{CLI_SIZE},"
+            f"{CLI_SIZE}]", four)
+        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+            _require(paths["serve_concurrent"][k] > 0,
+                     f"kernel {k} was not launched by the concurrent runs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial_ids = {k: run_pipeline(uploaded(posted[k]), serial,
+                                      device=dev)["run_id"]
+                      for k in CLI_KINDS}
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        for k in CLI_KINDS:
+            _same_rows(f"concurrent {k}", parity, posted[k], serial_ids[k])
+        print(f"serve 4 concurrent runs ({', '.join(CLI_KINDS)}) on {card}: "
+              f"{wall!r} ms from the first request to the last completed, "
+              f"against {serial_ms!r} ms for 4 serial run_pipeline calls; "
+              f"each row equal to its serial row")
+
+        # 16.4 genai, and genai with autotune, as JAX's server runs them
+        up = _serve_upload(port, f["blurred"])
+
+        def flags():
+            out = {}
+            for label, body in (("genai", {"genai": True}),
+                                ("genai_autotune", {"genai": True,
+                                                    "autotune": True})):
+                out[label] = _serve_posted(port, up["file_id"], **body)
+            return out
+
+        runs, paths["serve_genai"] = _run_path(
+            torch, kernels, "serve genai and genai + autotune", flags)
+        _same_rows("genai", parity, runs["genai"][0], want["run_id"])
+        tuned = run_pipeline(uploaded(runs["genai_autotune"][0]), serial,
+                             device=dev, autotune=True)
+        _same_rows("genai + autotune", parity, runs["genai_autotune"][0],
+                   tuned["run_id"])
+        _require(storage.get_run(runs["genai_autotune"][0])["genai_model"]
+                 == "on-device autotune", "serve genai + autotune: no sweep")
+        print(f"serve genai: completed in {runs['genai'][1]!r} ms, row equal "
+              f"to the deterministic run's; genai + autotune: completed in "
+              f"{runs['genai_autotune'][1]!r} ms, row equal to "
+              f"run_pipeline(autotune=True)'s")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
 def main() -> int:
     import torch
 
@@ -3215,6 +3558,8 @@ def main() -> int:
     _phase_data(torch, kernels, parity, check, paths, card, dev)
     # ---- 15. the JPEG codecs: compressed files through the CLI ----------
     _phase_codecs(torch, kernels, parity, check, paths, card, dev)
+    # ---- 16. the JSON API on the card: served runs, four at once --------
+    _phase_serve(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []

@@ -16,8 +16,13 @@ environment wins).  ``--tv-mode``, else ``MDX_TV_MODE``, is read here once
 and passed to the autotune sweep as ``tv_mode``; no op reads the
 environment.  ``--spatial`` QA's one large slice sharded over the visible
 cards (``pipeline/spatial_runner.py``, with ``--window`` and
-``--autotune``; its device part in one launch of ranks).  ``--genai`` and
-``--plan-only`` (GenAI mode is not ported) exit 1 with ``ERROR:``;
+``--autotune``; its device part in one launch of ranks).  The run is
+chosen in ``main.py``'s order: ``--spatial``, then ``--batch`` (which
+ignores ``--genai`` and ``--plan-only``), then the one-image run.  Only
+where JAX would take its GenAI path, the one-image run with ``--genai``
+and without ``--autotune``, does the port refuse (GenAI mode is not
+ported): it exits 1 with ``ERROR:``.  ``--genai --autotune`` runs the
+sweep and ``--plan-only`` alone the deterministic run, as in JAX.
 ``--no-show`` is accepted (the port never opens a window), and so are
 ``--model``, ``--max-iters`` and ``--no-redact``, which only GenAI mode
 reads.
@@ -64,15 +69,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "opens a window (it still saves the PNG)")
     parser.add_argument("--genai", action="store_true",
                         help="GenAI agentic mode: not part of mdx_torch "
-                             "(exits 1)")
+                             "(a one-image run without --autotune exits "
+                             "1; --batch and --spatial ignore it)")
     parser.add_argument("--model", default=default_model,
                         help=f"LLM model of GenAI mode (unused; default: "
                              f"{default_model})")
     parser.add_argument("--max-iters", type=int, default=4,
                         help="Max tuning iterations of GenAI mode (unused)")
     parser.add_argument("--plan-only", action="store_true",
-                        help="GenAI plan without execution: not part of "
-                             "mdx_torch (exits 1)")
+                        help="GenAI plan without execution; only GenAI "
+                             "mode reads it (alone: the deterministic run)")
     parser.add_argument("--no-redact", action="store_true",
                         help="Disable GenAI metadata redaction (unused)")
     parser.add_argument("--verbose", action="store_true",
@@ -111,11 +117,6 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
             input_path=args.input, output_dir=args.output,
             save_artifacts=True, window=args.window, autotune=args.autotune,
             device=device, tv_mode=tv_mode)
-    if args.genai or args.plan_only:
-        raise RuntimeError(
-            "--genai / --plan-only: GenAI mode is not part of mdx_torch "
-            "(mdx/genai, an LLM loop that calls a remote model, is not "
-            "ported; ROADMAP Queue 1)")
     if args.batch:
         from mdx_torch.pipeline.batch_runner import run_pipeline_batch
 
@@ -123,6 +124,11 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
             input_path=args.input, output_dir=args.output,
             save_artifacts=True, window=args.window, autotune=args.autotune,
             resume=args.resume, device=device, tv_mode=tv_mode)
+    if args.genai and not args.autotune:
+        raise RuntimeError(
+            "--genai: GenAI mode is not part of mdx_torch (mdx/genai, an "
+            "LLM loop that calls a remote model, is not ported; ROADMAP "
+            "'Not ported, by design'); run without it or with --autotune")
     from mdx_torch.pipeline.runner import run_pipeline
 
     return run_pipeline(

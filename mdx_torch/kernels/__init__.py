@@ -8,11 +8,15 @@ wrapper only for a CUDA tensor (:func:`use_kernel`) and run the plain
 PyTorch version for a CPU tensor.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it, so a
-run can show that the main path went through the kernels.  The library is
-built and loaded on the first call (:func:`library`), never at import.
+run can show that the main path went through the kernels; the counts are
+kept under a lock, so they stay exact when several threads run passes (the
+server's workers do).  The library is built and loaded on the first call
+(:func:`library`), once a process, never at import.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -22,21 +26,32 @@ LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
                             "tv_shard_step": 0}
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def library():
-    """The loaded kernel library, built from the sources on first use."""
+    """The loaded kernel library, built from the sources on first use (one
+    build and one load, whichever thread comes first)."""
     global _lib
     if _lib is None:
-        from mdx_torch.kernels import _build
+        with _lib_lock:
+            if _lib is None:
+                from mdx_torch.kernels import _build
 
-        _lib = _build.load()
+                _lib = _build.load()
     return _lib
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -97,7 +112,7 @@ def box_stats(x: torch.Tensor):
         _ok(lib.mdx_box_stats(x.data_ptr(), partials.data_ptr(),
                               out.data_ptr(), n, h, w, _stream()),
             "box_stats")
-    LAUNCHES["box_stats"] += 1
+    _count("box_stats")
     return out[:, 0], out[:, 1], out[:, 2]
 
 
@@ -118,7 +133,7 @@ def unsharp(x: torch.Tensor, radius: torch.Tensor,
         out = torch.empty_like(x)
         _ok(lib.mdx_unsharp(x.data_ptr(), taps.data_ptr(), amount.data_ptr(),
                             out.data_ptr(), n, h, w, _stream()), "unsharp")
-    LAUNCHES["unsharp"] += 1
+    _count("unsharp")
     return out
 
 
@@ -142,7 +157,7 @@ def clahe(x: torch.Tensor, clip_limit: torch.Tensor, tile_size: int = 16,
         out = torch.empty_like(x)
         _ok(lib.mdx_clahe(x.data_ptr(), clip_limit.data_ptr(), lut.data_ptr(),
                           out.data_ptr(), n, h, w, t, _stream()), "clahe")
-    LAUNCHES["clahe"] += 1
+    _count("clahe")
     return out
 
 
@@ -164,7 +179,7 @@ def clahe_luts(x: torch.Tensor, clip_limit: torch.Tensor,
         _ok(lib.mdx_clahe_luts(x.data_ptr(), clip_limit.data_ptr(),
                                lut.data_ptr(), n, h, w, t, _stream()),
             "clahe_luts")
-    LAUNCHES["clahe"] += 1
+    _count("clahe")
     return lut
 
 
@@ -186,14 +201,14 @@ def clahe_remap_ext(x: torch.Tensor, lut_ext: torch.Tensor,
         _ok(lib.mdx_clahe_remap_ext(x.data_ptr(), lut_ext.data_ptr(),
                                     out.data_ptr(), n, h, w, t, _stream()),
             "clahe_remap_ext")
-    LAUNCHES["clahe_remap_ext"] += 1
+    _count("clahe_remap_ext")
     return out
 
 
 # iterations between the host's reads of the per-image active flags
 _TV_CHECK_EVERY = 16
-# the schedule of the last tv_chambolle call: iterations a launch, step
-# launches, host reads of the active flags
+# the schedule of the last tv_chambolle call of any thread: iterations a
+# launch, step launches, host reads of the active flags
 TV_LAST_SOLVE: dict[str, int] = {}
 
 
@@ -254,7 +269,7 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
             x.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
             iters.data_ptr(), base.data_ptr(), weight.data_ptr(),
             out.data_ptr(), n, h, w, stream), "tv_chambolle")
-    LAUNCHES["tv_chambolle"] += 1
+    _count("tv_chambolle")
     TV_LAST_SOLVE.update(steps=s, launches=launches, host_reads=reads)
     return out, iters
 
@@ -339,7 +354,7 @@ def tv_shard_step(x: torch.Tensor, p_in: torch.Tensor | None,
             p_out.data_ptr(), partials.data_ptr(), sums.data_ptr(),
             active.data_ptr(), weight.data_ptr(), *xs, *ps, n, h, w, gh, gw,
             row0, col0, hw, m, _stream()), "tv_shard_step")
-    LAUNCHES["tv_shard_step"] += 1
+    _count("tv_shard_step")
     return sums
 
 
@@ -408,7 +423,7 @@ def tv_shard_rebuild(x: torch.Tensor, p_even: torch.Tensor,
             iters.data_ptr(), base.data_ptr(), weight.data_ptr(),
             out.data_ptr(), *xs, *es, *os_, n, h, w, gh, gw, row0, col0, hw,
             ms, _stream()), "tv_shard_rebuild")
-    LAUNCHES["tv_shard_step"] += 1
+    _count("tv_shard_step")
     return out
 
 
@@ -430,7 +445,7 @@ def bilateral(x: torch.Tensor, d: int, sigma_color: torch.Tensor,
         _ok(lib.mdx_bilateral(x.data_ptr(), sigma_color.data_ptr(),
                               sigma_space.data_ptr(), out.data_ptr(), n, h, w,
                               d, _stream()), "bilateral")
-    LAUNCHES["bilateral"] += 1
+    _count("bilateral")
     return out
 
 
@@ -551,5 +566,5 @@ def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
                 sigma.data_ptr(), soft.data_ptr(),
                 out.data_ptr() if s == 0 else at(regions[s - 1]["den"]),
                 n, ch, cw, m, stream), "wavelet_denoise")
-    LAUNCHES["wavelet_denoise"] += 1
+    _count("wavelet_denoise")
     return out

@@ -6,7 +6,10 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes).  The library lands in
 ``build/mdx_torch_kernels/`` at the root of the checkout, named by a hash
 of the sources and the flags, so an edit to any source builds a new
-library and an unchanged tree reuses the old one.
+library and an unchanged tree reuses the old one.  A build installs its
+library with a hard link that fails if another build installed it first, so
+builds in several processes or threads at once leave one library, and a
+loaded file is never replaced.
 Nothing is built at import: the first kernel call builds.
 """
 
@@ -112,7 +115,10 @@ def build() -> Path:
         lib.with_suffix(".log").write_text(log)
         if any(rc != 0 for _, _, rc in outs):
             raise RuntimeError(f"nvcc failed:\n{log}")
-        os.replace(so, lib)
+        try:
+            os.link(so, lib)
+        except FileExistsError:
+            pass            # a concurrent build installed the same library
     return lib
 
 

@@ -211,6 +211,50 @@ ILL_CONDITIONED_AFTER = ("validation.metrics_after.gradient_strength",
                          "validation.niqe_after")
 
 
+def run_of_row(row: dict, shape: tuple[int, int]) -> dict:
+    """A single-image run's DB row (either package's) → the context
+    :func:`compare_runs` reads.  A row holds no image, so
+    ``enhanced_image`` is zeros of the slice's ``shape`` and the images
+    take no part in the comparison (the PNG is compared on its own)."""
+    from mdx_torch.pipeline.agents import ValidationResult
+
+    v = row["validation"]
+    return {"issues": row["issues"], "applied_ops": row["applied_ops"],
+            "metrics_before": row["metrics_before"],
+            "metrics_after": row["metrics_after"],
+            "validation": ValidationResult(**v), "notes": v["notes"],
+            "enhanced_image": np.zeros(shape, np.float32),
+            "autotune": row["genai_model"] == "on-device autotune"}
+
+
+def compare_rows(got: dict, want: dict, shape: tuple[int, int]
+                 ) -> tuple[list[str], list[str]]:
+    """Two DB rows of one file's run → :func:`compare_runs` of their
+    numbers and decisions, plus the status and the model field equal."""
+    bad, soft = compare_runs(run_of_row(got, shape), run_of_row(want, shape))
+    for key in ("status", "genai_model"):
+        if got[key] != want[key]:
+            bad.append(f"{key}: {got[key]!r} vs {want[key]!r}")
+    return bad, soft
+
+
+# the fields of a DB row that a run computes (the rest name the run: its id,
+# file name, times, paths and trace; and ``status``, which a server's
+# executor overwrites with "completed" once the run returns, while the
+# validation's status stays in ``validation``)
+ROW_RESULT_FIELDS = ("metadata_summary", "issues",
+                     "metrics_before", "metrics_after", "plan_json",
+                     "validation", "applied_ops", "explainability",
+                     "genai_model", "genai_llm_calls")
+
+
+def row_differences(got: dict, want: dict) -> list[str]:
+    """The result fields in which two DB rows differ, compared exactly
+    (two runs of the port on one device and one file)."""
+    return [f"{k}: {got[k]!r} vs {want[k]!r}" for k in ROW_RESULT_FIELDS
+            if got[k] != want[k]]
+
+
 def _same_text(a: list[str], b: list[str], rtol: float = 1e-3) -> bool:
     """Lines equal with their numbers masked, the numbers within ``rtol``."""
     if len(a) != len(b):

@@ -10,12 +10,15 @@ the host in one copy per dtype.
 
 The run happens on ``device`` (the card by default).  Without a card a
 ``device="cuda"`` run raises before it reads the file; nothing falls back
-to the CPU.  ``genai=True`` raises too: the JAX package's GenAI mode (an
-LLM loop that calls a remote model) is not part of the port, and nor is
-its compile cache, which is JAX's alone.  Each phase's wall time (decode,
-normalize, device_qa, png, report, db; ``device_qa`` ends with the
-results on the host) is logged in the run's trace and returned as
-``context["phase_ms"]``.
+to the CPU.  The JAX package's GenAI mode (an LLM loop that calls a
+remote model) is not part of the port, and nor is its compile cache, which
+is JAX's alone.  As in JAX, ``autotune=True`` takes the sweep whatever
+``genai`` says; ``genai=True`` alone ends as JAX's run does when its model
+call fails (no key, no network): a warning, the deterministic path, and
+``genai_error`` and ``genai_fell_back`` in the context.  Each phase's wall
+time (decode, normalize, device_qa, png, report, db; ``device_qa`` ends
+with the results on the host) is logged in the run's trace and returned
+as ``context["phase_ms"]``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ from mdx_torch.pipeline.profiler import maybe_profile, phase_timer
 from mdx_torch.pipeline.trace import AgentTraceLogger
 
 logger = logging.getLogger(__name__)
+
+# why a genai=True run falls back: JAX's run falls back when its model
+# call fails; the port has no planner to call
+GENAI_ERROR = "GenAI planning is not part of mdx_torch"
 
 
 def resolve_device(device) -> torch.device:
@@ -82,13 +89,8 @@ def run_pipeline(
     autotune sweep's TV mode, which the JAX package reads from
     ``MDX_TV_MODE``; None is "ref").  ``model``, ``max_iters``,
     ``plan_only`` and ``no_show`` are accepted for that signature and
-    unused: the port has no GenAI mode and never opens a window."""
+    unused: the port has no GenAI planner and never opens a window."""
     dev = resolve_device(device)
-    if genai:
-        raise RuntimeError(
-            "GenAI mode is not part of mdx_torch (mdx/genai, an LLM loop "
-            "that calls a remote model, is not ported; ROADMAP Queue 1); "
-            "run the deterministic or --autotune path")
     storage.init_db()
     run_id = run_id or storage.generate_run_id()
     base_name = os.path.splitext(os.path.basename(input_path))[0]
@@ -100,6 +102,10 @@ def run_pipeline(
     with phase_timer(trace, "normalize", times=times):
         image = normalize_image(image_raw)
 
+    fell_back = genai and not autotune
+    if fell_back:
+        logger.warning("GenAI pipeline failed (%s) — deterministic fallback.",
+                       GENAI_ERROR)
     run = _run_autotune_path if autotune else _run_deterministic_path
     context = run(image=image, dev=dev, trace=trace, times=times,
                   tv_mode=tv_mode)
@@ -107,6 +113,8 @@ def run_pipeline(
                    original_image=image)
     _finish(context, trace, times, output_dir=output_dir,
             base_name=base_name, save_artifacts=save_artifacts)
+    if fell_back:
+        context.update(genai_error=GENAI_ERROR, genai_fell_back=True)
     return context
 
 

@@ -23,11 +23,13 @@ without one).  Each phase's wall time (decode, normalize, launch — the
 launch until its results are on the host, rank start-up included —,
 compute — rank 0's device work, from its block on the device to its
 results —, report, db) is returned as ``context["phase_ms"]``, and rank
-0's stages as ``context["rank_ms"]``.
+0's stages as ``context["rank_ms"]``.  A failed DB write is logged
+("Persist failed for ...") and the run still returns, as in JAX.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Any
@@ -46,6 +48,9 @@ from mdx_torch.parallel import comm, launch, plan_sp, spatial
 from mdx_torch.parallel.mesh import choose_layout, grid
 from mdx_torch.pipeline import storage
 from mdx_torch.pipeline.runner import resolve_device
+
+logger = logging.getLogger(__name__)
+
 
 def spatial_layout(h: int, w: int, n_devices: int | None = None):
     """``n_space`` for an H×W slice on ``n_devices`` ranks (default: the
@@ -298,16 +303,19 @@ def run_pipeline_spatial(
     times["report"] = (time.perf_counter() - t) * 1e3
     if save_artifacts:
         t = time.perf_counter()
-        storage.save_run(
-            run_id=run_id, input_filename=label,
-            metadata_summary=meta, issues=issues,
-            metrics_before=stats, metrics_after=stats_after,
-            plan_json=(best_plan.model_dump_json()
-                       if best_plan is not None else ""),
-            validation=validation,
-            applied_ops=applied_ops,
-            explainability={}, report_path=report_path,
-            before_after_path="", agent_logs=[], status="completed")
+        try:
+            storage.save_run(
+                run_id=run_id, input_filename=label,
+                metadata_summary=meta, issues=issues,
+                metrics_before=stats, metrics_after=stats_after,
+                plan_json=(best_plan.model_dump_json()
+                           if best_plan is not None else ""),
+                validation=validation,
+                applied_ops=applied_ops,
+                explainability={}, report_path=report_path,
+                before_after_path="", agent_logs=[], status="completed")
+        except Exception as exc:
+            logger.error("Persist failed for %s: %s", run_id, exc)
         times["db"] = (time.perf_counter() - t) * 1e3
 
     return {

@@ -5,10 +5,12 @@
   with its numbers masked (the sweep's rationale mapped as in
   ``test_torch_pipeline.py``), and the numbers of the DB rows the two runs
   wrote within ``mdx_torch.parity``;
-* the flags the port refuses (``--genai``, ``--plan-only``), a DCT JPEG
-  file whose body is a JPEG 2000 codestream and a missing file exit 1 with
-  main.py's prefixes and lines
-  (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
+* the flag the port refuses (``--genai`` on a one-image run without
+  ``--autotune``, where JAX takes its GenAI path), a DCT JPEG file whose
+  body is a JPEG 2000 codestream and a missing file exit 1 with main.py's
+  prefixes and lines; ``--plan-only`` alone, ``--batch --genai``,
+  ``--batch --plan-only`` and ``--genai --autotune`` run as main.py runs
+  them (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
 * ``.env`` loading and ``--tv-mode`` / ``MDX_TV_MODE``, read once and passed
   on as ``tv_mode``;
 * with JAX, jaxlib, pydantic and matplotlib blocked, a CLI run end to end
@@ -96,13 +98,27 @@ def test_output_and_exit_code_match_main_py(tmp_path, db, capsys, flags):
                                hw=64 * 64)
 
 
+def _same_output(out_p: str, out_j: str) -> None:
+    """The port's printed text is main.py's with its numbers masked (the
+    sweep's rationale names its pass)."""
+    out_j = out_j.replace("one compiled program", "one batched pass")
+    assert out_p.startswith("# ") and len(out_p) > 200
+    assert parity._NUMBER.sub("#", out_p) == parity._NUMBER.sub("#", out_j)
+
+
 def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
     path = write_synthetic_dicom(str(tmp_path / "x.dcm"), size=32)
-    for flag, words in (("--genai", "GenAI mode is not part of mdx_torch"),
-                        ("--plan-only", "GenAI mode is not part of mdx_torch")):
-        assert cli.main(["--input", path, flag], device="cpu") == 1
-        out = capsys.readouterr().out
-        assert out.startswith("ERROR: ") and words in out, out
+    assert cli.main(["--input", path, "--genai"], device="cpu") == 1
+    out = capsys.readouterr().out
+    assert out.startswith("ERROR: ") and (
+        "GenAI mode is not part of mdx_torch" in out), out
+    # --plan-only without --genai: main.py's deterministic run (only its
+    # GenAI path reads the flag)
+    (rc_j, out_j), (rc_p, out_p) = _outputs(
+        capsys, ["--input", path, "--output", str(tmp_path / "p"),
+                 "--no-show", "--plan-only"])
+    assert rc_j == rc_p == 0
+    _same_output(out_p, out_j)
     # a DCT JPEG file whose body is the .4.90 file's (the UID rewritten,
     # both 22 characters): both CLIs exit 1 with the reader's error, a
     # DicomError (a ValueError), so "Error:" and not "ERROR:"
@@ -124,6 +140,27 @@ def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
     (rc_j, out_j), (rc_p, out_p) = _outputs(capsys, missing)
     assert rc_j == rc_p == 1
     assert out_p == out_j == "Error: Invalid or missing DICOM file.\n"
+
+
+@pytest.mark.parametrize("flags", [["--batch", "--genai"],
+                                   ["--batch", "--plan-only"],
+                                   ["--genai", "--autotune"]])
+def test_genai_flags_run_where_main_py_runs_them(tmp_path, db, capsys,
+                                                 flags):
+    """main.py takes ``--spatial``, then ``--batch`` (which ignores
+    ``--genai`` and ``--plan-only``), then the one-image run, where
+    ``--autotune`` wins over ``--genai``: none of these reaches its GenAI
+    path, and none is refused by the port."""
+    path = write_synthetic_dicom(str(tmp_path / "x.dcm"), kind="noisy",
+                                 size=32, frames=2 if "--batch" in flags
+                                 else 1)
+    (rc_j, out_j), (rc_p, out_p) = _outputs(
+        capsys, ["--input", path, "--output", str(tmp_path / "o"),
+                 "--no-show", *flags])
+    assert rc_j == rc_p == 0, out_p
+    _same_output(out_p, out_j)
+    if "--autotune" in flags:
+        assert "GenAI Plan (JSON)" in out_p
 
 
 def test_dotenv_and_tv_mode(tmp_path, db, monkeypatch, capsys):

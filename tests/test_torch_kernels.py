@@ -229,5 +229,141 @@ def test_build_flags_and_library_name():
         "mdx_tv_shard_blocked_rebuild"}
 
 
+# ------------------------------------------- several threads at once
+
+def test_library_loads_once_from_eight_threads(monkeypatch):
+    """Eight threads that find no library: one build-and-load, and every
+    thread gets that library."""
+    import threading
+    import time
+
+    from mdx_torch.kernels import _build
+
+    loads = []
+
+    def slow_load():
+        loads.append(threading.current_thread().name)
+        time.sleep(0.05)
+        return object()
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(_build, "load", slow_load)
+    start = threading.Barrier(8)
+    got = []
+
+    def call():
+        start.wait(timeout=10)
+        got.append(kernels.library())
+
+    threads = [threading.Thread(target=call) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert len(loads) == 1 and len(got) == 8
+    assert all(lib is got[0] for lib in got)
+
+
+class _YieldingCounts(dict):
+    """Counts whose every read lets another thread run, so that a count
+    incremented without the lock loses updates."""
+
+    def __getitem__(self, key):
+        import time
+
+        time.sleep(0)
+        return super().__getitem__(key)
+
+
+def test_launch_counts_stay_exact_across_threads(monkeypatch):
+    """16 threads counting at once, each read of a count a point where the
+    interpreter switches threads: no count is lost."""
+    import sys
+    import threading
+
+    monkeypatch.setattr(kernels, "LAUNCHES",
+                        _YieldingCounts(dict.fromkeys(kernels.LAUNCHES, 0)))
+
+    def count():
+        for _ in range(1000):
+            kernels._count("box_stats")
+            kernels._count("wavelet_denoise")
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=count) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(switch)
+    assert kernels.LAUNCHES["box_stats"] == 16000
+    assert kernels.LAUNCHES["wavelet_denoise"] == 16000
+
+
+def _stub_nvcc(tmp_path):
+    """An ``nvcc`` that writes, for ``-o FILE``, a line naming its process
+    and the time to FILE."""
+    import stat
+    import sys
+
+    stub = tmp_path / "nvcc"
+    stub.write_text(
+        f"#!{sys.executable}\n"
+        "import os, sys, time\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write(f'stub {os.getpid()} {time.time_ns()}\\n')\n")
+    stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
+    return str(stub)
+
+
+def test_builds_at_once_leave_one_intact_library(tmp_path, monkeypatch):
+    """A build that compiled while another installed the library keeps the
+    installed file (a process that loaded it keeps the same file); two
+    threads racing the install step leave one whole library; no temporary
+    is left."""
+    import threading
+    from pathlib import Path
+
+    from mdx_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: _stub_nvcc(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b")
+    lib = _build.build()
+    assert lib == _build.library_path() and lib.parent == tmp_path / "b"
+    before = (lib.stat().st_ino, lib.read_text())
+    real = Path.exists
+    monkeypatch.setattr(Path, "exists",
+                        lambda self: False if self == lib else real(self))
+    assert _build.build() == lib                      # a late build
+    assert (lib.stat().st_ino, lib.read_text()) == before
+    lib.unlink()
+    start, got, errors = threading.Barrier(2), [], []
+
+    def race():
+        try:
+            start.wait(timeout=10)
+            got.append(_build.build())
+        except Exception as e:                          # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=race) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert not errors and got == [lib, lib]
+    text = lib.read_text()
+    assert text.startswith("stub ") and text.endswith("\n")
+    assert text.count("\n") == 1
+    assert sorted(p.name for p in (tmp_path / "b").iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+
+
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"

@@ -196,3 +196,48 @@ def test_compare_runs_rules(tmp_path, db):
     bad, soft = parity.compare_runs(
         _nudged(want, metrics_after={"std": ma["std"] * 1.01}), want)
     assert bad and not soft
+
+
+@pytest.mark.parametrize("autotune", [False, True])
+def test_genai_run_ends_as_jax_s(tmp_path, db, monkeypatch, caplog, autotune):
+    """``run_pipeline(genai=True)``: JAX's run with its model call failing
+    (no key, and a transport that raises: no test reaches a network) falls
+    back to its deterministic path, and so does the port's, which has no
+    planner; with ``autotune=True`` both run the sweep.  The rows agree
+    under ``parity.compare_rows``, the reports line for line with their
+    numbers masked."""
+    from mdx.genai import client as llm
+
+    def down(model, payload):
+        raise llm.LLMError("model call refused by the test")
+
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    monkeypatch.setattr(llm, "_transport", down)
+    path = write_synthetic_dicom(str(tmp_path / "noisy.dcm"), kind="noisy",
+                                 size=64)
+    # one output directory: the reports name their PNG's path
+    want = JR.run_pipeline(path, str(tmp_path / "out"), genai=True,
+                           autotune=autotune)
+    with caplog.at_level("WARNING", logger=PR.logger.name):
+        got = PR.run_pipeline(path, str(tmp_path / "out"), genai=True,
+                              autotune=autotune, device="cpu")
+    if autotune:
+        assert "genai_fell_back" not in want and "genai_fell_back" not in got
+        assert got["genai_model"] == want["genai_model"]
+    else:
+        assert want["genai_fell_back"] and got["genai_fell_back"]
+        assert got["genai_error"] == PR.GENAI_ERROR
+        assert [r.getMessage() for r in caplog.records
+                if r.name == PR.logger.name] == [
+            f"GenAI pipeline failed ({PR.GENAI_ERROR}) — deterministic "
+            "fallback."]
+    bad, reported = parity.compare_runs(got, want)
+    assert not bad and not reported, (bad, reported)
+    g, w = PST.get_run(got["run_id"]), JST.get_run(want["run_id"])
+    bad, reported = parity.compare_rows(g, w, (64, 64))
+    assert not bad and not reported, (bad, reported)
+    assert _plan_dict(g["plan_json"] or "{}") == _plan_dict(
+        w["plan_json"] or "{}") if autotune else g["plan_json"] == ""
+    masked = [parity._NUMBER.sub("#", r["report_md"].replace(
+        "one compiled program", "one batched pass")) for r in (got, want)]
+    assert masked[0] == masked[1]

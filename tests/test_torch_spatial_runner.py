@@ -8,8 +8,11 @@ Inputs: 64² 16-bit synthetic slices written with the port's writer
 ``low_contrast``, which after min-max normalisation clips at both ends
 (CLAHE, gamma, the denoise).  The port runs as gloo ranks in 9 launches:
 six runs (module fixture), each kind deterministic in both layouts and one
-``--autotune`` per layout, two of them through ``main([...,
-"--spatial"])`` with the layout pinned; ``plan_sp.autotune_spatial`` on
+``--autotune`` per layout, three of them through ``main([...,
+"--spatial"])`` with the layout pinned, one of those with both packages'
+``storage.save_run`` raising (JAX's side through ``main.py``'s ``main``,
+its mesh pinned: both log the failure and exit 0 with the same report);
+``plan_sp.autotune_spatial`` on
 its own; the agreement helper (2 ranks) and a run whose ranks raise.  The
 JAX side runs the same files on ``make_mesh2d(1, 2, 2)`` (the port's
 ``n_space=(2, 2)``) and ``make_mesh(1, 2)`` (``n_space=2``) of the virtual
@@ -40,12 +43,16 @@ import itertools
 import json
 import time
 
+import logging
+
 import numpy as np
 import pytest
 import torch
 
+import main as jax_main
 from mdx.parallel import make_mesh, make_mesh2d
 from mdx.pipeline import spatial_runner as JR
+from mdx.pipeline import storage as JST
 
 from mdx_torch import __main__ as cli
 from mdx_torch import parity, tools
@@ -65,12 +72,27 @@ LAYOUTS = {"2x2": (2, 2), "k2": 2}
 RUNS = (
     ("noisy", "2x2", False, ["--spatial"]),
     ("low_contrast", "k2", False, ["--spatial", "--window"]),
-    ("noisy", "k2", False, None),
+    ("noisy", "k2", False, ["--spatial"]),
     ("low_contrast", "2x2", False, None),
     ("low_contrast", "2x2", True, None),
     ("noisy", "k2", True, None),
 )
 SCORE_ATOL = 2e-3
+# the CLI run whose DB write fails in both packages
+PERSIST_FAILS = ("noisy", "k2", False)
+
+
+def _refused_save(**_row):
+    raise OSError("database is locked (refused by the test)")
+
+
+class _Lines(logging.Handler):
+    def __init__(self, lines: list):
+        super().__init__(logging.ERROR)
+        self.lines = lines
+
+    def emit(self, record):
+        self.lines.append((record.name, record.getMessage()))
 
 
 def _jax_mesh(layout: str):
@@ -111,8 +133,18 @@ def runs(files):
 
         window = argv is not None and "--window" in argv
         port_out = str(root / f"port_{kind}_{layout}_{auto}")
+        jax_out = str(root / f"jax_{kind}_{layout}_{auto}")
+        fails = (kind, layout, auto) == PERSIST_FAILS
+        logged: list = []
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(launch, "run", counted)
+            if fails:
+                mp.setattr(storage, "save_run", _refused_save)
+                mp.setattr(JST, "save_run", _refused_save)
+                handler = _Lines(logged)
+                for name in (TR.__name__, JR.__name__):
+                    mp.setattr(logging.getLogger(name), "handlers",
+                               [handler])
             if argv is None:
                 ctxs.append(TR.run_pipeline_spatial(
                     paths[kind], port_out, n_space=LAYOUTS[layout],
@@ -127,15 +159,32 @@ def runs(files):
                     rc = cli.main(["--input", paths[kind], "--output",
                                    port_out, *argv], device="cpu")
                 text = buf.getvalue()
-        want = JR.run_pipeline_spatial(
-            paths[kind], str(root / f"jax_{kind}_{layout}_{auto}"),
-            mesh=_jax_mesh(layout), window=window, autotune=auto)
+            jax_rc = jax_text = None
+            if fails:
+                real_jr, jax_ctxs = JR.run_pipeline_spatial, []
+
+                def pinned(*a, **kw):
+                    jax_ctxs.append(real_jr(*a, mesh=_jax_mesh(layout),
+                                            **kw))
+                    return jax_ctxs[-1]
+
+                mp.setattr(JR, "run_pipeline_spatial", pinned)
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    jax_rc = jax_main.main(["--input", paths[kind],
+                                            "--output", jax_out, *argv])
+                jax_text, want = buf.getvalue(), jax_ctxs[0]
+            else:
+                want = JR.run_pipeline_spatial(
+                    paths[kind], jax_out, mesh=_jax_mesh(layout),
+                    window=window, autotune=auto)
         img, _ = load_dicom(paths[kind], window=window)
         frame = np.asarray(img, np.float32) if window else normalize_image(
             img)
         out[(kind, layout, auto)] = {"port": ctxs[0], "launches": n_launch[0],
                                      "rc": rc, "text": text, "jax": want,
-                                     "frame": frame}
+                                     "frame": frame, "jax_rc": jax_rc,
+                                     "jax_text": jax_text, "logged": logged}
     return out
 
 
@@ -252,8 +301,10 @@ def test_one_launch_per_run(runs, run):
         "launch"]
 
 
-@pytest.mark.parametrize("run", [r[:3] for r in RUNS if r[3]],
-                         ids=[i for i, r in zip(RUN_IDS, RUNS) if r[3]])
+@pytest.mark.parametrize("run", [r[:3] for r in RUNS
+                                 if r[3] and r[:3] != PERSIST_FAILS],
+                         ids=[i for i, r in zip(RUN_IDS, RUNS)
+                              if r[3] and r[:3] != PERSIST_FAILS])
 def test_cli_spatial(runs, run):
     """(f): ``main([... "--spatial"])``: rc 0, the report printed, its DB
     row read back."""
@@ -268,6 +319,30 @@ def test_cli_spatial(runs, run):
     assert row["applied_ops"] == ctx["applied_ops"]
     assert row["metrics_before"] == ctx["metrics"]
     assert row["validation"] == ctx["validation"]
+
+
+def test_cli_spatial_survives_a_failed_save(runs):
+    """A DB write that raises is logged ("Persist failed for <run id>:
+    ...") and the run goes on, in both packages: both CLIs exit 0 and
+    print the same report (numbers masked, the footnote naming each
+    package's modules), and no row is written."""
+    r = runs[PERSIST_FAILS]
+    got, want = r["port"], r["jax"]
+    assert r["rc"] == r["jax_rc"] == 0
+    assert r["text"].strip() == got["report_md"].strip()
+    assert r["text"].startswith("# mdx spatial QA report")
+    masked = [parity._NUMBER.sub("#", t) for t in (
+        r["text"], r["jax_text"].replace("(mdx/parallel/",
+                                         "(mdx_torch/parallel/"))]
+    assert masked[0] == masked[1]
+    assert r["logged"] == [
+        (TR.__name__, f"Persist failed for {got['run_id']}: database is "
+                      "locked (refused by the test)"),
+        (JR.__name__, f"Persist failed for {want['run_id']}: database is "
+                      "locked (refused by the test)")]
+    assert storage.get_run(got["run_id"]) is None
+    assert JST.get_run(want["run_id"]) is None
+    assert "db" in got["phase_ms"]
 
 
 # ------------------------------------------------------ pure host functions

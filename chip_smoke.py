@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of mdx_torch's fused QA pass, tuning sweep, raw ingest, sharded
 paths, capability probe, CLI, spatial runner, data axis, JPEG codecs
-(lossless JPEG, JPEG-LS, DCT JPEG, JPEG 2000), transcoder and JSON API on
-one NVIDIA GPU.
+(lossless JPEG, JPEG-LS, DCT JPEG, JPEG 2000), transcoder, JSON API and
+GenAI mode on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -257,9 +257,11 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       and 2048^2 and from ``.4.50`` to explicit LE, the warm
       ``run_pipeline`` of the ``.4.50`` slice and ultrasound frame and
       their twins;
-   5. every phase-15 file transcoded to each target the transcoder accepts
-      for it (colour: explicit LE and deflated) on a pool of worker
-      processes and read back pixel-equal to the source's decode.
+   5. for each (source syntax, target syntax) pair of the phase-15
+      files, the smallest file of that syntax the transcoder accepts the
+      target for (colour: explicit LE and deflated), transcoded on a pool
+      of worker processes and read back pixel-equal to the source's
+      decode.
 16. serve  — the JSON API (``mdx_torch.serve``) on phase 12's four 512^2
    files, ``MDX_DB_PATH``, ``UPLOAD_DIR`` and ``OUTPUT_DIR`` in a temporary
    directory, no ``OPENAI_API_KEY``:
@@ -281,6 +283,30 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    4. ``{"genai": true}`` and ``{"genai": true, "autotune": true}``: both
       complete, their rows equal to the deterministic run's and to
       ``run_pipeline(autotune=True)``'s.
+17. genai  — GenAI mode (``mdx_torch.genai``) in process with a scripted
+   model installed in ``mdx_torch.genai.client`` (``GenAIScript``; no key,
+   no network), ``MDX_DB_PATH`` in a temporary directory:
+   1. ``run_pipeline(genai=True, max_iters=2)`` on phase 12's noisy 512^2
+      slice (config 1) and its 2048^2 chest X-ray, counters reset before
+      each: the planner's seed plan, two plans applied, validated and
+      scored by the tuning agent, the final plan (denoise, CLAHE, unsharp,
+      bilateral d = 5, TV weight 0.05) executed, the explanation; B, U, C,
+      10, 5 and T launched, no fallback, 9 model calls, two records and
+      one chosen, the report's GenAI sections and the DB row; every kernel
+      call recorded and replayed against its plain version (T: equal
+      iteration counts); the same script on the CPU: every field within
+      ``parity.breaches`` with TV's allowance, the records' plans, the
+      chosen record, the scores (``parity.SCORE_ATOL``), the best plan and
+      the applied ops equal; the walls of the planner, tuning, execute and
+      explainability phases;
+   2. the 512^2 run with ``plan_only=True``: the planner's plan, nothing
+      executed;
+   3. ``python -m mdx_torch --input <512^2> --genai --max-iters 2`` in a
+      subprocess with no key and no transport: rc 0, the deterministic
+      report and main.py's ``WARNING: GenAI failed (planner failed: ...)``
+      line;
+   4. ms per ``tool_apply_enhancement`` (the final plan) and per
+      ``tool_validate`` at 512^2 and 2048^2 (median of 5).
 
 The second-last line is one JSON object with a row per kernel (times at
 16x2048^2, with the 32x512^2 times under ``by_size``; kernels 11 and 12 at
@@ -289,7 +315,7 @@ the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
 the probe's summed over its 18 kernels, each under ``by_probe``;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
-launches per path of phases 5-16, summed over the ranks in phases 9, 10,
+launches per path of phases 5-17, summed over the ranks in phases 9, 10,
 13, 14 and 15's ``--spatial`` runs);
 the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -1627,6 +1653,18 @@ def _cli_singles(root) -> dict:
     return f
 
 
+def _write_cxr(root) -> str:
+    """Phase 12's 2048^2 16-bit chest X-ray, written under ``root``."""
+    import numpy as np
+
+    from mdx_torch.io import write_dicom
+    from mdx_torch.tools import make_batch
+
+    cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
+    return write_dicom(f"{root}/cxr.dcm", cxr, modality="DX",
+                       body_part="CHEST", study_description="CXR PA")
+
+
 def _cli_inputs(root) -> dict:
     """Phase 12's files, written with the port's writer under ``root``."""
     import os
@@ -1635,12 +1673,9 @@ def _cli_inputs(root) -> dict:
 
     from mdx_torch.io import write_dicom, write_synthetic_dicom
     from mdx_torch.io.dicom import TS_RLE
-    from mdx_torch.tools import make_batch
 
     f = _cli_singles(root)
-    cxr = np.rint(make_batch(1, BIG, seed=8)[0] * 65535).astype(np.uint16)
-    f["cxr"] = write_dicom(f"{root}/cxr.dcm", cxr, modality="DX",
-                           body_part="CHEST", study_description="CXR PA")
+    f["cxr"] = _write_cxr(root)
     f["series"] = write_synthetic_dicom(f"{root}/series.dcm", kind="phantom",
                                         size=CLI_SIZE, frames=CLI_SERIES_N,
                                         seed=3)
@@ -2625,10 +2660,11 @@ def _transcode_check(job) -> bool:
 
 
 def _codec_transcodes(f: dict) -> None:
-    """15.5: every phase-15 file (twins and series included) transcoded on
-    the host to each target the transcoder accepts for it (a colour source
-    to explicit LE and deflated only) and read back: its pixels equal to
-    the source's decode.  The transcodes run largest source first on a pool
+    """15.5: for each (source syntax, target syntax) pair of the phase's
+    files, the smallest file of that syntax the transcoder accepts the
+    target for (a colour source: explicit LE and deflated only),
+    transcoded on the host and read back: its pixels equal to the
+    source's decode.  The transcodes run largest source first on a pool
     of one process a core (``spawn``: the workers import the codecs and
     never touch the card)."""
     import concurrent.futures as cf
@@ -2641,20 +2677,26 @@ def _codec_transcodes(f: dict) -> None:
 
     t0 = time.perf_counter()
     files = sorted({p for p in f.values() if p.endswith(".dcm")},
-                   key=os.path.getsize, reverse=True)
-    colour = {p: (read_dataset(p).get("SamplesPerPixel", 1) or 1) > 1
-              for p in files}
+                   key=os.path.getsize)
+    pairs: dict = {}
+    for src in files:
+        ds = read_dataset(src)
+        colour = (ds.get("SamplesPerPixel", 1) or 1) > 1
+        for target in TARGET_ALIASES:
+            if not colour or target in ("explicit-le", "deflated"):
+                pairs.setdefault((ds.transfer_syntax, target), src)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_transcode_") as tmp:
-        jobs = [(src, target, f"{tmp}/{i}_{target}.dcm")
-                for i, src in enumerate(files) for target in TARGET_ALIASES
-                if not colour[src] or target in ("explicit-le", "deflated")]
+        jobs = sorted(((src, target, f"{tmp}/{i}_{target}.dcm")
+                       for i, ((_, target), src) in enumerate(pairs.items())),
+                      key=lambda j: os.path.getsize(j[0]), reverse=True)
         with cf.ProcessPoolExecutor(
                 os.cpu_count() or 1,
                 mp_context=multiprocessing.get_context("spawn")) as ex:
             ok = list(ex.map(_transcode_check, jobs))
     bad = [j[:2] for j, good in zip(jobs, ok) if not good]
-    print(f"codecs transcode: {len(files)} files, {len(jobs)} transcodes "
-          f"read back pixel-equal {len(jobs) - len(bad)} "
+    print(f"codecs transcode: {len(pairs)} (source, target) syntax pairs "
+          f"from {len({j[0] for j in jobs})} of {len(files)} files, read "
+          f"back pixel-equal {len(jobs) - len(bad)} "
           f"({time.perf_counter() - t0:.1f} s, {os.cpu_count()} processes)")
     _require(not bad, f"codecs transcode: pixels differ in {bad}")
 
@@ -3334,6 +3376,320 @@ def _serve_in_process(torch, kernels, parity, check, paths, card, dev, tmp,
         thread.join(timeout=30)
 
 
+# phase 17: GenAI mode on the card with a scripted model (no key, no
+# network: the transport seam of mdx_torch.genai.client).  The tuning agent
+# applies two plans, validates and scores both, and ends with GENAI_FINAL,
+# whose chain runs B, U, C, 10, 5 (d = 5) and T.
+GENAI_ITERS = 2
+GENAI_KERNELS = ("box_stats", "unsharp", "clahe", "wavelet_denoise",
+                 "bilateral", "tv_chambolle")
+GENAI_LLM_CALLS = 9
+GENAI_REPS = 5
+GENAI_PHASES = ("planner", "tuning", "execute", "explainability")
+
+
+def _genai_plan(ops, **params) -> str:
+    return json.dumps({"recommended_ops": list(ops), "params": params,
+                       "risk_warnings": [],
+                       "rationale": "Scripted plan of the smoke run.",
+                       "safety": "", "stop_reason": None})
+
+
+GENAI_SEED = _genai_plan(("denoise", "clahe", "unsharp"),
+                         clahe_clip_limit=0.02, unsharp_amount=0.5)
+GENAI_FIRST = _genai_plan(("denoise", "clahe", "unsharp"),
+                          clahe_clip_limit=0.03, unsharp_radius=1.2,
+                          unsharp_amount=0.7)
+GENAI_FINAL = _genai_plan(
+    ("denoise", "clahe", "unsharp", "bilateral", "tv_denoise"),
+    clahe_clip_limit=0.02, unsharp_radius=1.0, unsharp_amount=0.6,
+    bilateral_d=5, bilateral_sigma_color=0.05, bilateral_sigma_space=0.05,
+    tv_denoise_weight=0.05)
+GENAI_EXPLANATION = json.dumps({
+    "detected_issues": "Scripted explanation of the smoke run.",
+    "corrective_measures": "Denoise, CLAHE, unsharp, bilateral and TV.",
+    "enhancement_applied": "The tuned plan.",
+    "validation_outcome": "See the validation block.",
+    "limitations": "Not for clinical diagnosis.",
+    "image_summary": "A synthetic slice.",
+    "actionable_suggestions": ["Review the before/after panel."],
+    "next_steps": ["Archive the run record."]})
+
+
+class GenAIScript:
+    """The scripted model of phase 17: the planner's seed plan; two rounds
+    of apply, validate and score (GENAI_FIRST, then GENAI_FINAL); the final
+    plan; the explanation.  A step that names an enhanced image reads its
+    id from the tool results it is sent."""
+
+    def __init__(self, llm):
+        self.llm, self.requests = llm, 0
+        self.steps = [self._text(GENAI_SEED)]
+        for plan in (GENAI_FIRST, GENAI_FINAL):
+            self.steps += [
+                lambda m, p=plan: self._call("tool_apply_enhancement",
+                                             image_id="original",
+                                             plan_json=p),
+                lambda m: self._call(
+                    "tool_validate", original_id="original",
+                    enhanced_id=self._outputs(m)[-1]["enhanced_image_id"]),
+                lambda m: self._call(
+                    "tool_score_plan",
+                    validation_json=json.dumps(self._outputs(m)[-1]))]
+        self.steps += [self._text(GENAI_FINAL),
+                       self._text(GENAI_EXPLANATION)]
+
+    @staticmethod
+    def _text(content):
+        return lambda m: {"choices": [{"message": {"content": content,
+                                                   "tool_calls": []}}]}
+
+    @staticmethod
+    def _call(name, **args):
+        return {"choices": [{"message": {"content": None, "tool_calls": [
+            {"id": name, "function": {"name": name,
+                                      "arguments": json.dumps(args)}}]}}]}
+
+    @staticmethod
+    def _outputs(messages):
+        return [json.loads(m["content"]) for m in messages
+                if m.get("role") == "tool"]
+
+    def __call__(self, model, payload):
+        self.requests += 1
+        if not self.steps:
+            raise self.llm.LLMError("script exhausted")
+        return self.steps.pop(0)(payload["messages"])
+
+
+def _genai_run(path: str, out: str, dev, **kw) -> dict:
+    """``run_pipeline(genai=True)`` on ``dev`` with the scripted model."""
+    from mdx_torch.genai import client as llm
+    from mdx_torch.pipeline.runner import run_pipeline
+
+    script = GenAIScript(llm)
+    llm.set_transport(script)
+    try:
+        ctx = run_pipeline(path, out, genai=True, model="gpt-5-mini",
+                           max_iters=GENAI_ITERS, device=dev, **kw)
+    finally:
+        llm.set_transport(None)
+    ctx["script_requests"] = script.requests
+    return ctx
+
+
+def _check_genai(label: str, ctx: dict, hw: int) -> None:
+    """A scripted GenAI run that did not fall back: every call of the
+    script made, two scored iterations and one chosen, the final plan's
+    ops applied, its image finite, its report on disk and its DB row."""
+    import numpy as np
+
+    from mdx_torch.pipeline import storage
+
+    _require(not ctx.get("genai_fell_back"),
+             f"genai {label}: fell back ({ctx.get('genai_error')})")
+    its = ctx["genai_iterations"]
+    _require(ctx["script_requests"] == GENAI_LLM_CALLS
+             and ctx["genai_llm_calls"] == GENAI_LLM_CALLS,
+             f"genai {label}: {ctx['genai_llm_calls']} LLM calls")
+    _require(len(its) == 2 and sum(r.chosen for r in its) == 1
+             and all(r.score != 0.0 for r in its),
+             f"genai {label}: iterations {[(r.score, r.chosen) for r in its]}")
+    _require(ctx["applied_ops"][:5] == ["denoise", "clahe", "unsharp",
+                                        "bilateral", "tv_denoise"],
+             f"genai {label}: applied {ctx['applied_ops']}")
+    img = np.asarray(ctx["enhanced_image"])
+    _require(img.shape == (hw, hw) and bool(np.isfinite(img).all()),
+             f"genai {label}: enhanced {img.shape}")
+    with open(ctx["report_path"], encoding="utf-8") as fh:
+        report = fh.read()
+    _require("## 🤖 GenAI Plan (JSON)" in report
+             and "## 🧠 Explainability (GenAI)" in report,
+             f"genai {label}: report lacks the GenAI sections")
+    row = storage.get_run(ctx["run_id"])
+    _require(row is not None and row["genai_model"] == "gpt-5-mini"
+             and row["genai_llm_calls"] == GENAI_LLM_CALLS
+             and json.loads(row["plan_json"]) == json.loads(
+                 ctx["genai_plan"].model_dump_json()),
+             f"genai {label}: DB row")
+
+
+def _genai_walls(ctx: dict) -> dict:
+    """Seconds from each GenAI phase's start to its end in the trace."""
+    start, walls = {}, {}
+    for e in ctx["agent_traces"]:
+        if e["event"] == "phase_start":
+            start[e["phase"]] = e["timestamp"]
+        elif e["event"] == "phase_end" and e["phase"] in start:
+            walls[e["phase"]] = e["timestamp"] - start[e["phase"]]
+    return {p: walls.get(p) for p in GENAI_PHASES}
+
+
+def _genai_against_cpu(parity, label: str, card_ctx: dict, cpu_ctx: dict,
+                       hw: int) -> None:
+    """The card's run against the CPU's: every field within
+    ``parity.breaches`` with TV's allowance (the plan ran tv_denoise), the
+    iteration records' plans, the chosen record and the applied ops equal,
+    the scores within ``parity.SCORE_ATOL``.  The two metrics that one ulp
+    of an enhanced image moves (``parity.ILL_CONDITIONED_AFTER``) are
+    printed, not required, once the images agree within TV's
+    allowance."""
+    g, w = parity.flatten_run(card_ctx), parity.flatten_run(cpu_ctx)
+    bad = parity.breaches(g, w, tv_ran=True, hw=hw * hw)
+    images_agree = not parity.breaches(g, w, ["enhanced"], tv_ran=True)
+    soft = [b for b in bad if images_agree
+            and b.split(":", 1)[0] in parity.ILL_CONDITIONED_AFTER]
+    bad = [b for b in bad if b not in soft]
+    dump = lambda its: [(r.plan.model_dump_json(), r.chosen)  # noqa: E731
+                        for r in its]
+    if dump(card_ctx["genai_iterations"]) != dump(cpu_ctx["genai_iterations"]):
+        bad.append("iteration plans or the chosen record differ")
+    for a, b in zip(card_ctx["genai_iterations"], cpu_ctx["genai_iterations"]):
+        if abs(a.score - b.score) > parity.SCORE_ATOL:
+            bad.append(f"iteration {a.iteration} score {a.score!r} vs "
+                       f"{b.score!r}")
+    if card_ctx["applied_ops"] != cpu_ctx["applied_ops"]:
+        bad.append(f"applied_ops {card_ctx['applied_ops']} vs "
+                   f"{cpu_ctx['applied_ops']}")
+    if (card_ctx["genai_plan"].model_dump_json()
+            != cpu_ctx["genai_plan"].model_dump_json()):
+        bad.append("best plan differs")
+    print(f"genai {label} card vs cpu: enhanced max|d| "
+          f"{parity.max_abs(g, w, 'enhanced')!r}, scores card "
+          f"{[r.score for r in card_ctx['genai_iterations']]} cpu "
+          f"{[r.score for r in cpu_ctx['genai_iterations']]}, breaches "
+          f"{len(bad)}, printed {len(soft)}")
+    for line in bad + soft:
+        print("  " + line)
+    _require(not bad, f"genai {label}: card and CPU disagree")
+
+
+def _phase_genai(torch, kernels, parity, check, paths: dict, card: str,
+                 dev) -> None:
+    """Phase 17: GenAI mode on the card (module doc), its files and DB in a
+    temporary directory, no ``OPENAI_API_KEY``."""
+    import os
+    import subprocess
+    import tempfile
+
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    keys = ("MDX_DB_PATH", "OPENAI_API_KEY", "MDX_TV_MODE")
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_genai_") as tmp:
+            os.environ["MDX_DB_PATH"] = f"{tmp}/runs.db"
+            os.environ.pop("OPENAI_API_KEY", None)
+            os.environ.pop("MDX_TV_MODE", None)
+            f = _genai_inputs(tmp)
+            # 17.a the scripted run at 512^2 and 2048^2, recorded
+            for size, key in ((CLI_SIZE, "noisy"), (BIG, "cxr")):
+                label = f"genai_{size}"
+                calls: list = []
+                with _recording(torch, kernels, calls):
+                    ctx, paths[label] = _run_path(
+                        torch, kernels, f"genai run [1,{size},{size}] "
+                        f"{key}", lambda: _genai_run(f[key], f"{tmp}/out",
+                                                     dev))
+                for k in GENAI_KERNELS:
+                    _require(paths[label][k] > 0,
+                             f"kernel {k} was not launched by the GenAI run "
+                             f"at {size}^2")
+                _check_genai(label, ctx, size)
+                check.replay(f"genai {size}^2", calls)
+                del calls
+                check.require_ok()
+                walls = _genai_walls(ctx)
+                print(f"genai {size}^2 on {card}: phases (s) {walls}, run "
+                      f"phase_ms {ctx['phase_ms']}, iterations "
+                      f"{[(r.score, r.chosen) for r in ctx['genai_iterations']]}"
+                      f", applied {ctx['applied_ops']}")
+                t0 = time.perf_counter()
+                cpu_ctx = _genai_run(f[key], f"{tmp}/out_cpu", "cpu")
+                print(f"genai {size}^2 on the CPU: "
+                      f"{time.perf_counter() - t0:.1f} s")
+                _check_genai(f"{label} cpu", cpu_ctx, size)
+                _genai_against_cpu(parity, f"{size}^2", ctx, cpu_ctx, size)
+                del ctx, cpu_ctx
+            # 17.b plan only
+            plan, paths["genai_plan_only"] = _run_path(
+                torch, kernels, f"genai plan only [1,{CLI_SIZE},{CLI_SIZE}]",
+                lambda: _genai_run(f["noisy"], f"{tmp}/out", dev,
+                                   plan_only=True))
+            _require(plan.get("plan_only") and json.loads(
+                plan["plan"].model_dump_json()) == json.loads(
+                    _genai_plan_dump(GENAI_SEED)),
+                f"genai plan only: {plan}")
+            print("genai plan only: the planner's plan, nothing executed")
+            # 17.c the CLI without a key and without a transport
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "mdx_torch", "--input", f["noisy"],
+                 "--output", f"{tmp}/cli", "--genai", "--max-iters",
+                 str(GENAI_ITERS)], capture_output=True, text=True,
+                timeout=600, env=dict(os.environ, MDX_DB_PATH=f"{tmp}/cli.db"))
+            warning = ("WARNING: GenAI failed (planner failed: OPENAI_API_KEY "
+                       "not set; fallback: OPENAI_API_KEY not set). Used "
+                       "deterministic fallback.")
+            _require(r.returncode == 0 and r.stdout.startswith("# ")
+                     and r.stdout.rstrip().endswith(warning),
+                     f"genai CLI without a key: rc {r.returncode}: "
+                     f"{r.stdout[-300:]} {r.stderr[-1500:]}")
+            print(f"genai CLI without a key: rc 0, the deterministic report "
+                  f"and main.py's warning ({time.perf_counter() - t0:.1f} s)")
+            _genai_tool_times(torch, f, card, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+
+def _genai_plan_dump(text: str) -> str:
+    from mdx_torch.core.schemas import EnhancementPlan
+
+    return EnhancementPlan.model_validate_json(text).model_dump_json()
+
+
+def _genai_inputs(root) -> dict:
+    """Phase 12's noisy 512^2 slice (config 1) and 2048^2 chest X-ray."""
+    from mdx_torch.io import write_synthetic_dicom
+
+    return {"noisy": write_synthetic_dicom(f"{root}/noisy.dcm", kind="noisy",
+                                           size=CLI_SIZE, seed=20),
+            "cxr": _write_cxr(root)}
+
+
+def _genai_tool_times(torch, f: dict, card: str, dev) -> None:
+    """Median ms of ``tool_apply_enhancement`` (GENAI_FINAL) and of
+    ``tool_validate`` on the card at 512^2 and 2048^2."""
+    from mdx_torch.genai import tools as T
+    from mdx_torch.io import load_dicom, normalize_image
+
+    saved = T.get_context()
+    T.set_context(dev)
+    try:
+        for size, key in ((CLI_SIZE, "noisy"), (BIG, "cxr")):
+            T.register_image(normalize_image(load_dicom(f[key])[0]),
+                             "original")
+            enh = json.loads(T.tool_apply_enhancement(
+                "original", GENAI_FINAL))["enhanced_image_id"]
+            apply_ms, a = _median_ms(torch, lambda: T.tool_apply_enhancement(
+                "original", GENAI_FINAL), GENAI_REPS)
+            val_ms, v = _median_ms(torch, lambda: T.tool_validate(
+                "original", enh), GENAI_REPS)
+            print(f"genai tools [1,{size},{size}] on {card}: "
+                  f"tool_apply_enhancement (the final plan) median "
+                  f"{apply_ms!r} ms (min {min(a)!r}), tool_validate median "
+                  f"{val_ms!r} ms (min {min(v)!r}), {GENAI_REPS} reps")
+            T.clear_image_store()
+    finally:
+        T.clear_image_store()
+        T.set_context(*saved)
+
+
 def main() -> int:
     import torch
 
@@ -3560,6 +3916,8 @@ def main() -> int:
     _phase_codecs(torch, kernels, parity, check, paths, card, dev)
     # ---- 16. the JSON API on the card: served runs, four at once --------
     _phase_serve(torch, kernels, parity, check, paths, card, dev)
+    # ---- 17. GenAI mode with a scripted model: planner, tuning, tools ---
+    _phase_genai(torch, kernels, parity, check, paths, card, dev)
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     rows = []

@@ -2,30 +2,30 @@
 
 The flags, output and exit codes of the JAX package's ``main.py``: the
 report on standard output and 0; ``ERROR: <reason>`` and 1 for what the
-port refuses (no card, a flag or codec it does not have yet); ``Error:
-<reason>`` and 1 for any other failure.  ``--batch`` runs a series or a
-directory on a data axis of every visible card (as JAX's ``make_mesh()``;
-one launch of ranks when there are several, in process on one),
-``--resume`` skips finished frames, ``--autotune`` sweeps the
-candidate grid, ``--window`` applies each file's stored VOI window.  The
-run is on the card; ``main(argv, device="cpu")`` runs it on the CPU (the
-tests do), and no flag selects the device.
+port refuses (no card, a codec it does not read); ``Error: <reason>`` and
+1 for any other failure.  ``--batch`` runs a series or a directory on a
+data axis of every visible card (as JAX's ``make_mesh()``; one launch of
+ranks when there are several, in process on one), ``--resume`` skips
+finished frames, ``--autotune`` sweeps the candidate grid, ``--window``
+applies each file's stored VOI window.  The run is on the card;
+``main(argv, device="cpu")`` runs it on the CPU (the tests do), and no
+flag selects the device.
 
 ``.env`` in the working directory is loaded first (KEY=VALUE lines; the
 environment wins).  ``--tv-mode``, else ``MDX_TV_MODE``, is read here once
-and passed to the autotune sweep as ``tv_mode``; no op reads the
-environment.  ``--spatial`` QA's one large slice sharded over the visible
-cards (``pipeline/spatial_runner.py``, with ``--window`` and
-``--autotune``; its device part in one launch of ranks).  The run is
+and passed on as ``tv_mode`` (the autotune sweep's and GenAI mode's plans);
+no op reads the environment.  ``--spatial`` QA's one large slice sharded
+over the visible cards (``pipeline/spatial_runner.py``, with ``--window``
+and ``--autotune``; its device part in one launch of ranks).  The run is
 chosen in ``main.py``'s order: ``--spatial``, then ``--batch`` (which
-ignores ``--genai`` and ``--plan-only``), then the one-image run.  Only
-where JAX would take its GenAI path, the one-image run with ``--genai``
-and without ``--autotune``, does the port refuse (GenAI mode is not
-ported): it exits 1 with ``ERROR:``.  ``--genai --autotune`` runs the
-sweep and ``--plan-only`` alone the deterministic run, as in JAX.
-``--no-show`` is accepted (the port never opens a window), and so are
-``--model``, ``--max-iters`` and ``--no-redact``, which only GenAI mode
-reads.
+ignores ``--genai`` and ``--plan-only``), then the one-image run, where
+``--autotune`` wins over ``--genai``.  ``--genai`` is GenAI mode
+(``--model``, ``--max-iters``; ``--plan-only`` prints the planner's plan
+as JSON and executes nothing; ``--no-redact`` sets ``MDX_NO_REDACT``,
+which sends the metadata to the model unfiltered): without a key the
+planner's call fails and the run ends as main.py's does, the
+deterministic report and a ``WARNING: GenAI failed (...)`` line.
+``--no-show`` is accepted (the port never opens a window).
 """
 
 from __future__ import annotations
@@ -68,19 +68,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Accepted for main.py's flags; the port never "
                              "opens a window (it still saves the PNG)")
     parser.add_argument("--genai", action="store_true",
-                        help="GenAI agentic mode: not part of mdx_torch "
-                             "(a one-image run without --autotune exits "
-                             "1; --batch and --spatial ignore it)")
+                        help="Enable GenAI agentic mode "
+                             "(requires OPENAI_API_KEY)")
     parser.add_argument("--model", default=default_model,
-                        help=f"LLM model of GenAI mode (unused; default: "
-                             f"{default_model})")
+                        help=f"LLM model for GenAI agents "
+                             f"(default: {default_model})")
     parser.add_argument("--max-iters", type=int, default=4,
-                        help="Max tuning iterations of GenAI mode (unused)")
+                        help="Max tuning iterations for the GenAI "
+                             "TuningAgent (default: 4)")
     parser.add_argument("--plan-only", action="store_true",
-                        help="GenAI plan without execution; only GenAI "
-                             "mode reads it (alone: the deterministic run)")
+                        help="GenAI generates the plan JSON but does not "
+                             "execute enhancement")
     parser.add_argument("--no-redact", action="store_true",
-                        help="Disable GenAI metadata redaction (unused)")
+                        help="Disable metadata redaction "
+                             "(default: redact enabled)")
     parser.add_argument("--verbose", action="store_true",
                         help="Enable verbose / debug logging")
     parser.add_argument("--batch", action="store_true",
@@ -124,16 +125,14 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
             input_path=args.input, output_dir=args.output,
             save_artifacts=True, window=args.window, autotune=args.autotune,
             resume=args.resume, device=device, tv_mode=tv_mode)
-    if args.genai and not args.autotune:
-        raise RuntimeError(
-            "--genai: GenAI mode is not part of mdx_torch (mdx/genai, an "
-            "LLM loop that calls a remote model, is not ported; ROADMAP "
-            "'Not ported, by design'); run without it or with --autotune")
     from mdx_torch.pipeline.runner import run_pipeline
 
     return run_pipeline(
-        input_path=args.input, output_dir=args.output, save_artifacts=True,
-        autotune=args.autotune, device=device, tv_mode=tv_mode)
+        input_path=args.input, output_dir=args.output, genai=args.genai,
+        model=args.model, max_iters=args.max_iters,
+        plan_only=args.plan_only, save_artifacts=True,
+        no_show=args.no_show, autotune=args.autotune, device=device,
+        tv_mode=tv_mode)
 
 
 def main(argv=None, device="cuda") -> int:
@@ -142,6 +141,8 @@ def main(argv=None, device="cuda") -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
+    if args.no_redact:
+        os.environ["MDX_NO_REDACT"] = "1"
 
     try:
         context = run(args, device)
@@ -153,9 +154,19 @@ def main(argv=None, device="cuda") -> int:
         logger.exception("Pipeline failed")
         return 1
 
+    if context.get("plan_only") and context.get("plan"):
+        print("\n=== GenAI Enhancement Plan (JSON) ===\n")
+        print(context["plan"].model_dump_json(indent=2))
+        if context.get("stop_reason"):
+            print(f"\nStop reason: {context['stop_reason']}")
+        return 0
+
     report_md = context.get("report_md", "")
     if report_md:
         print(report_md)
+    if context.get("genai_fell_back"):
+        print(f"\nWARNING: GenAI failed ({context.get('genai_error')}). "
+              f"Used deterministic fallback.")
     return 0
 
 

@@ -1,10 +1,19 @@
-"""The port's slice of the GenAI layer: only the chat-completions client.
+"""GenAI mode: the LLM planner, tuning loop and explainability.
 
-:mod:`mdx_torch.genai.client` is the port's copy of ``mdx/genai/client.py``
-(stdlib HTTP, an injectable transport), which the run-scoped chat
-(:mod:`mdx_torch.pipeline.chat`) calls.  The JAX package's planner,
-agents, tools and orchestrator (``mdx/genai``: an LLM loop that calls a
-remote model) stay out of the port by design; a ``genai=True`` run falls
-back to the deterministic path, as JAX's does when its model call fails
-(:func:`mdx_torch.pipeline.runner.run_pipeline`).
+The port's copy of ``mdx/genai``:
+
+* :mod:`mdx_torch.genai.client` — the chat-completions client (stdlib
+  HTTP, an injectable transport: ``set_transport``), which the agents and
+  the run-scoped chat (:mod:`mdx_torch.pipeline.chat`) call;
+* :mod:`mdx_torch.genai.tools` — the thread-local image store and the four
+  function tools, on the run's device;
+* :mod:`mdx_torch.genai.agents` — the prompts and the agent loop with its
+  model fallback;
+* :mod:`mdx_torch.genai.orchestrator` — the 5-phase pipeline, its
+  degradation chain and the LLM cost guard.
+
+``run_pipeline(genai=True)`` (:mod:`mdx_torch.pipeline.runner`) drives it.
+Without ``OPENAI_API_KEY`` and without an installed transport the planner's
+model call fails and the run falls back to the deterministic path, as in
+the JAX package.
 """

@@ -1,6 +1,7 @@
 """Minimal OpenAI-compatible chat-completions client (stdlib only): the
-port's copy of ``mdx/genai/client.py``, which the run-scoped chat
-(:mod:`mdx_torch.pipeline.chat`) calls.
+port's copy of ``mdx/genai/client.py``, which the GenAI agents
+(:mod:`mdx_torch.genai.agents`) and the run-scoped chat
+(:mod:`mdx_torch.pipeline.chat`) call.
 
 The reference depends on the ``openai-agents`` SDK
 (ref pipeline/genai_agents.py:31-43); this deployment has no such

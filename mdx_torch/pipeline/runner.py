@@ -4,21 +4,24 @@ report → DB.
 Counterpart of ``mdx/pipeline/runner.py`` (ref pipeline/runner.py:33-117)
 with the same context keys, report, artifacts and DB row.  Detection,
 enhancement and validation run as one fused QA step on the card
-(:func:`mdx_torch.core.qa.qa_deterministic`), or, with ``autotune=True``,
-as detect → the on-device candidate sweep → validate.  The results come to
-the host in one copy per dtype.
+(:func:`mdx_torch.core.qa.qa_deterministic`); with ``autotune=True`` as
+detect → the on-device candidate sweep → validate; with ``genai=True``
+(and no ``autotune``, which wins, as in JAX) as detect → the GenAI
+orchestrator (:mod:`mdx_torch.genai.orchestrator`: the LLM planner, the
+tool-calling tuning loop on the card, the best plan's execution and the
+explainability report) → validate.  The results come to the host in one
+copy per dtype.
 
 The run happens on ``device`` (the card by default).  Without a card a
 ``device="cuda"`` run raises before it reads the file; nothing falls back
-to the CPU.  The JAX package's GenAI mode (an LLM loop that calls a
-remote model) is not part of the port, and nor is its compile cache, which
-is JAX's alone.  As in JAX, ``autotune=True`` takes the sweep whatever
-``genai`` says; ``genai=True`` alone ends as JAX's run does when its model
-call fails (no key, no network): a warning, the deterministic path, and
-``genai_error`` and ``genai_fell_back`` in the context.  Each phase's wall
-time (decode, normalize, device_qa, png, report, db; ``device_qa`` ends
-with the results on the host) is logged in the run's trace and returned
-as ``context["phase_ms"]``.
+to the CPU.  When the GenAI pipeline fails (no key and no transport: the
+planner's model call fails) the run takes the deterministic path and the
+context carries JAX's ``genai_error`` text and ``genai_fell_back``;
+``plan_only=True`` returns the planner's plan without executing it.  Each
+phase's wall time is logged in the run's trace and returned as
+``context["phase_ms"]``: decode, normalize, device_qa (ends with the
+results on the host), png, report, db; a GenAI run has detect, genai (the
+orchestrator) and validate in place of device_qa.
 """
 
 from __future__ import annotations
@@ -48,11 +51,6 @@ from mdx_torch.pipeline.profiler import maybe_profile, phase_timer
 from mdx_torch.pipeline.trace import AgentTraceLogger
 
 logger = logging.getLogger(__name__)
-
-# why a genai=True run falls back: JAX's run falls back when its model
-# call fails; the port has no planner to call
-GENAI_ERROR = "GenAI planning is not part of mdx_torch"
-
 
 def resolve_device(device) -> torch.device:
     """The run's device; a CUDA device without a card raises (no CPU
@@ -85,11 +83,11 @@ def run_pipeline(
 ) -> dict[str, Any]:
     """Run the QA pipeline on one DICOM file.
 
-    The JAX package's signature plus ``device`` and ``tv_mode`` (the
-    autotune sweep's TV mode, which the JAX package reads from
-    ``MDX_TV_MODE``; None is "ref").  ``model``, ``max_iters``,
-    ``plan_only`` and ``no_show`` are accepted for that signature and
-    unused: the port has no GenAI planner and never opens a window."""
+    The JAX package's signature plus ``device`` and ``tv_mode`` (the TV
+    mode of the autotune sweep and of the plans GenAI mode applies, which
+    the JAX package reads from ``MDX_TV_MODE``; None is "ref").
+    ``no_show`` is accepted for that signature: the port never opens a
+    window."""
     dev = resolve_device(device)
     storage.init_db()
     run_id = run_id or storage.generate_run_id()
@@ -102,19 +100,27 @@ def run_pipeline(
     with phase_timer(trace, "normalize", times=times):
         image = normalize_image(image_raw)
 
-    fell_back = genai and not autotune
-    if fell_back:
-        logger.warning("GenAI pipeline failed (%s) — deterministic fallback.",
-                       GENAI_ERROR)
-    run = _run_autotune_path if autotune else _run_deterministic_path
-    context = run(image=image, dev=dev, trace=trace, times=times,
-                  tv_mode=tv_mode)
+    genai_error = None
+    if autotune:
+        context = _run_autotune_path(image=image, dev=dev, trace=trace,
+                                     times=times, tv_mode=tv_mode)
+    elif genai:
+        context = _run_genai_path(
+            image=image, metadata=metadata, model=model, max_iters=max_iters,
+            plan_only=plan_only, dev=dev, trace=trace, times=times,
+            tv_mode=tv_mode)
+        if context.get("plan_only"):
+            return {"run_id": run_id, **context}
+        genai_error = context.pop("genai_error", None)
+    else:
+        context = _run_deterministic_path(image=image, dev=dev, trace=trace,
+                                          times=times, tv_mode=tv_mode)
     context.update(run_id=run_id, input_path=input_path, metadata=metadata,
                    original_image=image)
     _finish(context, trace, times, output_dir=output_dir,
             base_name=base_name, save_artifacts=save_artifacts)
-    if fell_back:
-        context.update(genai_error=GENAI_ERROR, genai_fell_back=True)
+    if genai_error is not None:
+        context.update(genai_error=genai_error, genai_fell_back=True)
     return context
 
 
@@ -197,6 +203,78 @@ def _run_autotune_path(*, image, dev, trace, times, tv_mode
     }
 
 
+def _run_genai_path(*, image, metadata, model, max_iters, plan_only, dev,
+                    trace, times, tv_mode) -> dict[str, Any]:
+    """detect → the GenAI orchestrator → validate (mdx/pipeline/runner.py
+    ``_run_genai_path``).  A failed GenAI pipeline returns the
+    deterministic path's context with ``genai_error``; a plan-only run
+    returns ``{"plan_only": True, "plan", "stop_reason"}``."""
+    from mdx_torch.core.validate import validate
+    from mdx_torch.genai.orchestrator import run_genai_pipeline
+
+    x = torch.from_numpy(image)[None].to(dev)
+    with phase_timer(trace, "detect", _sync(dev), times):
+        stats, issue_masks = qa.detect(x)
+        host = to_host({"stats": stats, "issues": issue_masks})
+    issues = issue_list(host["issues"])
+    metrics_before = _metrics_dict(host["stats"])
+
+    with phase_timer(trace, "genai", _sync(dev), times):
+        result = run_genai_pipeline(
+            image=image, metadata=metadata, issues=issues,
+            metrics=metrics_before, model=model, max_iters=max_iters,
+            plan_only=plan_only, trace_logger=trace, device=dev,
+            tv_mode=tv_mode)
+
+    if result.fell_back_to_deterministic:
+        logger.warning("GenAI pipeline failed (%s) — deterministic fallback.",
+                       result.error)
+        context = _run_deterministic_path(image=image, dev=dev, trace=trace,
+                                          times=times, tv_mode=tv_mode)
+        context["genai_error"] = result.error
+        return context
+
+    if result.plan_only and result.plan:
+        return {"plan_only": True, "plan": result.plan,
+                "stop_reason": result.plan.stop_reason}
+
+    enhanced_image = (result.enhanced_image
+                      if result.enhanced_image is not None else image)
+    with phase_timer(trace, "validate", _sync(dev), times):
+        vhost = to_host(validate(
+            x, torch.from_numpy(enhanced_image)[None].to(dev)))
+    validation = build_validation_result(vhost, issues)
+
+    best = result.best_plan
+    recommendations: list[str] = []
+    if best:
+        if best.rationale:
+            recommendations.append(best.rationale)
+        recommendations.extend(f"⚠️ {w}" for w in best.risk_warnings)
+    if not recommendations:
+        recommendations = RecommendationAgent().run(DetectionResult(
+            issues=issues, metrics=metrics_before)).recommendations
+    return {
+        "issues": issues,
+        "recommendations": recommendations,
+        "applied_ops": result.applied_ops,
+        "metrics_before": metrics_before,
+        "metrics_after": result.enhanced_metrics or metrics_before,
+        "validation": validation,
+        "notes": validation.notes,
+        "enhanced_image": enhanced_image,
+        "genai_plan": best,
+        "genai_iterations": result.iterations,
+        "genai_model": result.model_name,
+        "genai_max_iters": max_iters,
+        "genai_llm_calls": result.llm_call_count,
+        "genai_prompts": result.prompts_used,
+        "genai_explainability": result.explainability,
+        "agent_traces": result.agent_traces,
+        "plan_json": best.model_dump_json(indent=2) if best else "",
+    }
+
+
 def _finish(context: dict, trace, times, *, output_dir, base_name,
             save_artifacts) -> None:
     """PNG, report and DB row of a run (the context gains ``visuals``,
@@ -217,6 +295,7 @@ def _finish(context: dict, trace, times, *, output_dir, base_name,
                 f.write(context["report_md"])
             context["report_path"] = report_path
     plan_json = context.pop("plan_json")
+    expl = context.get("genai_explainability")
     if save_artifacts:
         with phase_timer(None, "db", times=times):
             _persist_run(
@@ -226,12 +305,14 @@ def _finish(context: dict, trace, times, *, output_dir, base_name,
                 metrics_before=context["metrics_before"],
                 metrics_after=context["metrics_after"], plan_json=plan_json,
                 validation=context["validation"],
-                applied_ops=context["applied_ops"], explainability={},
+                applied_ops=context["applied_ops"],
+                explainability=expl.model_dump() if expl is not None else {},
                 report_path=context["report_path"],
                 before_after_path=visuals.get("before_after", ""),
                 agent_logs=trace.to_list(),
                 status=context["validation"].status,
-                genai_model=context.get("genai_model", ""))
+                genai_model=context.get("genai_model", ""),
+                genai_llm_calls=context.get("genai_llm_calls", 0))
     context["phase_ms"] = dict(times)
 
 

@@ -5,12 +5,14 @@
   with its numbers masked (the sweep's rationale mapped as in
   ``test_torch_pipeline.py``), and the numbers of the DB rows the two runs
   wrote within ``mdx_torch.parity``;
-* the flag the port refuses (``--genai`` on a one-image run without
-  ``--autotune``, where JAX takes its GenAI path), a DCT JPEG file whose
-  body is a JPEG 2000 codestream and a missing file exit 1 with main.py's
-  prefixes and lines; ``--plan-only`` alone, ``--batch --genai``,
-  ``--batch --plan-only`` and ``--genai --autotune`` run as main.py runs
-  them (``--spatial`` runs: ``tests/test_torch_spatial_runner.py``);
+* ``--genai`` without a key runs as main.py's does (the deterministic
+  report and its ``WARNING: GenAI failed (...)`` line, exit 0), and
+  ``--genai --plan-only`` with a scripted model prints main.py's plan; a
+  DCT JPEG file whose body is a JPEG 2000 codestream and a missing file
+  exit 1 with main.py's prefixes and lines; ``--plan-only`` alone,
+  ``--batch --genai``, ``--batch --plan-only`` and ``--genai --autotune``
+  run as main.py runs them (``--spatial`` runs:
+  ``tests/test_torch_spatial_runner.py``);
 * ``.env`` loading and ``--tv-mode`` / ``MDX_TV_MODE``, read once and passed
   on as ``tv_mode``;
 * with JAX, jaxlib, pydantic and matplotlib blocked, a CLI run end to end
@@ -21,6 +23,7 @@
 * nothing in the port imports mdx, JAX, bench, pydantic or matplotlib.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -106,12 +109,20 @@ def _same_output(out_p: str, out_j: str) -> None:
     assert parity._NUMBER.sub("#", out_p) == parity._NUMBER.sub("#", out_j)
 
 
-def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys):
+def test_refused_flags_and_inputs_exit_1(tmp_path, db, capsys, monkeypatch):
     path = write_synthetic_dicom(str(tmp_path / "x.dcm"), size=32)
-    assert cli.main(["--input", path, "--genai"], device="cpu") == 1
-    out = capsys.readouterr().out
-    assert out.startswith("ERROR: ") and (
-        "GenAI mode is not part of mdx_torch" in out), out
+    # --genai without a key (and no transport): the planner's model call
+    # fails in both CLIs, which print the deterministic report and main.py's
+    # warning and exit 0
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    (rc_j, out_j), (rc_p, out_p) = _outputs(
+        capsys, ["--input", path, "--output", str(tmp_path / "g"),
+                 "--no-show", "--genai"])
+    assert rc_j == rc_p == 0
+    _same_output(out_p, out_j)
+    assert out_p.endswith(
+        "\nWARNING: GenAI failed (planner failed: OPENAI_API_KEY not set; "
+        "fallback: OPENAI_API_KEY not set). Used deterministic fallback.\n")
     # --plan-only without --genai: main.py's deterministic run (only its
     # GenAI path reads the flag)
     (rc_j, out_j), (rc_p, out_p) = _outputs(
@@ -161,6 +172,38 @@ def test_genai_flags_run_where_main_py_runs_them(tmp_path, db, capsys,
     _same_output(out_p, out_j)
     if "--autotune" in flags:
         assert "GenAI Plan (JSON)" in out_p
+
+
+def test_genai_plan_only_prints_main_py_s_plan(tmp_path, db, capsys):
+    """``--genai --plan-only`` with a scripted model in each package (the
+    same reply, no network): the same plan printed, exit 0, no DB row."""
+    from mdx.genai import client as jax_llm
+    from mdx_torch.genai import client as port_llm
+    from mdx_torch.pipeline import storage
+
+    plan = {"recommended_ops": ["denoise", "bilateral", "tv_denoise"],
+            "params": {"bilateral_d": 5, "tv_denoise_weight": 0.05,
+                       "clahe_clip_limit": "0.02"},
+            "rationale": "scripted", "stop_reason": None}
+    reply = {"choices": [{"message": {"content": json.dumps(plan),
+                                      "tool_calls": []}}]}
+    path = write_synthetic_dicom(str(tmp_path / "x.dcm"), kind="noisy",
+                                 size=32)
+    try:
+        for llm in (jax_llm, port_llm):
+            llm.set_transport(lambda model, payload: reply)
+        (rc_j, out_j), (rc_p, out_p) = _outputs(
+            capsys, ["--input", path, "--output", str(tmp_path / "o"),
+                     "--no-show", "--genai", "--plan-only", "--max-iters",
+                     "2", "--model", "gpt-4o"])
+    finally:
+        for llm in (jax_llm, port_llm):
+            llm.set_transport(None)
+    assert rc_j == rc_p == 0
+    assert out_p == out_j
+    assert out_p.startswith("\n=== GenAI Enhancement Plan (JSON) ===\n")
+    assert '"bilateral_d": 5' in out_p and '"clahe_clip_limit": 0.02' in out_p
+    assert not storage.list_runs()
 
 
 def test_dotenv_and_tv_mode(tmp_path, db, monkeypatch, capsys):

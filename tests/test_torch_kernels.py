@@ -331,7 +331,10 @@ def test_builds_at_once_leave_one_intact_library(tmp_path, monkeypatch):
 
     from mdx_torch.kernels import _build
 
-    monkeypatch.setattr(_build, "_nvcc", lambda: _stub_nvcc(tmp_path))
+    # the stub is written once: a thread that rewrote it while the other
+    # thread's Popen executed it would fail that exec with ETXTBSY
+    stub = _stub_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: stub)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b")
     lib = _build.build()
     assert lib == _build.library_path() and lib.parent == tmp_path / "b"

@@ -200,19 +200,22 @@ def test_compare_runs_rules(tmp_path, db):
 
 @pytest.mark.parametrize("autotune", [False, True])
 def test_genai_run_ends_as_jax_s(tmp_path, db, monkeypatch, caplog, autotune):
-    """``run_pipeline(genai=True)``: JAX's run with its model call failing
-    (no key, and a transport that raises: no test reaches a network) falls
-    back to its deterministic path, and so does the port's, which has no
-    planner; with ``autotune=True`` both run the sweep.  The rows agree
-    under ``parity.compare_rows``, the reports line for line with their
-    numbers masked."""
+    """``run_pipeline(genai=True)`` with the model call failing (no key,
+    and a transport that raises in each package: no test reaches a
+    network): JAX's run falls back to its deterministic path, and so does
+    the port's, with JAX's ``genai_error`` text and warning; with
+    ``autotune=True`` both run the sweep.  The rows agree under
+    ``parity.compare_rows``, the reports line for line with their numbers
+    masked."""
     from mdx.genai import client as llm
+    from mdx_torch.genai import client as port_llm
 
     def down(model, payload):
         raise llm.LLMError("model call refused by the test")
 
     monkeypatch.delenv("OPENAI_API_KEY", raising=False)
     monkeypatch.setattr(llm, "_transport", down)
+    monkeypatch.setattr(port_llm, "_transport", down)
     path = write_synthetic_dicom(str(tmp_path / "noisy.dcm"), kind="noisy",
                                  size=64)
     # one output directory: the reports name their PNG's path
@@ -226,10 +229,12 @@ def test_genai_run_ends_as_jax_s(tmp_path, db, monkeypatch, caplog, autotune):
         assert got["genai_model"] == want["genai_model"]
     else:
         assert want["genai_fell_back"] and got["genai_fell_back"]
-        assert got["genai_error"] == PR.GENAI_ERROR
+        assert got["genai_error"] == want["genai_error"] == (
+            "planner failed: model call refused by the test; fallback: "
+            "model call refused by the test")
         assert [r.getMessage() for r in caplog.records
                 if r.name == PR.logger.name] == [
-            f"GenAI pipeline failed ({PR.GENAI_ERROR}) — deterministic "
+            f"GenAI pipeline failed ({want['genai_error']}) — deterministic "
             "fallback."]
     bad, reported = parity.compare_runs(got, want)
     assert not bad and not reported, (bad, reported)

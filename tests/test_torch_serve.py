@@ -15,9 +15,11 @@ against the JAX package's (``mdx.serve``, ``mdx.pipeline.chat``,
   run them at once): each row equal, field for field, to a serial
   ``run_pipeline`` of the same file.
 * ``{"genai": true}`` and ``{"genai": true, "autotune": true}`` on both
-  servers: JAX's model call fails (no key; a transport that raises, so no
-  test reaches a network) and it falls back to its deterministic run, the
-  port has no planner and does the same; with ``autotune`` both sweep.
+  servers: the model call fails (no key; a transport that raises, so no
+  test reaches a network) and both fall back to their deterministic runs;
+  with ``autotune`` both sweep.  ``{"genai": true, "max_iters": 2}`` with
+  a scripted model in each package: the GenAI run on a worker thread
+  (two plans applied, validated and scored), the rows equal.
 * ``tests/test_spa_contract.py``'s route check against the port's app.
 * ``tests/test_genai.py``'s three chat cases and its client cases (the
   scripted transport, JSON extraction, the stdlib HTTP transport against a
@@ -324,8 +326,8 @@ def test_four_concurrent_runs_equal_serial_runs(client, tmp_path):
 
 
 def test_genai_requests_end_as_jax_s(both, tmp_path, model_down):
-    """``{"genai": true}``: JAX's model call fails and it falls back to its
-    deterministic run; the port's too (no planner).  With ``"autotune":
+    """``{"genai": true}``: the model call fails and both fall back to
+    their deterministic runs.  With ``"autotune":
     true`` both run the sweep.  Both runs complete on both servers, each
     row within ``parity.compare_rows`` of the other package's, and the
     port's genai row equal to its deterministic row."""
@@ -352,6 +354,70 @@ def test_genai_requests_end_as_jax_s(both, tmp_path, model_down):
         "params"]
     assert not parity.row_differences(rows["port", "genai"],
                                       rows["port", "deterministic"])
+
+
+def _tuning_script(llm):
+    """Planner, two plans applied, validated and scored, the final plan,
+    the explanation."""
+    def plan(ops, **params):
+        return json.dumps({"recommended_ops": ops, "params": params,
+                           "rationale": "scripted"})
+
+    first = plan(["denoise", "clahe"], clahe_clip_limit=0.02)
+    final = plan(["denoise", "clahe", "unsharp", "bilateral", "tv_denoise"],
+                 bilateral_d=5, tv_denoise_weight=0.05)
+
+    def outputs(messages):
+        return [json.loads(m["content"]) for m in messages
+                if m.get("role") == "tool"]
+
+    def call(name, **args):
+        return _msg(None, [{"id": name, "function": {
+            "name": name, "arguments": json.dumps(args)}}])
+
+    def validate(messages):
+        return call("tool_validate", original_id="original",
+                    enhanced_id=outputs(messages)[-1]["enhanced_image_id"])
+
+    def score(messages):
+        return call("tool_score_plan",
+                    validation_json=json.dumps(outputs(messages)[-1]))
+
+    steps = [_msg(first)]
+    for p in (first, final):
+        steps += [call("tool_apply_enhancement", image_id="original",
+                       plan_json=p), validate, score]
+    return ScriptedTransport(llm, steps + [_msg(final), llm.LLMError("x"),
+                                           llm.LLMError("y")])
+
+
+def test_served_genai_run_equals_jax(both, tmp_path, clean_transport):
+    """A served ``{"genai": true, "max_iters": 2}`` run takes the GenAI path
+    on a worker thread (its own image store, the port's on the app's
+    device): both complete with the same plan, ops, iterations and calls,
+    the rows within ``parity.compare_rows``."""
+    content = _synthetic_dcm(tmp_path, "noisy")
+    rows = {}
+    for pkg, c in both.items():
+        tr = _tuning_script(LLM[pkg])
+        LLM[pkg].set_transport(tr)
+        _, run_id = _upload_run(c, content, "noisy.dcm", genai=True,
+                                max_iters=2, model="gpt-5-mini")
+        assert _wait(c, run_id) == "completed", pkg
+        assert not tr.responses and len(tr.requests) == 10, pkg
+        rows[pkg] = STORAGE[pkg].get_run(run_id)
+    p, j = rows["port"], rows["jax"]
+    bad, reported = parity.compare_rows(p, j, (SIZE, SIZE))
+    assert not bad and not reported, (bad, reported)
+    for key in ("genai_model", "genai_llm_calls", "plan_json",
+                "applied_ops", "issues"):
+        assert p[key] == j[key], key
+    assert p["genai_llm_calls"] == 10 and p["genai_model"] == "gpt-5-mini"
+    assert "tv_denoise" in p["applied_ops"]
+    assert json.loads(p["plan_json"])["params"]["bilateral_d"] == 5
+    tuning = [e for e in p["agent_logs"] if e["phase"] == "tuning"
+              and e["event"] == "iteration"]
+    assert len(tuning) == 2
 
 
 # -------------------------------------------- the SPA's routes, the port
@@ -402,7 +468,9 @@ class ScriptedTransport:
         r = self.responses.pop(0)
         if isinstance(r, Exception):
             raise r
-        return r
+        # a step may be a function of the messages it answers (it reads
+        # the random ids of enhanced images from the tool results)
+        return r(payload["messages"]) if callable(r) else r
 
 
 @pytest.fixture()

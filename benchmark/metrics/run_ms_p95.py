@@ -1,0 +1,8 @@
+"""95th percentile ms of all the window's single-file runs, host clock."""
+
+import numpy as np
+
+
+def read(r):
+    ms = [x["ms"] for x in r.runs if x["frames"]]
+    return float(np.percentile(ms, 95)) if ms else None

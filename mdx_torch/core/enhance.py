@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mdx_torch import telemetry
 from mdx_torch.core.metrics import compute_edge_ratio as _edge_ratio
 from mdx_torch.core.metrics import compute_niqe as _niqe
 from mdx_torch.ops import filters as _f
@@ -158,7 +159,9 @@ def _noise_amp(x: torch.Tensor, out: torch.Tensor):
     noise_amp = (sigma_before >= 1e-8) & (sigma_after > sigma_before * 1.3)
     # lax.cond in the JAX package; here a host sync (a CUDA graph of the
     # pass needs this decision moved onto the device)
-    if bool(noise_amp.any()):
+    with telemetry.count_sync("enhance.noise_guard"):
+        fix = bool(noise_amp.any())
+    if fix:
         out = _sel(noise_amp, torch.clamp(light_denoise(out, 0.4), 0.0, 1.0),
                    out)
     return out, noise_amp
@@ -204,7 +207,9 @@ def apply_plan(
     if "unsharp" in static.ops:
         halo = (_edge_ratio(out) > 1.5) & masks["unsharp"]
         # host sync, as in _noise_amp
-        if bool(halo.any()):
+        with telemetry.count_sync("enhance.halo_guard"):
+            rerun = bool(halo.any())
+        if rerun:
             half = _as_n(dyn.unsharp_amount, x) * 0.5
             if prefix_reusable:
                 redo = _run_chain(pre, suffix, static, dyn, masks, half)

@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from mdx_torch import telemetry
 from mdx_torch.core.schemas import (
     EnhancementParams,
     EnhancementPlan,
@@ -77,7 +78,8 @@ def _sweep(x: torch.Tensor, cands: list[dict], reps: int, ops, tile_size,
 
     def vec(key, dtype=torch.float32):
         per = torch.tensor([c[key] for c in cands], dtype=dtype)
-        return per.repeat(reps).to(x.device)
+        with telemetry.count_sync("tuning.lanes"):
+            return per.repeat(reps).to(x.device)
 
     static = PlanStatic(ops=tuple(ops), tile_size=tile_size, bilateral_d=0,
                         tv_mode=resolve_tv_mode(tv_mode),
@@ -126,19 +128,27 @@ def autotune(
     "fast", the TV cap of a sweep whose ``ops`` hold ``tv_denoise`` (the JAX
     package reads it from ``MDX_TV_MODE``; the port takes it as an
     argument)."""
-    cands = candidate_grid(issues)
-    k = len(cands)
-    x = torch.as_tensor(np.asarray(image, np.float32), device=device)
-    x = x[None].expand((k,) + tuple(x.shape)).contiguous()
-    enhanced, _flags, validation, score = _sweep(x, cands, 1, ops, tile_size,
-                                                 tv_mode)
-    plans, records, best = plan_records(
-        cands, ops, tile_size, score.cpu().numpy(),
-        validation["ssim"].cpu().numpy(), validation["psnr"].cpu().numpy(),
-        validation["quality_improvement"].cpu().numpy(),
-        best_rationale=("best of on-device autotune sweep "
-                        f"({k} candidates, one batched pass)"))
-    return plans[best], enhanced[best].cpu().numpy(), records
+    with telemetry.span("sweep"):
+        cands = candidate_grid(issues)
+        k = len(cands)
+        with telemetry.count_sync("tuning.upload"):
+            x = torch.as_tensor(np.asarray(image, np.float32), device=device)
+        x = x[None].expand((k,) + tuple(x.shape)).contiguous()
+        enhanced, _flags, validation, score = _sweep(x, cands, 1, ops,
+                                                     tile_size, tv_mode)
+        plans, records, best = plan_records(
+            cands, ops, tile_size, _readback(score),
+            _readback(validation["ssim"]), _readback(validation["psnr"]),
+            _readback(validation["quality_improvement"]),
+            best_rationale=("best of on-device autotune sweep "
+                            f"({k} candidates, one batched pass)"))
+        return plans[best], _readback(enhanced[best]), records
+
+
+def _readback(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host: one device read, counted."""
+    with telemetry.count_sync("tuning.readback"):
+        return t.cpu().numpy()
 
 
 def plan_records(cands, ops, tile_size, scores, ssim, psnr, qi,
@@ -177,20 +187,25 @@ def autotune_batch(
     grid of the batch's issues) as an [N·K] lane stack; a per-frame argmax
     picks each frame's best plan; ``tv_mode`` as in :func:`autotune`.
     Returns (best plan per frame, enhanced [N,H,W], scores [N,K])."""
-    union_issues = sorted({i for iss in issues_per_image for i in iss})
-    cands = candidate_grid(union_issues)
-    k = len(cands)
-    n = images.shape[0]
-    x = torch.as_tensor(np.asarray(images, np.float32), device=device)
-    x = x.repeat_interleave(k, dim=0)                       # [N·K,H,W]
-    enhanced, _flags, _validation, score = _sweep(x, cands, n, ops,
-                                                  tile_size, tv_mode)
-    scores = score.cpu().numpy().reshape(n, k)
-    best = np.argmax(scores, axis=1)                        # [N]
-    rows = torch.as_tensor(np.arange(n) * k + best, device=enhanced.device)
-    picked = enhanced[rows].cpu().numpy()
-    plans = [_plan(cands[int(best[i])], ops, tile_size,
-                   f"best of per-frame autotune sweep ({k} candidates, "
-                   "one batched pass for the whole stack)")
-             for i in range(n)]
-    return plans, picked, scores
+    with telemetry.span("sweep"):
+        union_issues = sorted({i for iss in issues_per_image for i in iss})
+        cands = candidate_grid(union_issues)
+        k = len(cands)
+        n = images.shape[0]
+        with telemetry.count_sync("tuning.upload"):
+            x = torch.as_tensor(np.asarray(images, np.float32),
+                                device=device)
+        x = x.repeat_interleave(k, dim=0)                       # [N·K,H,W]
+        enhanced, _flags, _validation, score = _sweep(x, cands, n, ops,
+                                                      tile_size, tv_mode)
+        scores = _readback(score).reshape(n, k)
+        best = np.argmax(scores, axis=1)                        # [N]
+        with telemetry.count_sync("tuning.upload"):
+            rows = torch.as_tensor(np.arange(n) * k + best,
+                                   device=enhanced.device)
+        picked = _readback(enhanced[rows])
+        plans = [_plan(cands[int(best[i])], ops, tile_size,
+                       f"best of per-frame autotune sweep ({k} candidates, "
+                       "one batched pass for the whole stack)")
+                 for i in range(n)]
+        return plans, picked, scores

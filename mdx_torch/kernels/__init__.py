@@ -20,6 +20,8 @@ import threading
 
 import torch
 
+from mdx_torch import telemetry
+
 LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
                             "tv_chambolle": 0, "bilateral": 0,
                             "wavelet_denoise": 0, "clahe_remap_ext": 0,
@@ -254,8 +256,9 @@ def tv_chambolle(x: torch.Tensor, weight: torch.Tensor, eps: float = 2e-4,
         while a < max_iter:
             if a and a % _TV_CHECK_EVERY == 0:
                 reads += 1
-                if not bool(active.any()):
-                    break
+                with telemetry.count_sync("tv.flags"):
+                    if not bool(active.any()):
+                        break
             m = min(s, max_iter - a)
             _ok(lib.mdx_tv_blocked_step(
                 x.data_ptr(), bufs[launches % 2].data_ptr(),

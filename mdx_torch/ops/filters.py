@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from mdx_torch import kernels
+from mdx_torch import kernels, telemetry
 
 
 def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int,
@@ -217,8 +217,13 @@ def shift_macs_cols(xp: torch.Tensor, w: torch.Tensor, wd: int) -> torch.Tensor:
 
 def as_n(v, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Scalar or [N] parameter → [N] tensor on ``x``'s device."""
-    v = torch.as_tensor(v, dtype=dtype, device=x.device).reshape(-1)
-    return v.expand(x.shape[0]).contiguous()
+    if torch.is_tensor(v) and v.device == x.device:
+        v = v.to(dtype)
+    else:
+        # a host value's upload waits for the device's queue
+        with telemetry.count_sync("filters.as_n"):
+            v = torch.as_tensor(v, dtype=dtype, device=x.device)
+    return v.reshape(-1).expand(x.shape[0]).contiguous()
 
 
 def gaussian_blur(x: torch.Tensor, sigma) -> torch.Tensor:

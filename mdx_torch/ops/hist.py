@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from mdx_torch import telemetry
+
 
 def bin_indices(x: torch.Tensor, bins: int,
                 hi: torch.Tensor | None = None) -> torch.Tensor:
@@ -40,7 +42,10 @@ def counts_from_indices(idx: torch.Tensor, bins: int) -> torch.Tensor:
     """[N, P] bin indices → [N, bins] float32 counts."""
     n = idx.shape[0]
     offs = torch.arange(n, device=idx.device)[:, None] * bins
-    c = torch.bincount((idx + offs).reshape(-1), minlength=n * bins)
+    # on the card, bincount reads its input's smallest and largest values
+    # to the host
+    with telemetry.count_sync("hist.bincount", 2):
+        c = torch.bincount((idx + offs).reshape(-1), minlength=n * bins)
     return c.reshape(n, bins).to(torch.float32)
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from mdx_torch import telemetry
+
 
 def _plan(qs, m: int):
     """Interpolation plan for NumPy's 'linear' rule over m elements:
@@ -45,7 +47,9 @@ def percentiles_exact(x: torch.Tensor, qs) -> torch.Tensor:
     m = flat.shape[1]
     ranks, plan = _plan(qs, m)
     srt = torch.sort(flat, dim=-1).values
-    lo = torch.tensor(ranks, device=x.device) - 1              # 0-indexed
+    # from pageable memory the upload waits for the device's queue
+    with telemetry.count_sync("quantile.ranks"):
+        lo = torch.tensor(ranks, device=x.device) - 1          # 0-indexed
     os_ = srt[:, lo]
     succ = srt[:, torch.clamp(lo + 1, max=m - 1)]
     return _interpolate(os_, succ, plan)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from mdx_torch import kernels
+from mdx_torch import kernels, telemetry
 from mdx_torch.ops.filters import as_n
 
 # (eps, max_iter) per TV mode: "ref" is the reference's semantics and the
@@ -87,7 +87,10 @@ def tv_chambolle_plain(x: torch.Tensor, weight, eps: float = 2e-4,
     iters = torch.ones(n, dtype=torch.int32, device=x.device)
     i = 1
     # host sync per iteration: the loop condition reads the device flags
-    while i < max_iter and bool(active.any()):
+    while i < max_iter:
+        with telemetry.count_sync("tv.plain_flags"):
+            if not bool(active.any()):
+                break
         new_out, gy, gx, norm, e = _energy_and_out(p0, p1, first=False)
         out = torch.where(active[:, None, None], new_out, out)
         p0, p1 = _update_p(p0, p1, gy, gx, norm, active)

@@ -19,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from mdx_torch import telemetry
 from mdx_torch.core import qa
 from mdx_torch.core.metrics import ISSUE_ORDER, METRIC_KEYS
 from mdx_torch.io.report import build_markdown_report
@@ -80,7 +81,8 @@ def to_host(tree: dict) -> dict:
         groups.setdefault((t.dtype, tuple(t.shape)), []).append(i)
     host: list = [None] * len(leaves)
     for idx in groups.values():
-        stacked = torch.stack([leaves[i][1] for i in idx]).cpu().numpy()
+        with telemetry.count_sync("agents.to_host"):
+            stacked = torch.stack([leaves[i][1] for i in idx]).cpu().numpy()
         for j, i in enumerate(idx):
             host[i] = stacked[j]
     out: dict = {}

@@ -42,12 +42,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from mdx_torch import telemetry
 from mdx_torch.core.metrics import ISSUE_ORDER, METRIC_KEYS
 from mdx_torch.io import load_dicom, load_series, normalize_image
 from mdx_torch.io.dicom import load_frames_raw
 from mdx_torch.parallel import launch
 from mdx_torch.parallel.mesh import data_axis, divisible_batch
 from mdx_torch.pipeline import storage
+from mdx_torch.pipeline.profiler import traced_run
 from mdx_torch.pipeline.runner import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -69,7 +71,8 @@ def _map_dir(input_path: str, load_one) -> list:
 
     def one(name: str):
         try:
-            return load_one(os.path.join(input_path, name), name)
+            with telemetry.span("decode.file"):
+                return load_one(os.path.join(input_path, name), name)
         except Exception as exc:
             logger.warning("Skipping %s: %s", name, exc)
             return None
@@ -255,11 +258,14 @@ def _device_qa(x: np.ndarray, params: np.ndarray | None, dev,
     from mdx_torch.core import qa
     from mdx_torch.ops.ingest import normalize_ingest
 
-    x = _upload(x, dev)
-    if params is not None:
-        x = normalize_ingest(x, *_upload(params, dev),
-                             per_frame_minmax=not window)
-    return _pack_outputs(qa.qa_deterministic(x))
+    with telemetry.span("upload", frames=x.shape[0]):
+        x = _upload(x, dev)
+        if params is not None:
+            params = _upload(params, dev)
+    with telemetry.span("launch", frames=x.shape[0]):
+        if params is not None:
+            x = normalize_ingest(x, *params, per_frame_minmax=not window)
+        return _pack_outputs(qa.qa_deterministic(x))
 
 
 def _ingest_params(descs: list[dict], window: bool) -> np.ndarray:
@@ -318,10 +324,12 @@ class _Fetch:
         self.host = buf
 
     def result(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-            return self.host.numpy()
-        return self.host
+        with telemetry.span("fetch"):
+            if self.done is not None:
+                with telemetry.count_sync("batch.fetch"):
+                    self.done.synchronize()
+                return self.host.numpy()
+            return self.host
 
 
 def _pipelined(items, submit, drain) -> None:
@@ -416,6 +424,30 @@ def _run_sharded(buckets: list, d: int, chunk_n: int, dev, window: bool
     return out, info
 
 
+def _batch_report(results: list[dict], output_dir: str,
+                  save_artifacts: bool) -> str:
+    """The batch's markdown report (written as ``batch_report.md``)."""
+    n_pass = sum(1 for r in results if r["passed"])
+    summary_lines = [
+        "# mdx batch QA report", "",
+        f"Frames processed: **{len(results)}** "
+        f"(validation pass: {n_pass}/{len(results)})", "",
+        "| source | frame | issues | ssim | psnr | score |",
+        "|---|---|---|---|---|---|",
+    ]
+    for r in results:
+        summary_lines.append(
+            f"| {r['source']} | {r['frame']} | "
+            f"{', '.join(r['issues']) or '—'} | {r['ssim']:.4f} | "
+            f"{r['psnr']:.2f} | {r['objective_score']:.4f} |")
+    report_md = "\n".join(summary_lines)
+    if save_artifacts:
+        path = os.path.join(output_dir, "batch_report.md")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(report_md)
+    return report_md
+
+
 def run_pipeline_batch(
     input_path: str,
     output_dir: str = "outputs",
@@ -444,90 +476,84 @@ def run_pipeline_batch(
     :func:`run_pipeline`."""
     dev = resolve_device(device)
     d = data_axis(n_data, dev)
-    storage.init_db()
+    with traced_run("batch", f"batch_{storage.generate_run_id()}"):
+        storage.init_db()
 
-    if autotune:
-        # the sweep runs from host-normalised frames
-        items = _collect_inputs(input_path, window=window)
-        buckets = {
-            (h, w, "float32"): [(lb, fi, fr, m, None) for lb, fi, fr, m
-                                in v]
-            for (h, w), v in _buckets(items, window=window).items()}
-    else:
-        items = _collect_inputs_raw(input_path, window=window)
-        buckets = _buckets_raw(items, window=window)
-    if not items:
-        raise RuntimeError(f"No DICOM inputs found at {input_path}")
+        if autotune:
+            # the sweep runs from host-normalised frames
+            with telemetry.span("decode"):
+                items = _collect_inputs(input_path, window=window)
+            with telemetry.span("bucket"):
+                buckets = {
+                    (h, w, "float32"): [(lb, fi, fr, m, None) for lb, fi, fr, m
+                                        in v]
+                    for (h, w), v in _buckets(items, window=window).items()}
+        else:
+            with telemetry.span("decode"):
+                items = _collect_inputs_raw(input_path, window=window)
+            with telemetry.span("bucket"):
+                buckets = _buckets_raw(items, window=window)
+        if not items:
+            raise RuntimeError(f"No DICOM inputs found at {input_path}")
 
-    done = _completed_frames() if resume else set()
-    if save_artifacts:
-        os.makedirs(output_dir, exist_ok=True)
-    chunk_n = divisible_batch(CHUNK, d)
+        done = _completed_frames() if resume else set()
+        if save_artifacts:
+            os.makedirs(output_dir, exist_ok=True)
+        chunk_n = divisible_batch(CHUNK, d)
 
-    skipped = 0
-    todo = []
-    for (h, w, _kind), frames in sorted(buckets.items()):
-        if done:
-            kept = [f for f in frames if f"{f[0]}#frame{f[1]}" not in done]
-            skipped += len(frames) - len(kept)
-            frames = kept
-        if frames:
-            todo.append((h, w, frames))
+        skipped = 0
+        todo = []
+        for (h, w, _kind), frames in sorted(buckets.items()):
+            if done:
+                kept = [f for f in frames if f"{f[0]}#frame{f[1]}" not in done]
+                skipped += len(frames) - len(kept)
+                frames = kept
+            if frames:
+                todo.append((h, w, frames))
 
-    results: list[dict[str, Any]] = []
-    info = None
-    if d > 1 and not autotune and todo:
-        chunks, info = _run_sharded(todo, d, chunk_n, dev, window)
-        for h, w, frames, packed in chunks:
-            _collect(frames, packed, h, w, results, save_artifacts)
-    else:
-        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        results: list[dict[str, Any]] = []
+        info = None
+        if d > 1 and not autotune and todo:
+            chunks, info = _run_sharded(todo, d, chunk_n, dev, window)
+            for h, w, frames, packed in chunks:
+                with telemetry.span("collect", frames=len(frames)):
+                    _collect(frames, packed, h, w, results, save_artifacts)
+        else:
+            side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-        def submit(item):
-            h, w, chunk = item
-            x = np.stack([f[2] for f in chunk])
-            if autotune:
-                packed = _pack_outputs(_autotune_chunk(
-                    x.astype(np.float32), dev, tv_mode))
-            else:
-                params = (None if chunk[0][4] is None else
-                          _ingest_params([f[4] for f in chunk], window))
-                packed = _device_qa(x, params, dev, window)
-            return item, _Fetch(packed, side)
+            def submit(item):
+                h, w, chunk = item
+                if autotune:
+                    with telemetry.span("stage", frames=len(chunk)):
+                        x = np.stack([f[2] for f in chunk]).astype(np.float32)
+                    with telemetry.span("launch", frames=len(chunk)):
+                        packed = _pack_outputs(_autotune_chunk(x, dev, tv_mode))
+                else:
+                    with telemetry.span("stage", frames=len(chunk)):
+                        x = np.stack([f[2] for f in chunk])
+                        params = (None if chunk[0][4] is None else
+                                  _ingest_params([f[4] for f in chunk], window))
+                    packed = _device_qa(x, params, dev, window)
+                return item, _Fetch(packed, side)
 
-        def drain(entry):
-            (h, w, chunk), fetch = entry
-            _collect(chunk, fetch.result(), h, w, results, save_artifacts)
+            def drain(entry):
+                (h, w, chunk), fetch = entry
+                packed = fetch.result()
+                with telemetry.span("collect", frames=len(chunk)):
+                    _collect(chunk, packed, h, w, results, save_artifacts)
 
-        _pipelined(((h, w, frames[s:s + chunk_n])
-                    for h, w, frames in todo
-                    for s in range(0, len(frames), chunk_n)), submit, drain)
+            _pipelined(((h, w, frames[s:s + chunk_n])
+                        for h, w, frames in todo
+                        for s in range(0, len(frames), chunk_n)), submit, drain)
 
-    n_pass = sum(1 for r in results if r["passed"])
-    summary_lines = [
-        "# mdx batch QA report", "",
-        f"Frames processed: **{len(results)}** "
-        f"(validation pass: {n_pass}/{len(results)})", "",
-        "| source | frame | issues | ssim | psnr | score |",
-        "|---|---|---|---|---|---|",
-    ]
-    for r in results:
-        summary_lines.append(
-            f"| {r['source']} | {r['frame']} | "
-            f"{', '.join(r['issues']) or '—'} | {r['ssim']:.4f} | "
-            f"{r['psnr']:.2f} | {r['objective_score']:.4f} |")
-    report_md = "\n".join(summary_lines)
+        with telemetry.span("report"):
+            report_md = _batch_report(results, output_dir, save_artifacts)
 
-    if save_artifacts:
-        path = os.path.join(output_dir, "batch_report.md")
-        with open(path, "w", encoding="utf-8") as f:
-            f.write(report_md)
-
-    return {
-        "batch": True,
-        "frames": results,
-        "skipped": skipped,
-        "report_md": report_md,
-        "mesh": {"data": d, "space": 1},
-        "launch": info,
-    }
+        return {
+            "batch": True,
+            "frames": results,
+            "skipped": skipped,
+            "report_md": report_md,
+            "mesh": {"data": d, "space": 1},
+            "launch": info,
+        }

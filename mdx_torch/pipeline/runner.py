@@ -33,6 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from mdx_torch import telemetry
 from mdx_torch.core import qa
 from mdx_torch.core.metrics import METRIC_KEYS
 from mdx_torch.io import (build_markdown_report, load_dicom, normalize_image,
@@ -47,7 +48,7 @@ from mdx_torch.pipeline.agents import (
     issue_op_labels,
     to_host,
 )
-from mdx_torch.pipeline.profiler import maybe_profile, phase_timer
+from mdx_torch.pipeline.profiler import phase_timer, traced_run
 from mdx_torch.pipeline.trace import AgentTraceLogger
 
 logger = logging.getLogger(__name__)
@@ -89,57 +90,68 @@ def run_pipeline(
     ``no_show`` is accepted for that signature: the port never opens a
     window."""
     dev = resolve_device(device)
-    storage.init_db()
     run_id = run_id or storage.generate_run_id()
-    base_name = os.path.splitext(os.path.basename(input_path))[0]
-    trace = AgentTraceLogger()
-    times: dict[str, float] = {}
+    with traced_run("run", f"run_{run_id}"):
+        storage.init_db()
+        base_name = os.path.splitext(os.path.basename(input_path))[0]
+        trace = AgentTraceLogger()
+        times: dict[str, float] = {}
 
-    with phase_timer(trace, "decode", times=times):
-        image_raw, metadata = load_dicom(input_path)
-    with phase_timer(trace, "normalize", times=times):
-        image = normalize_image(image_raw)
+        with phase_timer(trace, "decode", times=times):
+            image_raw, metadata = load_dicom(input_path)
+        with phase_timer(trace, "normalize", times=times):
+            image = normalize_image(image_raw)
 
-    genai_error = None
-    if autotune:
-        context = _run_autotune_path(image=image, dev=dev, trace=trace,
-                                     times=times, tv_mode=tv_mode)
-    elif genai:
-        context = _run_genai_path(
-            image=image, metadata=metadata, model=model, max_iters=max_iters,
-            plan_only=plan_only, dev=dev, trace=trace, times=times,
-            tv_mode=tv_mode)
-        if context.get("plan_only"):
-            return {"run_id": run_id, **context}
-        genai_error = context.pop("genai_error", None)
-    else:
-        context = _run_deterministic_path(image=image, dev=dev, trace=trace,
-                                          times=times, tv_mode=tv_mode)
-    context.update(run_id=run_id, input_path=input_path, metadata=metadata,
-                   original_image=image)
-    _finish(context, trace, times, output_dir=output_dir,
-            base_name=base_name, save_artifacts=save_artifacts)
-    if genai_error is not None:
-        context.update(genai_error=genai_error, genai_fell_back=True)
-    return context
+        genai_error = None
+        if autotune:
+            context = _run_autotune_path(image=image, dev=dev, trace=trace,
+                                         times=times, tv_mode=tv_mode)
+        elif genai:
+            context = _run_genai_path(
+                image=image, metadata=metadata, model=model,
+                max_iters=max_iters, plan_only=plan_only, dev=dev,
+                trace=trace, times=times, tv_mode=tv_mode)
+            if context.get("plan_only"):
+                return {"run_id": run_id, **context}
+            genai_error = context.pop("genai_error", None)
+        else:
+            context = _run_deterministic_path(
+                image=image, dev=dev, trace=trace, times=times,
+                tv_mode=tv_mode)
+        context.update(run_id=run_id, input_path=input_path,
+                       metadata=metadata, original_image=image)
+        _finish(context, trace, times, output_dir=output_dir,
+                base_name=base_name, save_artifacts=save_artifacts)
+        if genai_error is not None:
+            context.update(genai_error=genai_error, genai_fell_back=True)
+        return context
 
 
 def _sync(dev: torch.device):
     return torch.cuda.synchronize if dev.type == "cuda" else None
 
 
+def _upload(image: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """[H, W] host image → [1, H, W] on ``dev``; from pageable memory the
+    copy waits for the device's queue."""
+    with telemetry.count_sync("runner.upload"):
+        return torch.from_numpy(image)[None].to(dev)
+
+
 def _run_deterministic_path(*, image, dev, trace, times, tv_mode
                             ) -> dict[str, Any]:
     del tv_mode  # the issue-driven chain runs no TV
-    x = torch.from_numpy(image)[None].to(dev)
-    with maybe_profile("qa_deterministic"), \
-            phase_timer(trace, "device_qa", _sync(dev), times):
+    x = _upload(image, dev)
+    with phase_timer(trace, "device_qa", _sync(dev), times):
         enhanced_dev, stats, issue_masks, flags, validation_dev, _score = (
             qa.qa_deterministic(x))
         host = to_host({"stats": stats, "issues": issue_masks,
                         "flags": flags, "validation": validation_dev})
         issues = issue_list(host["issues"])
-        enhanced_image = enhanced_dev[0].cpu().numpy() if issues else image
+        enhanced_image = image
+        if issues:
+            with telemetry.count_sync("runner.enhanced_copy"):
+                enhanced_image = enhanced_dev[0].cpu().numpy()
 
     metrics_before = _metrics_dict(host["stats"])
     recommendations = RecommendationAgent().run(
@@ -171,15 +183,14 @@ def _run_autotune_path(*, image, dev, trace, times, tv_mode
     from mdx_torch.core.tuning import autotune
     from mdx_torch.core.validate import validate
 
-    x = torch.from_numpy(image)[None].to(dev)
+    x = _upload(image, dev)
     with phase_timer(trace, "device_qa", _sync(dev), times):
         stats, issue_masks = qa.detect(x)
         host = to_host({"stats": stats, "issues": issue_masks})
         issues = issue_list(host["issues"])
         best_plan, enhanced_image, records = autotune(
             image, issues, device=dev, tv_mode=tv_mode)
-        vhost = to_host(validate(x, torch.from_numpy(enhanced_image)[None]
-                                 .to(dev)))
+        vhost = to_host(validate(x, _upload(enhanced_image, dev)))
     trace.log_info("autotune",
                    f"{len(records)} candidates in one batched pass; "
                    f"best score {max(r.score for r in records):.4f}")
@@ -212,7 +223,7 @@ def _run_genai_path(*, image, metadata, model, max_iters, plan_only, dev,
     from mdx_torch.core.validate import validate
     from mdx_torch.genai.orchestrator import run_genai_pipeline
 
-    x = torch.from_numpy(image)[None].to(dev)
+    x = _upload(image, dev)
     with phase_timer(trace, "detect", _sync(dev), times):
         stats, issue_masks = qa.detect(x)
         host = to_host({"stats": stats, "issues": issue_masks})
@@ -241,8 +252,7 @@ def _run_genai_path(*, image, metadata, model, max_iters, plan_only, dev,
     enhanced_image = (result.enhanced_image
                       if result.enhanced_image is not None else image)
     with phase_timer(trace, "validate", _sync(dev), times):
-        vhost = to_host(validate(
-            x, torch.from_numpy(enhanced_image)[None].to(dev)))
+        vhost = to_host(validate(x, _upload(enhanced_image, dev)))
     validation = build_validation_result(vhost, issues)
 
     best = result.best_plan

@@ -18,6 +18,8 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional
 
+from mdx_torch import telemetry
+
 _DEFAULT_DB = "mdx_runs.db"
 
 
@@ -146,7 +148,7 @@ def save_run(
     genai_model: str = "",
     genai_llm_calls: int = 0,
 ) -> None:
-    with _connect() as conn:
+    with telemetry.span("db", frames=1), _connect() as conn:
         conn.execute(
             """INSERT OR REPLACE INTO runs
                (run_id, created_at, input_filename, status, metadata_summary,
@@ -166,26 +168,27 @@ def save_runs_bulk(rows: List[Dict[str, Any]]) -> None:
     """Insert many completed runs in ONE transaction (one fsync instead of
     one per frame — the batch runner persists a 64-frame chunk at a time).
     Each dict takes the same keyword fields as :func:`save_run`."""
-    now = time.time()
-    payload = [
-        (r["run_id"], now, r["input_filename"], r.get("status", "completed"),
-         _serialise(r["metadata_summary"]), _serialise(r["issues"]),
-         _serialise(r["metrics_before"]), _serialise(r["metrics_after"]),
-         r["plan_json"], _serialise(r["validation"]),
-         _serialise(r["applied_ops"]), _serialise(r["explainability"]),
-         r["report_path"], r["before_after_path"],
-         _serialise(r["agent_logs"]), r.get("genai_model", ""),
-         int(r.get("genai_llm_calls", 0)))
-        for r in rows]
-    with _connect() as conn:
-        conn.executemany(
-            """INSERT OR REPLACE INTO runs
-               (run_id, created_at, input_filename, status, metadata_summary,
-                issues, metrics_before, metrics_after, plan_json, validation,
-                applied_ops, explainability, report_path, before_after_path,
-                agent_logs, genai_model, genai_llm_calls)
-               VALUES (?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?)""",
-            payload)
+    with telemetry.span("db", frames=len(rows)):
+        now = time.time()
+        payload = [
+            (r["run_id"], now, r["input_filename"], r.get("status", "completed"),
+             _serialise(r["metadata_summary"]), _serialise(r["issues"]),
+             _serialise(r["metrics_before"]), _serialise(r["metrics_after"]),
+             r["plan_json"], _serialise(r["validation"]),
+             _serialise(r["applied_ops"]), _serialise(r["explainability"]),
+             r["report_path"], r["before_after_path"],
+             _serialise(r["agent_logs"]), r.get("genai_model", ""),
+             int(r.get("genai_llm_calls", 0)))
+            for r in rows]
+        with _connect() as conn:
+            conn.executemany(
+                """INSERT OR REPLACE INTO runs
+                   (run_id, created_at, input_filename, status, metadata_summary,
+                    issues, metrics_before, metrics_after, plan_json, validation,
+                    applied_ops, explainability, report_path, before_after_path,
+                    agent_logs, genai_model, genai_llm_calls)
+                   VALUES (?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?)""",
+                payload)
 
 
 _JSON_COLS = ("metadata_summary", "issues", "metrics_before", "metrics_after",

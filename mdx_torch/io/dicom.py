@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import os
 import struct
+import sys
 from dataclasses import dataclass, field
 from typing import BinaryIO, Dict, Iterator, Optional, Tuple
 
@@ -105,12 +106,18 @@ class DicomDataset:
     """Minimal decoded dataset: typed attributes + raw pixel bytes.
 
     For encapsulated (RLE) pixel data, ``fragments`` holds one compressed
-    fragment per frame instead of ``pixel_bytes``.
+    fragment per frame instead of ``pixel_bytes``.  A header read
+    (``read_dataset(path, pixels=False)``) leaves ``pixel_bytes`` empty
+    and ``fragments`` None; of a native-syntax file it records where the
+    value lies in the file: ``pixel_offset`` (-1 when not recorded) and
+    ``pixel_length``.
     """
     attrs: Dict[str, object] = field(default_factory=dict)
     pixel_bytes: bytes = b""
     transfer_syntax: str = TS_EXPLICIT_LE
     fragments: Optional[list] = None
+    pixel_offset: int = -1
+    pixel_length: int = 0
 
     def get(self, name, default=None):
         return self.attrs.get(name, default)
@@ -193,8 +200,14 @@ def _decode_value(name: str, vr: bytes, raw: bytes, big_endian: bool):
     return text
 
 
-def read_dataset(path: str) -> DicomDataset:
-    """Parse a DICOM file into a :class:`DicomDataset`."""
+def read_dataset(path: str, pixels: bool = True) -> DicomDataset:
+    """Parse a DICOM file into a :class:`DicomDataset`.
+
+    ``pixels=False`` reads the header alone where the pixel value lies in
+    the file as stored (any syntax but deflated): a native value is
+    skipped, its offset and length recorded, and a file too short to hold
+    it fails as it would when read; an encapsulated value's items are
+    skipped, and ``fragments`` stays None."""
     try:
         f = open(path, "rb")
     except FileNotFoundError as exc:
@@ -236,13 +249,20 @@ def read_dataset(path: str) -> DicomDataset:
         big_endian = ts == TS_EXPLICIT_BE
         ds = DicomDataset(transfer_syntax=ts)
         _parse_body(body, ds, explicit, big_endian,
-                    encapsulated=(ts in _ENCAPSULATED_TS))
+                    encapsulated=(ts in _ENCAPSULATED_TS),
+                    skip_pixels=not pixels and body is f)
+        if (ds.pixel_offset >= 0 and ds.pixel_offset + ds.pixel_length
+                > os.fstat(f.fileno()).st_size):
+            raise DicomError("Truncated DICOM stream.")
         return ds
 
 
 def _parse_body(f: BinaryIO, ds: DicomDataset, explicit: bool,
-                big_endian: bool, encapsulated: bool) -> None:
-    """Populate ``ds`` from the main dataset stream."""
+                big_endian: bool, encapsulated: bool,
+                skip_pixels: bool = False) -> None:
+    """Populate ``ds`` from the main dataset stream; ``skip_pixels``: a
+    native pixel value's offset and length instead of its bytes, and an
+    encapsulated one's items skipped (``fragments`` None)."""
     for tag, vr, length in _iter_elements(f, explicit, big_endian):
         if tag == _PIXEL_DATA:
             if length == _UNDEFINED:
@@ -250,12 +270,16 @@ def _parse_body(f: BinaryIO, ds: DicomDataset, explicit: bool,
                     raise DicomError(
                         "Encapsulated PixelData in a native transfer "
                         "syntax.")
-                ds.fragments = _read_encapsulated(f)
+                ds.fragments = _read_encapsulated(f, keep=not skip_pixels)
                 continue
             if encapsulated:
                 raise DicomError(
                     "This transfer syntax requires encapsulated "
                     "(undefined-length) PixelData.")
+            if skip_pixels:
+                ds.pixel_offset, ds.pixel_length = f.tell(), length
+                f.seek(length, os.SEEK_CUR)
+                continue
             ds.pixel_bytes = _read_exact(f, length)
             continue
         if length == _UNDEFINED or vr == b"SQ":
@@ -274,8 +298,9 @@ def _parse_body(f: BinaryIO, ds: DicomDataset, explicit: bool,
             ds.attrs[name] = val
 
 
-def _read_encapsulated(f: BinaryIO) -> list:
-    """Read encapsulated PixelData items → per-frame fragment list.
+def _read_encapsulated(f: BinaryIO, keep: bool = True) -> Optional[list]:
+    """Read encapsulated PixelData items → per-frame fragment list
+    (``keep=False``: the items are walked and skipped → None).
 
     Layout (PS3.5 A.4): Basic Offset Table item first (possibly empty),
     then one item per fragment, terminated by a sequence delimiter.  For
@@ -289,10 +314,14 @@ def _read_encapsulated(f: BinaryIO) -> list:
             break
         if tag != _ITEM or length == _UNDEFINED:
             raise DicomError("Malformed encapsulated PixelData items.")
+        if not keep:
+            f.seek(length, os.SEEK_CUR)
+            fragments.append(b"")
+            continue
         fragments.append(_read_exact(f, length) if length else b"")
     if len(fragments) < 2:  # first item is the (possibly empty) offset table
         raise DicomError("Encapsulated PixelData has no frame fragments.")
-    return fragments[1:]  # drop the Basic Offset Table
+    return fragments[1:] if keep else None  # drop the Basic Offset Table
 
 
 def _read_file_meta(f: BinaryIO) -> str:
@@ -319,6 +348,25 @@ def _read_file_meta(f: BinaryIO) -> str:
     return ts
 
 
+def _stored_dtype(ds: DicomDataset) -> np.dtype:
+    """The dtype of the stored values: BitsAllocated and
+    PixelRepresentation, in the transfer syntax's byte order."""
+    bits = ds.get("BitsAllocated", 16)
+    signed = ds.get("PixelRepresentation", 0) == 1
+    if bits == 8:
+        dtype = np.int8 if signed else np.uint8
+    elif bits == 16:
+        dtype = np.int16 if signed else np.uint16
+    elif bits == 32:
+        dtype = np.int32 if signed else np.uint32
+    else:
+        raise DicomError(f"Unsupported BitsAllocated={bits}.")
+    dtype = np.dtype(dtype)
+    if ds.transfer_syntax == TS_EXPLICIT_BE:
+        dtype = dtype.newbyteorder(">")
+    return dtype
+
+
 def decode_pixels(ds: DicomDataset) -> np.ndarray:
     """Raw or encapsulated (RLE, JPEG Lossless, JPEG-LS, DCT JPEG, JPEG
     2000) pixel bytes → numpy array in stored shape/dtype."""
@@ -332,18 +380,7 @@ def decode_pixels(ds: DicomDataset) -> np.ndarray:
     signed = ds.get("PixelRepresentation", 0) == 1
     samples = ds.get("SamplesPerPixel", 1) or 1
     frames = ds.get("NumberOfFrames", 1) or 1
-
-    if bits == 8:
-        dtype = np.int8 if signed else np.uint8
-    elif bits == 16:
-        dtype = np.int16 if signed else np.uint16
-    elif bits == 32:
-        dtype = np.int32 if signed else np.uint32
-    else:
-        raise DicomError(f"Unsupported BitsAllocated={bits}.")
-    dtype = np.dtype(dtype)
-    if ds.transfer_syntax == TS_EXPLICIT_BE:
-        dtype = dtype.newbyteorder(">")
+    dtype = _stored_dtype(ds)
 
     expect = rows * cols * samples * frames
     if ds.fragments is not None:
@@ -775,6 +812,49 @@ def load_frames_raw(path: str, window: bool = False
         raw = raw.astype(raw.dtype.newbyteorder("="))
     raw = np.ascontiguousarray(raw)
     return raw, raw_ingest_descriptor(ds, raw), _metadata(ds)
+
+
+def plain_frame_dtype(ds: DicomDataset) -> Optional[np.dtype]:
+    """The stored dtype of a header (``read_dataset(path, pixels=False)``)
+    whose pixel value is one uncompressed grayscale frame of uint8, int16
+    or uint16 in little-endian order on a little-endian host: the bytes
+    :func:`load_frames_raw` returns as they are stored, so that
+    :func:`read_frame_into` may read them straight into their destination.
+    None for every other file, which :func:`load_frames_raw` decodes."""
+    if (ds.pixel_offset < 0 or sys.byteorder != "little"
+            or ds.transfer_syntax not in (TS_IMPLICIT_LE, TS_EXPLICIT_LE)):
+        return None
+    rows, cols = ds.get("Rows"), ds.get("Columns")
+    if (not rows or not cols or (ds.get("SamplesPerPixel", 1) or 1) != 1
+            or (ds.get("NumberOfFrames", 1) or 1) != 1):
+        return None
+    try:
+        dtype = _stored_dtype(ds)
+    except DicomError:
+        return None
+    if dtype not in (np.uint8, np.int16, np.uint16):
+        return None
+    # decode_pixels takes the first rows * cols values of a value that
+    # holds whole values; anything else fails there, so is not plain
+    if (ds.pixel_length < rows * cols * dtype.itemsize
+            or ds.pixel_length % dtype.itemsize):
+        return None
+    return dtype
+
+
+def read_frame_into(path: str, ds: DicomDataset, out: np.ndarray) -> None:
+    """Read the frame of a header that :func:`plain_frame_dtype` accepts
+    from ``path`` straight into ``out``, a C-contiguous [Rows, Columns]
+    array of that dtype: the file's bytes land in ``out``, no copy between."""
+    view = memoryview(out).cast("B")
+    with open(path, "rb", buffering=0) as f:
+        f.seek(ds.pixel_offset)
+        got = 0
+        while got < len(view):
+            n = f.readinto(view[got:])
+            if not n:
+                raise DicomError("Truncated DICOM stream.")
+            got += n
 
 
 def load_series(path: str, window: bool = False

@@ -8,8 +8,10 @@ Counterpart of ``mdx/pipeline/batch_runner.py``:
 * frames are bucketed by shape (and stored dtype) and run in chunks of
   ``ceil(64 / d)·d`` frames on a data axis of ``d`` ranks (JAX's
   ``chunk_n``);
-* the deterministic path uploads the stored integers from pinned memory
-  and normalises them on the card (``normalize_ingest``) before
+* the deterministic path puts each frame's stored integers in its slot of
+  its chunk's pinned host buffer, read there straight from the file where
+  they are stored plain (:func:`_collect_inputs_raw`), uploads that buffer
+  and normalises on the card (``normalize_ingest``) before
   ``qa_deterministic``; the autotune path sweeps the candidate grid per
   frame from host-normalised frames;
 * a chunk's results are packed on the card into one ``[28, n]`` float32
@@ -45,7 +47,9 @@ import torch
 from mdx_torch import telemetry
 from mdx_torch.core.metrics import ISSUE_ORDER, METRIC_KEYS
 from mdx_torch.io import load_dicom, load_series, normalize_image
-from mdx_torch.io.dicom import load_frames_raw
+from mdx_torch.io.dicom import (_metadata, load_frames_raw, plain_frame_dtype,
+                                raw_ingest_descriptor, read_dataset,
+                                read_frame_into)
 from mdx_torch.parallel import launch
 from mdx_torch.parallel.mesh import data_axis, divisible_batch
 from mdx_torch.pipeline import storage
@@ -55,6 +59,10 @@ from mdx_torch.pipeline.runner import resolve_device
 logger = logging.getLogger(__name__)
 
 CHUNK = 64
+# the most host memory a call's staged chunks hold pinned (the caching
+# host allocator keeps its blocks for the process's life): a 64-frame
+# 2048² uint16 chunk is 512 MiB
+_PIN_BYTES = 1 << 30
 # stored integer dtypes normalize_ingest takes (int8 widens to int16)
 _INGEST_DTYPES = (np.uint8, np.int16, np.uint16)
 
@@ -64,22 +72,32 @@ def _dicom_names(input_path: str) -> list[str]:
                   if os.path.splitext(n)[1].lower() in (".dcm", ".dicom"))
 
 
-def _map_dir(input_path: str, load_one) -> list:
-    """``load_one(path, name)`` over a directory's DICOMs on 8 host threads;
-    a file that fails to load is skipped with a warning."""
+def _threaded(fn, items: list, labels: list[str], span: str) -> list:
+    """``fn(item)`` for every item on 8 host threads, each call in the
+    span ``span``; an item whose call raises is skipped with a warning
+    (its result None)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(name: str):
+    def one(pair):
+        item, label = pair
         try:
-            with telemetry.span("decode.file"):
-                return load_one(os.path.join(input_path, name), name)
+            with telemetry.span(span):
+                return fn(item)
         except Exception as exc:
-            logger.warning("Skipping %s: %s", name, exc)
+            logger.warning("Skipping %s: %s", label, exc)
             return None
 
     with ThreadPoolExecutor(max_workers=8) as pool:
-        return [r for r in pool.map(one, _dicom_names(input_path))
-                if r is not None]
+        return list(pool.map(one, zip(items, labels)))
+
+
+def _map_dir(input_path: str, load_one) -> list:
+    """``load_one(path, name)`` over a directory's DICOMs on 8 host threads;
+    a file that fails to load is skipped with a warning."""
+    names = _dicom_names(input_path)
+    return [r for r in _threaded(
+        lambda n: load_one(os.path.join(input_path, n), n), names, names,
+        "decode.file") if r is not None]
 
 
 def _collect_inputs(input_path: str, window: bool = False
@@ -96,35 +114,207 @@ def _collect_inputs(input_path: str, window: bool = False
     return [(os.path.basename(input_path), stack, meta)]
 
 
-def _collect_inputs_raw(input_path: str, window: bool = False
-                        ) -> list[tuple[str, np.ndarray, dict | None, dict]]:
-    """[(label, frames, ingest descriptor | None, metadata)] keeping the
-    stored integers for normalisation on the card.  Descriptor None ⇒
-    frames are host-normalised float32 (RGB or float pixel data)."""
-    def one(path, name):
-        frames, desc, meta = load_frames_raw(path, window=window)
-        if desc is not None and frames.dtype == np.int8:
-            frames = frames.astype(np.int16)
-        elif desc is not None and frames.dtype not in _INGEST_DTYPES:
-            # 32-bit integers: the host pipeline's float32 frames
-            stack, meta = load_series(path, window=window)
-            frames, desc = stack, None
-        if name is not None and frames.shape[0] > 1:
-            # directory entries contribute their middle frame (the
-            # reference's middle-slice reduction, dicom_io.py:60-81); the
-            # descriptor keeps whole-stack scalars
-            frames = frames[frames.shape[0] // 2][None]
-        return (name or os.path.basename(path), frames, desc, meta)
+def _decode_raw(path: str, name: str | None, window: bool
+                ) -> tuple[list[np.ndarray], dict | None, dict]:
+    """A file that is not read in place (:func:`plain_frame_dtype`),
+    decoded as the deterministic path takes it → ([2-D frame], descriptor
+    | None, metadata): the stored integers (int8 widened to int16), or,
+    descriptor None, host-normalised float32 frames (RGB, float and 32-bit
+    integer pixel data).  A directory entry (``name``) gives its middle
+    frame."""
+    frames, desc, meta = load_frames_raw(path, window=window)
+    if desc is not None and frames.dtype == np.int8:
+        frames = frames.astype(np.int16)
+    elif desc is not None and frames.dtype not in _INGEST_DTYPES:
+        # 32-bit integers: the host pipeline's float32 frames
+        frames, meta = load_series(path, window=window)
+        desc = None
+    if name is not None and frames.shape[0] > 1:
+        # directory entries contribute their middle frame (the
+        # reference's middle-slice reduction, dicom_io.py:60-81); the
+        # descriptor keeps whole-stack scalars
+        frames = frames[frames.shape[0] // 2][None]
+    if desc is None:
+        # windowed frames are already in [0,1] with the diagnostic range
+        # mapped by the VOI window: min-max would stretch it back
+        return [np.asarray(f, np.float32) if window else normalize_image(f)
+                for f in frames], None, meta
+    return list(frames), desc, meta
 
-    if os.path.isdir(input_path):
-        return _map_dir(input_path, one)
-    return [one(input_path, None)]
+
+class _File:
+    """One input file between the passes: ``ds`` its header where its
+    frame is read in place (``frames`` then [(0, None)]); else ``frames``
+    its decoded frames [(index, frame)], None until decoded, [] when its
+    one frame is done; ``slots`` the (slot, frame) of the frames it
+    stages."""
+
+    __slots__ = ("label", "path", "ds", "key", "meta", "desc", "frames",
+                 "slots")
+
+    def __init__(self, label: str, path: str):
+        self.label, self.path = label, path
+        self.ds = self.key = self.meta = self.desc = self.frames = None
+        self.slots: list = []
+
+
+def _chunk_plan(by_key: dict, done, chunk_n: int) -> tuple[list, int]:
+    """Each bucket's frames (tuples that start label, frame index) whose
+    ``label#frameN`` is not in ``done``, cut into chunks of ``chunk_n``,
+    buckets in sorted key order → ([(key, [chunk])], frames left out)."""
+    plan, skipped = [], 0
+    for key, frames in sorted(by_key.items()):
+        kept = [e for e in frames if f"{e[0]}#frame{e[1]}" not in done]
+        skipped += len(frames) - len(kept)
+        if kept:
+            plan.append((key, [kept[s:s + chunk_n]
+                               for s in range(0, len(kept), chunk_n)]))
+    return plan, skipped
+
+
+def _collect_inputs_raw(input_path: str, window: bool = False, *,
+                        done=frozenset(), chunk_n: int = CHUNK,
+                        pin: bool = False):
+    """Every frame of a file or directory staged for the deterministic
+    path, its stored integers in the host buffer that is uploaded for its
+    chunk → (buckets, files, skipped).
+
+    ``buckets``: [(h, w, [(entries, x)])] by (H, W, stored dtype), each
+    chunk ``x`` a [m ≤ chunk_n, H, W] tensor whose frame i is the view
+    ``entries[i][2]`` of entry (label, frame index, frame, metadata, ingest
+    descriptor | None).  Descriptor None ⇒ x holds host-normalised float32
+    frames (RGB or float pixel data).  With ``pin`` a chunk is pinned
+    while the pinned sum stays within :data:`_PIN_BYTES`; the others stay
+    pageable and :func:`_upload` pins each by a copy.  ``files`` counts
+    the files read, ``skipped`` the frames left out because their
+    ``label#frameN`` is in ``done``.
+
+    Three passes.  The header pass, on this thread, reads each file up to
+    its pixel value; a file of one frame (a directory entry, or a plain
+    file) that ``done`` holds is read no further.  The decode pass, on 8
+    host threads, decodes each file whose frame is not stored plain
+    (:func:`plain_frame_dtype`; :func:`_decode_raw`).  The buffers are then
+    allocated, and the pixel pass, on 8 host threads, reads each plain
+    frame straight into its slot (its descriptor's min/max from there) and
+    copies each decoded frame into its own.  A file that fails is skipped
+    with a warning (a lone file raises); one that fails in the pixel pass
+    leaves a hole that is closed by compacting its chunk."""
+    lone = not os.path.isdir(input_path)
+
+    def head(name: str | None) -> _File:
+        path = input_path if lone else os.path.join(input_path, name)
+        f = _File(name or os.path.basename(path), path)
+        ds = read_dataset(path, pixels=False)
+        dtype = plain_frame_dtype(ds)
+        if (dtype is not None or not lone) and f"{f.label}#frame0" in done:
+            f.frames = []
+        elif dtype is not None:
+            f.ds, f.key, f.meta, f.frames = ds, (
+                ds.get("Rows"), ds.get("Columns"), str(dtype)), _metadata(
+                    ds), [(0, None)]
+        return f
+
+    def decode(f: _File) -> _File:
+        frames, f.desc, f.meta = _decode_raw(f.path, None if lone
+                                             else f.label, window)
+        f.frames = list(enumerate(frames))
+        return f
+
+    def fill(f: _File) -> _File:
+        if f.ds is not None:
+            ((slot, _),) = f.slots
+            read_frame_into(f.path, f.ds, slot)
+            f.desc = raw_ingest_descriptor(f.ds, slot)
+            telemetry.count_staged("in_place")
+        else:
+            for slot, frame in f.slots:
+                slot[...] = frame
+            telemetry.count_staged("copied", len(f.slots))
+        return f
+
+    # the header pass is Python parsing under the interpreter lock: on 8
+    # threads it took 2.5x as long as on one (PERF.md §6); the codecs
+    # release the lock, so the decodes keep the threads
+    with telemetry.span("decode.header"):
+        if lone:
+            files = [head(None)]
+        else:
+            files = []
+            for name in _dicom_names(input_path):
+                try:
+                    files.append(head(name))
+                except Exception as exc:
+                    logger.warning("Skipping %s: %s", name, exc)
+    coded = [f for f in files if f.frames is None]
+    if lone:
+        for f in coded:
+            decode(f)
+    elif coded:
+        _threaded(decode, coded, [f.label for f in coded], "decode.file")
+    files = [f for f in files if f.frames is not None]
+
+    with telemetry.span("bucket"):
+        by_key: dict[tuple, list] = {}
+        for f in files:
+            for fidx, frame in f.frames:
+                key = f.key if frame is None else (
+                    frame.shape + (str(frame.dtype),))
+                by_key.setdefault(key, []).append((f.label, fidx, frame, f))
+        plan, skipped = _chunk_plan(by_key, done, chunk_n)
+        skipped += sum(not f.frames for f in files)
+        pinned = 0
+        for (h, w, kind), chunks in plan:
+            for i, part in enumerate(chunks):
+                shape = (len(part), h, w)
+                nbytes = np.dtype(kind).itemsize * len(part) * h * w
+                if pin and pinned + nbytes <= _PIN_BYTES:
+                    pinned += nbytes
+                    x = torch.empty(shape, dtype=getattr(torch, kind),
+                                    pin_memory=True)
+                else:
+                    # numpy's allocator hands the last call's freed pages
+                    # out again; torch's maps fresh ones, whose first
+                    # writes fault (3x the copy's time at 512²)
+                    x = torch.from_numpy(np.empty(shape, kind))
+                view = x.numpy()
+                for j, (_, _, frame, f) in enumerate(part):
+                    f.slots.append((view[j], frame))
+                chunks[i] = (x, part)
+
+    staging = [f for f in files if f.slots]
+    if lone:
+        filled = [fill(f) for f in staging]
+    else:
+        filled = _threaded(fill, staging, [f.label for f in staging],
+                           "decode.file")
+    failed = {f for f, ok in zip(staging, filled) if ok is None}
+
+    buckets = []
+    for (h, w, _kind), chunks in plan:
+        staged = []
+        for x, part in chunks:
+            keep = [i for i, e in enumerate(part) if e[3] not in failed]
+            if not keep:
+                continue
+            if len(keep) < len(part):
+                y = torch.empty((len(keep), h, w), dtype=x.dtype,
+                                pin_memory=x.is_pinned())
+                x = torch.index_select(x, 0, torch.tensor(keep), out=y)
+                part = [part[i] for i in keep]
+            view = x.numpy()
+            staged.append(([(label, fidx, view[i], f.meta, f.desc)
+                            for i, (label, fidx, _, f) in enumerate(part)],
+                           x))
+        if staged:
+            buckets.append((h, w, staged))
+    return buckets, len(files) - len(failed), skipped
 
 
 def _buckets(items: list[tuple[str, np.ndarray, dict]],
              window: bool = False):
-    """Group frames by (H, W).  Windowed frames are already in [0,1] with
-    the diagnostic range mapped by the VOI window — min-max re-normalising
+    """Group frames by (H, W) as entries (label, frame index, frame,
+    metadata, None).  Windowed frames are already in [0,1] with the
+    diagnostic range mapped by the VOI window — min-max re-normalising
     would stretch it back."""
     by_shape: dict[tuple[int, int], list] = {}
     for label, stack, meta in items:
@@ -132,24 +322,7 @@ def _buckets(items: list[tuple[str, np.ndarray, dict]],
             frame = (np.asarray(stack[f], np.float32) if window
                      else normalize_image(stack[f]))
             by_shape.setdefault(frame.shape, []).append((label, f, frame,
-                                                         meta))
-    return by_shape
-
-
-def _buckets_raw(items, window: bool = False):
-    """Group frames by (H, W, dtype): raw integer frames keep their stored
-    dtype, float32 fallbacks behave as :func:`_buckets`.  Entries: (label,
-    frame_idx, frame, meta, desc)."""
-    by_shape: dict[tuple[int, int, str], list] = {}
-    for label, stack, desc, meta in items:
-        for f in range(stack.shape[0]):
-            frame = stack[f]
-            if desc is None:
-                frame = (np.asarray(frame, np.float32) if window
-                         else normalize_image(frame))
-            key = frame.shape + (str(frame.dtype),)
-            by_shape.setdefault(key, []).append((label, f, frame, meta,
-                                                 desc))
+                                                         meta, None))
     return by_shape
 
 
@@ -249,12 +422,12 @@ def _autotune_chunk(x: np.ndarray, dev, tv_mode):
     return enhanced, stats, issue_masks, {}, validation, score
 
 
-def _device_qa(x: np.ndarray, params: np.ndarray | None, dev,
-               window: bool) -> torch.Tensor:
+def _device_qa(x: np.ndarray | torch.Tensor, params: np.ndarray | None,
+               dev, window: bool) -> torch.Tensor:
     """One chunk's deterministic QA → its packed [28, n] results on the
     device: stored integer frames and their [9, n] ingest scalars through
     ``normalize_ingest``, or host-normalised float32 frames (``params``
-    None), uploaded, then ``qa_deterministic``."""
+    None), uploaded (:func:`_upload`), then ``qa_deterministic``."""
     from mdx_torch.core import qa
     from mdx_torch.ops.ingest import normalize_ingest
 
@@ -294,13 +467,21 @@ def _ingest_params(descs: list[dict], window: bool) -> np.ndarray:
          *wparams(d), *nbounds(d)) for d in descs], f32).T.copy()
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array → device tensor; to the card from pinned memory without
-    blocking the host."""
-    t = torch.from_numpy(a)
+def _upload(a: np.ndarray | torch.Tensor, dev: torch.device
+            ) -> torch.Tensor:
+    """Host array or tensor → device tensor; to the card from pinned memory
+    without blocking the host.  A numpy array or a pageable tensor is
+    pinned by a copy; a pinned tensor (a chunk of
+    :func:`_collect_inputs_raw`) is copied from as it is, so that the
+    caching host allocator records the copy and hands its block out again
+    only once the copy is done."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(a)
     if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
+        return a
+    if not a.is_pinned():
+        a = a.pin_memory()
+    return a.to(dev, non_blocking=True)
 
 
 class _Fetch:
@@ -478,43 +659,36 @@ def run_pipeline_batch(
     d = data_axis(n_data, dev)
     with traced_run("batch", f"batch_{storage.generate_run_id()}"):
         storage.init_db()
+        done = _completed_frames() if resume else set()
+        chunk_n = divisible_batch(CHUNK, d)
 
         if autotune:
             # the sweep runs from host-normalised frames
             with telemetry.span("decode"):
                 items = _collect_inputs(input_path, window=window)
             with telemetry.span("bucket"):
-                buckets = {
-                    (h, w, "float32"): [(lb, fi, fr, m, None) for lb, fi, fr, m
-                                        in v]
-                    for (h, w), v in _buckets(items, window=window).items()}
+                plan, skipped = _chunk_plan(_buckets(items, window=window),
+                                            done, chunk_n)
+            n_files = len(items)
+            todo = [(h, w, [(chunk, None) for chunk in chunks])
+                    for (h, w), chunks in plan]
         else:
             with telemetry.span("decode"):
-                items = _collect_inputs_raw(input_path, window=window)
-            with telemetry.span("bucket"):
-                buckets = _buckets_raw(items, window=window)
-        if not items:
+                todo, n_files, skipped = _collect_inputs_raw(
+                    input_path, window=window, done=done, chunk_n=chunk_n,
+                    pin=dev.type == "cuda" and d == 1)
+        if not n_files:
             raise RuntimeError(f"No DICOM inputs found at {input_path}")
 
-        done = _completed_frames() if resume else set()
         if save_artifacts:
             os.makedirs(output_dir, exist_ok=True)
-        chunk_n = divisible_batch(CHUNK, d)
-
-        skipped = 0
-        todo = []
-        for (h, w, _kind), frames in sorted(buckets.items()):
-            if done:
-                kept = [f for f in frames if f"{f[0]}#frame{f[1]}" not in done]
-                skipped += len(frames) - len(kept)
-                frames = kept
-            if frames:
-                todo.append((h, w, frames))
 
         results: list[dict[str, Any]] = []
         info = None
         if d > 1 and not autotune and todo:
-            chunks, info = _run_sharded(todo, d, chunk_n, dev, window)
+            chunks, info = _run_sharded(
+                [(h, w, [e for entries, _ in staged for e in entries])
+                 for h, w, staged in todo], d, chunk_n, dev, window)
             for h, w, frames, packed in chunks:
                 with telemetry.span("collect", frames=len(frames)):
                     _collect(frames, packed, h, w, results, save_artifacts)
@@ -522,7 +696,7 @@ def run_pipeline_batch(
             side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
             def submit(item):
-                h, w, chunk = item
+                h, w, chunk, x = item
                 if autotune:
                     with telemetry.span("stage", frames=len(chunk)):
                         x = np.stack([f[2] for f in chunk]).astype(np.float32)
@@ -530,11 +704,10 @@ def run_pipeline_batch(
                         packed = _pack_outputs(_autotune_chunk(x, dev, tv_mode))
                 else:
                     with telemetry.span("stage", frames=len(chunk)):
-                        x = np.stack([f[2] for f in chunk])
                         params = (None if chunk[0][4] is None else
                                   _ingest_params([f[4] for f in chunk], window))
                     packed = _device_qa(x, params, dev, window)
-                return item, _Fetch(packed, side)
+                return (h, w, chunk), _Fetch(packed, side)
 
             def drain(entry):
                 (h, w, chunk), fetch = entry
@@ -542,9 +715,8 @@ def run_pipeline_batch(
                 with telemetry.span("collect", frames=len(chunk)):
                     _collect(chunk, packed, h, w, results, save_artifacts)
 
-            _pipelined(((h, w, frames[s:s + chunk_n])
-                        for h, w, frames in todo
-                        for s in range(0, len(frames), chunk_n)), submit, drain)
+            _pipelined(((h, w, chunk, x) for h, w, staged in todo
+                        for chunk, x in staged), submit, drain)
 
         with telemetry.span("report"):
             report_md = _batch_report(results, output_dir, save_artifacts)

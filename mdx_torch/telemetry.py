@@ -13,16 +13,19 @@ Nothing here imports another module of the port at import time, so
   always kept, under a lock, as ``kernels.LAUNCHES`` is, so it stays exact
   when the server's threads run passes; while tracing is on the read is
   also a ``sync`` span with the site as its attribute.
+* :func:`count_staged` — frames the batch runner put in their chunk's
+  upload buffer: ``"in_place"`` read there straight from the file,
+  ``"copied"`` decoded first and copied there.  Always kept, as the syncs.
 * :func:`enable` / :func:`disable` nest: tracing is on while more
   enables than disables were made.  The first enable clears the buffer and
   takes the anchor, ``(perf_counter_ns, time_ns)`` read back to back;
   ``epoch_ns = t - anchor[0] + anchor[1]`` puts a span on the Unix-epoch
   timeline on which ``torch.profiler`` stamps its events.
-* :func:`reset` clears the buffer and the sync counts and rebases the
-  launch counts; :func:`mark` and :func:`snapshot` read what was recorded
-  (since a mark): the spans, the anchor, a second anchor taken at the
-  snapshot (the two clocks' drift), the sync counts and the kernel launches
-  (``kernels.LAUNCHES``, which stays where it is).
+* :func:`reset` clears the buffer, the sync and staging counts and rebases
+  the launch counts; :func:`mark` and :func:`snapshot` read what was
+  recorded (since a mark): the spans, the anchor, a second anchor taken at
+  the snapshot (the two clocks' drift), the sync and staging counts and the
+  kernel launches (``kernels.LAUNCHES``, which stays where it is).
 * :func:`chrome_trace` — a snapshot as a Chrome-trace object: ``"X"``
   events whose ``ts`` are microseconds of the Unix epoch
   (``baseTimeNanoseconds`` 0), so they lay over a ``torch.profiler`` trace
@@ -36,6 +39,7 @@ import threading
 import time
 
 SYNCS: dict[str, int] = {}
+STAGED: dict[str, int] = {}
 
 _on = False
 _depth = 0
@@ -92,6 +96,13 @@ def count_sync(site: str, n: int = 1):
     return _Span("sync", {"site": site})
 
 
+def count_staged(how: str, n: int = 1) -> None:
+    """Count ``n`` frames staged for upload ``how``: ``"in_place"`` or
+    ``"copied"``."""
+    with _lock:
+        STAGED[how] = STAGED.get(how, 0) + n
+
+
 def enabled() -> bool:
     return _on
 
@@ -114,11 +125,13 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Clear the buffer and the sync counts; launches count from here."""
+    """Clear the buffer, the sync and staging counts; launches count from
+    here."""
     global _launch_base
     with _lock:
         _spans.clear()
         SYNCS.clear()
+        STAGED.clear()
         _launch_base = _launches()
 
 
@@ -135,22 +148,25 @@ def _launches() -> dict[str, int]:
 def mark() -> tuple:
     """Where the buffer and the counters stand, for :func:`snapshot`."""
     with _lock:
-        return len(_spans), dict(SYNCS), _launches()
+        return len(_spans), dict(SYNCS), dict(STAGED), _launches()
 
 
 def snapshot(since: tuple | None = None) -> dict:
     """The spans, anchors and counts recorded since ``since`` (a
     :func:`mark`; None: since the last :func:`reset`)."""
     with _lock:
-        n0, syncs0, launches0 = since or (0, {}, _launch_base)
+        n0, syncs0, staged0, launches0 = since or (0, {}, {}, _launch_base)
         spans = _spans[n0:]
         syncs = {k: v - syncs0.get(k, 0) for k, v in SYNCS.items()
                  if v != syncs0.get(k, 0)}
+        staged = {k: v - staged0.get(k, 0) for k, v in STAGED.items()
+                  if v != staged0.get(k, 0)}
         launches = {k: v - launches0.get(k, 0)
                     for k, v in _launches().items()}
         return {"anchor": _anchor, "end": _clocks(),
                 "main_thread": threading.main_thread().ident,
-                "spans": spans, "syncs": syncs, "launches": launches}
+                "spans": spans, "syncs": syncs, "staged": staged,
+                "launches": launches}
 
 
 def to_epoch_ns(snap: dict, t_ns: int) -> int:
@@ -169,6 +185,7 @@ def chrome_trace(snap: dict) -> dict:
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "baseTimeNanoseconds": 0,
             "otherData": {"syncs": snap["syncs"],
+                          "staged": snap["staged"],
                           "launches": snap["launches"],
                           "anchor_ns": list(snap["anchor"]),
                           "end_ns": list(snap["end"])}}

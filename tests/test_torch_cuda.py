@@ -777,6 +777,94 @@ def test_run_pipeline_batch_card_against_cpu(dev, tmp_path, monkeypatch):
     assert again["skipped"] == 4 and again["frames"] == []
 
 
+def test_batch_uploads_its_decode_slots(dev, tmp_path, monkeypatch):
+    """The batch runner uploads each chunk from the pinned buffer its
+    frames were read into (the tensor ``_device_qa`` gets is pinned and
+    its frame i lies where the decode put entry i), and two calls back to
+    back on one directory, whose buffers the caching host allocator may
+    hand out again, give identical records.  The spies keep addresses
+    only, so that no buffer outlives its call."""
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.pipeline import batch_runner as PB
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    monkeypatch.setattr(PB, "CHUNK", 2)
+    root = tmp_path / "dir"
+    root.mkdir()
+    for i, kind in enumerate(("noisy", "phantom", "clipped", "noisy",
+                              "low_contrast")):
+        write_synthetic_dicom(str(root / f"f{i}.dcm"), kind=kind, size=256,
+                              seed=i)
+    slots, uploads = {}, []
+    collect, device_qa = PB._collect_inputs_raw, PB._device_qa
+
+    def spy_collect(*args, **kwargs):
+        out = collect(*args, **kwargs)
+        for _h, _w, chunks in out[0]:
+            for entries, x in chunks:
+                slots[x.data_ptr()] = [e[2].ctypes.data for e in entries]
+        return out
+
+    def spy_qa(x, params, dev_, window):
+        uploads.append((isinstance(x, torch.Tensor) and x.is_pinned(),
+                        x.data_ptr(), x[0].nbytes, x.shape[0]))
+        return device_qa(x, params, dev_, window)
+
+    monkeypatch.setattr(PB, "_collect_inputs_raw", spy_collect)
+    monkeypatch.setattr(PB, "_device_qa", spy_qa)
+    runs = []
+    for k in range(2):
+        slots.clear()
+        uploads.clear()
+        out = PB.run_pipeline_batch(str(root), str(tmp_path / f"o{k}"),
+                                    device=dev, n_data=1,
+                                    save_artifacts=False)
+        assert len(uploads) == 3
+        for pinned, ptr, nbytes, n in uploads:
+            assert pinned
+            assert slots[ptr] == [ptr + i * nbytes for i in range(n)]
+        runs.append([{k: v for k, v in f.items() if k != "run_id"}
+                     for f in out["frames"]])
+    assert len(runs[0]) == 5 and runs[0] == runs[1]
+
+
+def test_batch_pins_chunks_within_its_budget(dev, tmp_path, monkeypatch):
+    """With room for one chunk's pinned buffer, the first chunk is uploaded
+    from its pinned buffer and the other two from pageable ones, which
+    ``_upload`` pins by a copy; the records equal those of a run whose
+    every chunk is pinned."""
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.pipeline import batch_runner as PB
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    monkeypatch.setattr(PB, "CHUNK", 2)
+    root = tmp_path / "dir"
+    root.mkdir()
+    for i, kind in enumerate(("noisy", "phantom", "clipped", "noisy",
+                              "low_contrast")):
+        write_synthetic_dicom(str(root / f"f{i}.dcm"), kind=kind, size=256,
+                              seed=i)
+    pinned, device_qa = [], PB._device_qa
+
+    def spy_qa(x, params, dev_, window):
+        pinned.append(x.is_pinned())
+        return device_qa(x, params, dev_, window)
+
+    monkeypatch.setattr(PB, "_device_qa", spy_qa)
+    runs = []
+    for budget in (PB._PIN_BYTES, 2 * 256 * 256 * 2):
+        monkeypatch.setattr(PB, "_PIN_BYTES", budget)
+        pinned.clear()
+        out = PB.run_pipeline_batch(str(root), str(tmp_path / "o"),
+                                    device=dev, n_data=1,
+                                    save_artifacts=False)
+        runs.append(([{k: v for k, v in f.items() if k != "run_id"}
+                      for f in out["frames"]], list(pinned)))
+    assert runs[0][1] == [True, True, True]
+    assert runs[1][1] == [True, False, False]
+    assert len(runs[0][0]) == 5 and runs[0][0] == runs[1][0]
+
+
 def test_stream_uploads_through_a_copy_stream(dev, tmp_path):
     """``stream_batches`` on the card: every batch equals its decoded
     frames, on the card, start indices in order; and the upload ring

@@ -1,10 +1,10 @@
 """The port's spans and counters (``mdx_torch.telemetry``), on the CPU.
 
 Off, a span is one shared no-op and a run records nothing; on, spans nest
-and carry their thread; a directory batch records one ``decode.file`` a
-file and one ``stage``/``upload``/``launch``/``fetch``/``collect`` a
-chunk; a run's host-sync counts repeat exactly and name only the listed
-sites; a span mapped through the anchor lands on a ``torch.profiler``
+and carry their thread; a directory batch records one ``decode.header``,
+one ``decode.file`` a file and one ``stage``/``upload``/``launch``/
+``fetch``/``collect`` a chunk; a run's host-sync counts repeat exactly and
+name only the listed sites; a span mapped through the anchor lands on a ``torch.profiler``
 range of the same interval; ``MDX_PROFILE_DIR`` writes one Chrome trace
 a run, on every run path.
 """
@@ -113,13 +113,14 @@ def test_batch_spans_per_file_and_chunk(tmp_path, files, monkeypatch):
     assert counts["decode.file"] == 5
     for name in ("stage", "upload", "launch", "fetch", "collect", "db"):
         assert counts[name] == 3, name
-    for name in ("batch", "decode", "bucket", "report"):
+    for name in ("batch", "decode", "decode.header", "bucket", "report"):
         assert counts[name] == 1, name
     main = snap["main_thread"]
     spans = snap["spans"]
     assert all(s[3] != main for s in spans if s[0] == "decode.file")
     assert all(s[3] == main for s in spans if s[0] != "decode.file")
     assert sum(s[4]["frames"] for s in spans if s[0] == "stage") == 5
+    assert snap["staged"] == {"in_place": 5}
     batch = next(s for s in spans if s[0] == "batch")
     assert all(batch[1] <= s[1] <= s[2] <= batch[2] for s in spans)
 

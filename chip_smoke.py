@@ -187,7 +187,8 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
       outputs finite, n_data = 2 against n_data = 1 within
       ``parity.breaches`` (bit-equality printed);
    2. ``run_pipeline_batch`` on phase 12's 64-frame 512^2 12-bit series at
-      n_data = 2 (one launch, recorded as in 1.; B and 10 on every rank)
+      n_data = 2 (the rank pool, started by the first run and reused by a
+      second; each rank's share recorded as in 1.; B and 10 on every rank)
       against n_data = 1: issues and pass flags equal, metrics within
       ``parity.breaches``, ``"mesh"`` ``{"data": 2, "space": 1}``;
    3. ``stream_batches`` over 64 single-frame 512^2 files written with the
@@ -2294,6 +2295,33 @@ def _recorded_launches(recorded=None):
         launch.run = real
 
 
+@contextlib.contextmanager
+def _recorded_pool_calls(recorded):
+    """Every rank-pool call made meanwhile runs its rank function inside
+    ``spatial_check.recorded_rank`` (as :func:`_recorded_launches`; rank 0
+    is this process); yields a list of each call's per-rank ``smoke``
+    dicts, taken out of the results."""
+    import functools
+
+    from mdx_torch.parallel import pool
+    from mdx_torch.tools import spatial_check as SC
+
+    call, called = pool.RankPool.call, []
+
+    def recording(self, fn, args, **kwargs):
+        res = call(self, functools.partial(SC.recorded_rank, inner=fn,
+                                           recorded=recorded),
+                   args, **kwargs)
+        called.append([r.pop("smoke") for r in res])
+        return res
+
+    pool.RankPool.call = recording
+    try:
+        yield called
+    finally:
+        pool.RankPool.call = call
+
+
 def _data_ranks(kernels, check, paths: dict, label: str, smoke: list,
                 need) -> None:
     """A data-axis launch's per-rank counters and rank 0's replay of the
@@ -2406,18 +2434,25 @@ def _data_runner(kernels, parity, check, paths, card, dev, tmp) -> None:
 
     series = CL.series_file(f"{tmp}/series.dcm", CLI_SERIES_N, CLI_SIZE)
     one = PB.run_pipeline_batch(series, f"{tmp}/o1", device=dev, n_data=1)
-    t0 = time.perf_counter()
-    with _recorded_launches(SC.DENSE_RECORDED) as launched:
-        two = PB.run_pipeline_batch(series, f"{tmp}/o2", device=dev,
-                                    n_data=DATA_D)
-    wall = (time.perf_counter() - t0) * 1e3
     label = f"run_pipeline_batch series [{CLI_SERIES_N},{CLI_SIZE}," \
             f"{CLI_SIZE}] n_data = {DATA_D}"
-    _require(len(launched) == 1, f"{label}: {len(launched)} launches")
+    walls = []
+    with _recorded_pool_calls(SC.DENSE_RECORDED) as called:
+        for k in range(2):
+            t0 = time.perf_counter()
+            two = PB.run_pipeline_batch(series, f"{tmp}/o2_{k}", device=dev,
+                                        n_data=DATA_D)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"{label} call {k}: {walls[-1]!r} ms, ranks started "
+                  f"{two['launch']['starts']}")
+    wall = walls[-1]
+    _require(len(called) == 2 and two["launch"]["starts"] == 0,
+             f"{label}: {len(called)} pool calls, {two['launch']['starts']}"
+             f" ranks started by the second")
     _require(one["mesh"] == {"data": 1, "space": 1} and one["launch"] is None
              and two["mesh"] == {"data": DATA_D, "space": 1},
              f"{label}: mesh {one['mesh']} / {two['mesh']}")
-    _data_ranks(kernels, check, paths, "data_runner", launched[0][1],
+    _data_ranks(kernels, check, paths, "data_runner", called[-1],
                 ("box_stats", "wavelet_denoise"))
     a, b = one["frames"], two["frames"]
     same = [(f["source"], f["frame"], f["issues"], f["passed"]) for f in a]

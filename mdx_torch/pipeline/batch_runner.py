@@ -22,16 +22,21 @@ Counterpart of ``mdx/pipeline/batch_runner.py``:
   skips the frames a crashed batch (of either package) already finished.
 
 With ``d > 1`` (``n_data``; by default every visible card, as JAX's
-``make_mesh()``) the deterministic paths run in ONE ``launch.run`` of ``d``
-ranks for the whole run, whatever the number of chunks and buckets: each
-chunk is padded to a multiple of ``d`` (its last frame and that frame's
-ingest scalars replicated), each rank receives its block of every chunk of
-every bucket (a bucket's frames and its ``[N, 9, 1]`` ingest scalars are
-inputs of the launch) and runs the chunk loop above on it
-(:func:`batch_block`); the parent writes the records, the report and the DB
-rows.  The ranks exchange nothing: every op is per image.  With ``d = 1``
-everything runs in this process.  ``autotune=True`` runs on one card at
-every ``d``, as JAX's unsharded ``_autotune_chunk`` does.
+``make_mesh()``) the deterministic path runs on this process's rank pool
+(:mod:`mdx_torch.parallel.pool`: rank 0 is this process, on its card;
+ranks 1 … d − 1 are started on first use and kept across calls).  This
+process lists the input (a directory's file names, a multi-frame file's
+frame count from its header) and splits the frames left to do into ``d``
+contiguous shares in the one-card record order; each rank, this process
+for share 0 meanwhile, stages its share into its own pinned chunk buffers
+and runs the one-card chunk loop on it (:func:`stage_block`), and sends
+back its packed results and each frame's label and metadata.  This
+process then writes the records, the report and the DB rows in the
+one-card order.  The ranks exchange nothing: every op is per image.  With
+``d = 1`` everything runs in this process.  ``autotune=True`` runs on one
+card at every ``d``, as JAX's unsharded ``_autotune_chunk`` does.  Priming
+at ``d > 1`` runs its chunks in one ``launch.run`` (:func:`_run_sharded`,
+:func:`batch_block`).
 """
 
 from __future__ import annotations
@@ -72,10 +77,11 @@ def _dicom_names(input_path: str) -> list[str]:
                   if os.path.splitext(n)[1].lower() in (".dcm", ".dicom"))
 
 
-def _threaded(fn, items: list, labels: list[str], span: str) -> list:
-    """``fn(item)`` for every item on 8 host threads, each call in the
-    span ``span``; an item whose call raises is skipped with a warning
-    (its result None)."""
+def _threaded(fn, items: list, labels: list[str], span: str,
+              workers: int = 8) -> list:
+    """``fn(item)`` for every item on ``workers`` host threads, each call
+    in the span ``span``; an item whose call raises is skipped with a
+    warning (its result None)."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(pair):
@@ -87,7 +93,7 @@ def _threaded(fn, items: list, labels: list[str], span: str) -> list:
             logger.warning("Skipping %s: %s", label, exc)
             return None
 
-    with ThreadPoolExecutor(max_workers=8) as pool:
+    with ThreadPoolExecutor(max_workers=workers) as pool:
         return list(pool.map(one, zip(items, labels)))
 
 
@@ -174,7 +180,9 @@ def _chunk_plan(by_key: dict, done, chunk_n: int) -> tuple[list, int]:
 
 def _collect_inputs_raw(input_path: str, window: bool = False, *,
                         done=frozenset(), chunk_n: int = CHUNK,
-                        pin: bool = False):
+                        pin: bool = False, names: list[str] | None = None,
+                        frames: tuple[int, int] | None = None,
+                        threads: int = 8):
     """Every frame of a file or directory staged for the deterministic
     path, its stored integers in the host buffer that is uploaded for its
     chunk → (buckets, files, skipped).
@@ -187,7 +195,10 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
     while the pinned sum stays within :data:`_PIN_BYTES`; the others stay
     pageable and :func:`_upload` pins each by a copy.  ``files`` counts
     the files read, ``skipped`` the frames left out because their
-    ``label#frameN`` is in ``done``.
+    ``label#frameN`` is in ``done``.  A rank's share (:func:`stage_block`):
+    ``names``, the directory's files it reads (default: all), or
+    ``frames``, the range [start, stop) of a lone file's frames it stages;
+    ``threads``, the host threads of its decode and pixel passes.
 
     Three passes.  The header pass, on this thread, reads each file up to
     its pixel value; a file of one frame (a directory entry, or a plain
@@ -200,6 +211,8 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
     with a warning (a lone file raises); one that fails in the pixel pass
     leaves a hole that is closed by compacting its chunk."""
     lone = not os.path.isdir(input_path)
+    if names is None and not lone:
+        names = _dicom_names(input_path)
 
     def head(name: str | None) -> _File:
         path = input_path if lone else os.path.join(input_path, name)
@@ -215,9 +228,9 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
         return f
 
     def decode(f: _File) -> _File:
-        frames, f.desc, f.meta = _decode_raw(f.path, None if lone
-                                             else f.label, window)
-        f.frames = list(enumerate(frames))
+        decoded, f.desc, f.meta = _decode_raw(f.path, None if lone
+                                              else f.label, window)
+        f.frames = list(enumerate(decoded))
         return f
 
     def fill(f: _File) -> _File:
@@ -240,7 +253,7 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
             files = [head(None)]
         else:
             files = []
-            for name in _dicom_names(input_path):
+            for name in names:
                 try:
                     files.append(head(name))
                 except Exception as exc:
@@ -249,8 +262,13 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
     if lone:
         for f in coded:
             decode(f)
+            if frames is not None:
+                # the whole stack decoded: its ingest scalars span it
+                f.frames = [e for e in f.frames
+                            if frames[0] <= e[0] < frames[1]]
     elif coded:
-        _threaded(decode, coded, [f.label for f in coded], "decode.file")
+        _threaded(decode, coded, [f.label for f in coded], "decode.file",
+                  threads)
     files = [f for f in files if f.frames is not None]
 
     with telemetry.span("bucket"):
@@ -286,7 +304,7 @@ def _collect_inputs_raw(input_path: str, window: bool = False, *,
         filled = [fill(f) for f in staging]
     else:
         filled = _threaded(fill, staging, [f.label for f in staging],
-                           "decode.file")
+                           "decode.file", threads)
     failed = {f for f, ok in zip(staging, filled) if ok is None}
 
     buckets = []
@@ -527,6 +545,17 @@ def _pipelined(items, submit, drain) -> None:
         drain(pending)
 
 
+def _submit_raw(item, dev, window: bool, side):
+    """One staged chunk ``(h, w, entries, x)`` of the deterministic path:
+    its ingest scalars, upload and pass → ((h, w, entries), its
+    :class:`_Fetch`)."""
+    h, w, chunk, x = item
+    with telemetry.span("stage", frames=len(chunk)):
+        params = (None if chunk[0][4] is None else
+                  _ingest_params([f[4] for f in chunk], window))
+    return (h, w, chunk), _Fetch(_device_qa(x, params, dev, window), side)
+
+
 def _chunks(n: int, chunk_n: int, d: int) -> list[tuple[int, int, int]]:
     """(start, frames, lanes a rank) of each chunk of n frames: chunks of
     ``chunk_n``, each padded to a multiple of ``d``."""
@@ -605,6 +634,144 @@ def _run_sharded(buckets: list, d: int, chunk_n: int, dev, window: bool
     return out, info
 
 
+def stage_block(share: dict, *, mesh, input_path: str, window: bool,
+                done, chunk_n: int, threads: int, trace: bool) -> dict:
+    """Rank body of :func:`run_pipeline_batch` at d > 1, on rank
+    ``mesh.rank`` of the pool (rank 0: the calling process): this rank's
+    ``share`` (``{"names": [file]}`` of a directory or ``{"frames":
+    (start, stop)}`` of a lone file) staged by :func:`_collect_inputs_raw`
+    into this rank's pinned chunk buffers on ``threads`` host threads,
+    then the one-card chunk loop → ``chunks`` [((h, w, dtype), [(label,
+    frame, metadata)], packed [28, n])] in the one-card order of the
+    share, and the rank's numbers: ``frames``, ``files``, ``stage_ms``
+    (the staging), ``qa_ms`` (first upload to the last result on the
+    host), ``peak_bytes`` (``max_memory_allocated``, reset as the call
+    starts on a spawned rank; 0 on the CPU), ``ms`` (the whole body) and,
+    with ``trace`` on a spawned rank, its ``spans``."""
+    t0 = time.perf_counter()
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    # rank 0 records into this process's tracer, and leaves its peak alone
+    spawned = mesh.rank > 0
+    if trace and spawned:
+        telemetry.reset()
+        telemetry.enable()
+    if cuda and spawned:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out: list = []
+    n_files, t1 = 0, time.perf_counter()
+    try:
+        start, stop = share.get("frames", (0, 0))
+        if share.get("names") or stop > start:
+            todo, n_files, _ = _collect_inputs_raw(
+                input_path, window, done=done, chunk_n=chunk_n, pin=cuda,
+                names=share.get("names"), frames=share.get("frames"),
+                threads=threads)
+            t1 = time.perf_counter()
+            side = torch.cuda.Stream(dev) if cuda else None
+
+            def drain(entry):
+                (h, w, chunk), fetch = entry
+                packed = fetch.result()
+                out.append(((h, w, str(chunk[0][2].dtype)), [
+                    (label, fidx, meta) for label, fidx, _, meta, _ in chunk],
+                    packed.copy()))
+
+            _pipelined(((h, w, chunk, x) for h, w, staged in todo
+                        for chunk, x in staged),
+                       lambda item: _submit_raw(item, dev, window, side),
+                       drain)
+            if cuda:
+                torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        res = {"chunks": out, "frames": sum(len(c[1]) for c in out),
+               "files": n_files, "stage_ms": (t1 - t0) * 1e3,
+               "qa_ms": (t2 - t1) * 1e3,
+               "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if cuda else 0)}
+        if trace and spawned:
+            res["spans"] = telemetry.snapshot()["spans"]
+    finally:
+        if trace and spawned:
+            telemetry.disable()
+    res["ms"] = (time.perf_counter() - t0) * 1e3
+    return res
+
+
+def _shares(input_path: str, d: int, done) -> tuple[list[dict], int, int]:
+    """The input listed and its frames left to do split into ``d``
+    contiguous shares in the one-card order → (shares, files listed,
+    frames skipped because ``done`` holds them); no shares when no frame
+    is left.  A directory is split by file names (each file is one frame),
+    a lone file by frame ranges of its header's frame count; no pixel
+    value is read."""
+    if os.path.isdir(input_path):
+        names = _dicom_names(input_path)
+        todo = [n for n in names if f"{n}#frame0" not in done]
+        parts = np.array_split(np.arange(len(todo)), d)
+        shares = [{"names": [todo[i] for i in p]} for p in parts]
+        files = n = len(names)
+    else:
+        label = os.path.basename(input_path)
+        n = int(read_dataset(input_path, pixels=False).get(
+            "NumberOfFrames", 1) or 1)
+        todo = [i for i in range(n) if f"{label}#frame{i}" not in done]
+        parts = np.array_split(np.asarray(todo, int), d)
+        shares = [{"frames": (int(p[0]), int(p[-1]) + 1) if len(p)
+                   else (0, 0)} for p in parts]
+        files = 1
+    return (shares if todo else []), files, n - len(todo)
+
+
+def _run_pool(input_path: str, shares: list[dict], d: int, dev,
+              window: bool, done) -> tuple[list, dict]:
+    """Every share on its rank of the pool, share 0 in this process
+    (module doc) → ([(h, w, chunk's entries, packed [28, n])] in the
+    one-card order, the call's info: the pool's backend, ``starts`` (rank
+    processes started by this call) and ``start_ms``, ``wall_ms`` (from
+    dispatch to the last rank's result: ``dispatch_ms``, ``local_ms`` for
+    rank 0's share here, ``wait_ms`` for the others after it), the host
+    threads a rank ``threads``, each rank's numbers (:func:`stage_block`)
+    as lists ``rank_ms``, ``rank_frames``, ``rank_stage_ms``,
+    ``rank_qa_ms``, ``rank_peak_bytes``, and the files the ranks read,
+    ``files``)."""
+    from mdx_torch.parallel import pool as pool_mod
+
+    starts0 = telemetry.RANKS.get("starts", 0)
+    t0 = time.perf_counter()
+    pool = pool_mod.get(d, dev)
+    t1 = time.perf_counter()
+    label = os.path.basename(input_path)
+    mine = ({k for k in done if k.startswith(label + "#frame")}
+            if not os.path.isdir(input_path) else set())
+    threads = max(2, len(os.sched_getaffinity(0)) // d)
+    results = pool.call(stage_block, [(s,) for s in shares],
+                        input_path=input_path, window=window, done=mine,
+                        chunk_n=CHUNK, threads=threads,
+                        trace=telemetry.enabled())
+    t2 = time.perf_counter()
+    by_key: dict[tuple, list] = {}
+    for r, res in enumerate(results):
+        telemetry.merge(res.pop("spans", []), rank=r, pid=pool.pids[r])
+        for key, entries, packed in res.pop("chunks"):
+            by_key.setdefault(key, []).append((entries, packed))
+    out = []
+    for key in sorted(by_key):
+        h, w, _ = key
+        for entries, packed in by_key[key]:
+            out.append((h, w, [(lb, fi, None, meta, None)
+                               for lb, fi, meta in entries], packed))
+    info = {"backend": pool.backend, "n_space": 1, "n_data": d,
+            "host_round_trips": 0,
+            "starts": telemetry.RANKS.get("starts", 0) - starts0,
+            "start_ms": (t1 - t0) * 1e3, "wall_ms": (t2 - t1) * 1e3,
+            **pool.last_ms, "threads": threads,
+            "files": sum(r["files"] for r in results)}
+    for k in ("ms", "frames", "stage_ms", "qa_ms", "peak_bytes"):
+        info["rank_" + k] = [r[k] for r in results]
+    return out, info
+
+
 def _batch_report(results: list[dict], output_dir: str,
                   save_artifacts: bool) -> str:
     """The batch's markdown report (written as ``batch_report.md``)."""
@@ -652,9 +819,9 @@ def run_pipeline_batch(
     whatever ``n_data`` is.  ``resume=True`` skips frames whose
     ``label#frameN`` key already has a completed run in the DB.  Returns a
     summary context with per-frame records, ``"mesh"`` (JAX's
-    ``dict(mesh.shape)``) and ``"launch"`` (the launch's info, its wall and
-    each rank's compute; None when the run made none); ``device`` as in
-    :func:`run_pipeline`."""
+    ``dict(mesh.shape)``) and ``"launch"`` (the rank pool's call:
+    :func:`_run_pool`'s info; None when the run made none); ``device`` as
+    in :func:`run_pipeline`."""
     dev = resolve_device(device)
     d = data_axis(n_data, dev)
     with traced_run("batch", f"batch_{storage.generate_run_id()}"):
@@ -672,6 +839,10 @@ def run_pipeline_batch(
             n_files = len(items)
             todo = [(h, w, [(chunk, None) for chunk in chunks])
                     for (h, w), chunks in plan]
+        elif d > 1:
+            # each rank reads its own share; this process lists the input
+            with telemetry.span("list"):
+                todo, n_files, skipped = _shares(input_path, d, done)
         else:
             with telemetry.span("decode"):
                 todo, n_files, skipped = _collect_inputs_raw(
@@ -685,13 +856,17 @@ def run_pipeline_batch(
 
         results: list[dict[str, Any]] = []
         info = None
-        if d > 1 and not autotune and todo:
-            chunks, info = _run_sharded(
-                [(h, w, [e for entries, _ in staged for e in entries])
-                 for h, w, staged in todo], d, chunk_n, dev, window)
-            for h, w, frames, packed in chunks:
-                with telemetry.span("collect", frames=len(frames)):
-                    _collect(frames, packed, h, w, results, save_artifacts)
+        if d > 1 and not autotune:
+            if todo:
+                chunks, info = _run_pool(input_path, todo, d, dev, window,
+                                         done)
+                if not info["files"] and not skipped:
+                    raise RuntimeError(
+                        f"No DICOM inputs found at {input_path}")
+                for h, w, frames, packed in chunks:
+                    with telemetry.span("collect", frames=len(frames)):
+                        _collect(frames, packed, h, w, results,
+                                 save_artifacts)
         else:
             side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
@@ -703,10 +878,7 @@ def run_pipeline_batch(
                     with telemetry.span("launch", frames=len(chunk)):
                         packed = _pack_outputs(_autotune_chunk(x, dev, tv_mode))
                 else:
-                    with telemetry.span("stage", frames=len(chunk)):
-                        params = (None if chunk[0][4] is None else
-                                  _ingest_params([f[4] for f in chunk], window))
-                    packed = _device_qa(x, params, dev, window)
+                    return _submit_raw(item, dev, window, side)
                 return (h, w, chunk), _Fetch(packed, side)
 
             def drain(entry):

@@ -16,16 +16,22 @@ Nothing here imports another module of the port at import time, so
 * :func:`count_staged` — frames the batch runner put in their chunk's
   upload buffer: ``"in_place"`` read there straight from the file,
   ``"copied"`` decoded first and copied there.  Always kept, as the syncs.
+* :func:`count_ranks` — the rank pool's ``"starts"`` (rank processes
+  started) and ``"calls"`` (calls served).  Always kept, as the syncs.
+* :func:`merge` — spans another process of this host recorded (a rank of
+  the pool), tagged with its rank, into this buffer while tracing is on:
+  ``perf_counter_ns`` is ``CLOCK_MONOTONIC`` on Linux, one clock for every
+  process, so this process's anchor places them too.
 * :func:`enable` / :func:`disable` nest: tracing is on while more
   enables than disables were made.  The first enable clears the buffer and
   takes the anchor, ``(perf_counter_ns, time_ns)`` read back to back;
   ``epoch_ns = t - anchor[0] + anchor[1]`` puts a span on the Unix-epoch
   timeline on which ``torch.profiler`` stamps its events.
-* :func:`reset` clears the buffer, the sync and staging counts and rebases
-  the launch counts; :func:`mark` and :func:`snapshot` read what was
+* :func:`reset` clears the buffer, the sync, staging and rank counts and
+  rebases the launch counts; :func:`mark` and :func:`snapshot` read what was
   recorded (since a mark): the spans, the anchor, a second anchor taken at
-  the snapshot (the two clocks' drift), the sync and staging counts and the
-  kernel launches (``kernels.LAUNCHES``, which stays where it is).
+  the snapshot (the two clocks' drift), the sync, staging and rank counts and
+  the kernel launches (``kernels.LAUNCHES``, which stays where it is).
 * :func:`chrome_trace` — a snapshot as a Chrome-trace object: ``"X"``
   events whose ``ts`` are microseconds of the Unix epoch
   (``baseTimeNanoseconds`` 0), so they lay over a ``torch.profiler`` trace
@@ -40,6 +46,7 @@ import time
 
 SYNCS: dict[str, int] = {}
 STAGED: dict[str, int] = {}
+RANKS: dict[str, int] = {}
 
 _on = False
 _depth = 0
@@ -103,6 +110,21 @@ def count_staged(how: str, n: int = 1) -> None:
         STAGED[how] = STAGED.get(how, 0) + n
 
 
+def count_ranks(what: str, n: int = 1) -> None:
+    """Count ``n`` rank-pool events ``what``: ``"starts"`` or ``"calls"``."""
+    with _lock:
+        RANKS[what] = RANKS.get(what, 0) + n
+
+
+def merge(spans: list, **attrs) -> None:
+    """Append ``spans`` (another process's :func:`snapshot` ``"spans"`` on
+    this host) with ``attrs`` added to each span's own, while tracing is
+    on."""
+    if _on:
+        _spans.extend((name, t0, t1, tid, {**a, **attrs})
+                      for name, t0, t1, tid, a in spans)
+
+
 def enabled() -> bool:
     return _on
 
@@ -125,13 +147,14 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Clear the buffer, the sync and staging counts; launches count from
-    here."""
+    """Clear the buffer, the sync, staging and rank counts; launches count
+    from here."""
     global _launch_base
     with _lock:
         _spans.clear()
         SYNCS.clear()
         STAGED.clear()
+        RANKS.clear()
         _launch_base = _launches()
 
 
@@ -148,25 +171,30 @@ def _launches() -> dict[str, int]:
 def mark() -> tuple:
     """Where the buffer and the counters stand, for :func:`snapshot`."""
     with _lock:
-        return len(_spans), dict(SYNCS), dict(STAGED), _launches()
+        return (len(_spans), dict(SYNCS), dict(STAGED), _launches(),
+                dict(RANKS))
 
 
 def snapshot(since: tuple | None = None) -> dict:
     """The spans, anchors and counts recorded since ``since`` (a
     :func:`mark`; None: since the last :func:`reset`)."""
     with _lock:
-        n0, syncs0, staged0, launches0 = since or (0, {}, {}, _launch_base)
+        n0, syncs0, staged0, launches0, ranks0 = since or (
+            0, {}, {}, _launch_base, {})
         spans = _spans[n0:]
-        syncs = {k: v - syncs0.get(k, 0) for k, v in SYNCS.items()
-                 if v != syncs0.get(k, 0)}
-        staged = {k: v - staged0.get(k, 0) for k, v in STAGED.items()
-                  if v != staged0.get(k, 0)}
+
+        def diff(now, then):
+            return {k: v - then.get(k, 0) for k, v in now.items()
+                    if v != then.get(k, 0)}
+
+        syncs, staged, ranks = (diff(SYNCS, syncs0), diff(STAGED, staged0),
+                                diff(RANKS, ranks0))
         launches = {k: v - launches0.get(k, 0)
                     for k, v in _launches().items()}
         return {"anchor": _anchor, "end": _clocks(),
                 "main_thread": threading.main_thread().ident,
                 "spans": spans, "syncs": syncs, "staged": staged,
-                "launches": launches}
+                "ranks": ranks, "launches": launches}
 
 
 def to_epoch_ns(snap: dict, t_ns: int) -> int:
@@ -178,14 +206,16 @@ def chrome_trace(snap: dict) -> dict:
     """``snap`` as a Chrome-trace object (``"X"`` events on the epoch
     clock; the counts under ``otherData``)."""
     pid = os.getpid()
-    events = [{"name": name, "ph": "X", "cat": "mdx", "pid": pid,
-               "tid": tid, "ts": to_epoch_ns(snap, t0) / 1e3,
-               "dur": (t1 - t0) / 1e3, "args": attrs}
+    events = [{"name": name, "ph": "X", "cat": "mdx",
+               "pid": attrs.get("pid", pid), "tid": tid,
+               "ts": to_epoch_ns(snap, t0) / 1e3, "dur": (t1 - t0) / 1e3,
+               "args": attrs}
               for name, t0, t1, tid, attrs in snap["spans"]]
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "baseTimeNanoseconds": 0,
             "otherData": {"syncs": snap["syncs"],
                           "staged": snap["staged"],
+                          "ranks": snap["ranks"],
                           "launches": snap["launches"],
                           "anchor_ns": list(snap["anchor"]),
                           "end_ns": list(snap["end"])}}

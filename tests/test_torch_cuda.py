@@ -865,6 +865,46 @@ def test_batch_pins_chunks_within_its_budget(dev, tmp_path, monkeypatch):
     assert len(runs[0][0]) == 5 and runs[0][0] == runs[1][0]
 
 
+def test_batch_rank_pool_on_the_card(dev, tmp_path, monkeypatch):
+    """``run_pipeline_batch`` at n_data = 2 on the card (the pool: this
+    process rank 0, one spawned rank; gloo on one card, NCCL on two or
+    more), twice: the rank starts once, each rank stages its share and
+    reports its peak device memory,
+    and the records agree with n_data = 1's within ``parity.breaches``,
+    issues and flags equal (reductions over N sum in an order that
+    depends on N on the card, ROADMAP Queue 3)."""
+    from mdx_torch.io import write_synthetic_dicom
+    from mdx_torch.parallel import pool
+    from mdx_torch.pipeline.batch_runner import run_pipeline_batch
+
+    monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
+    d = tmp_path / "series"
+    d.mkdir()
+    for i in range(6):
+        write_synthetic_dicom(str(d / f"s{i:02d}.dcm"),
+                              kind=("noisy", "phantom")[i % 2], size=256,
+                              seed=i, window_center=40.0, window_width=400.0)
+    one = run_pipeline_batch(str(d), str(tmp_path / "one"), window=True,
+                             device=dev, n_data=1, save_artifacts=False)
+    pool.close()
+    try:
+        twos = [run_pipeline_batch(str(d), str(tmp_path / f"two{k}"),
+                                   window=True, device=dev, n_data=2)
+                for k in range(2)]
+    finally:
+        pool.close()
+    assert [t["launch"]["starts"] for t in twos] == [1, 0]
+    for two in twos:
+        assert two["launch"]["rank_frames"] == [3, 3]
+        assert all(b > 0 for b in two["launch"]["rank_peak_bytes"])
+        a, b = one["frames"], two["frames"]
+        assert [(f["source"], f["issues"], f["passed"]) for f in a] == [
+            (f["source"], f["issues"], f["passed"]) for f in b]
+        bad = parity.breaches(parity.flatten_batch(b),
+                              parity.flatten_batch(a), hw=256 * 256)
+        assert not bad, bad
+
+
 def test_stream_uploads_through_a_copy_stream(dev, tmp_path):
     """``stream_batches`` on the card: every batch equals its decoded
     frames, on the card, start indices in order; and the upload ring

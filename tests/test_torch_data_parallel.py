@@ -6,10 +6,11 @@ points) and ``run_pipeline_batch(n_data=...)`` against ``mdx.parallel``'s
 and ``mdx.pipeline.batch_runner``'s on ``make_mesh(n_data=...)`` of the
 virtual 8-device CPU mesh, on the same seeded numpy input.
 
-Gloo launches, four in all: the three rank bodies at n_data = 4 in one
-launch (``launch.call_each``), ``detect_sharded`` at n_data = 4 through its
-entry point, and ``run_pipeline_batch`` at n_data = 2 on a series and on
-a mixed directory (one launch a run, whatever its chunks and buckets).
+Gloo launches, two in all: the three rank bodies at n_data = 4 in one
+launch (``launch.call_each``) and ``detect_sharded`` at n_data = 4 through
+its entry point; ``run_pipeline_batch`` at n_data = 2 on a series and on a
+mixed directory runs on this process's rank pool: this process rank 0,
+one gloo rank spawned once, whatever the runs, chunks and buckets.
 
 Tolerances: ``pad_batch`` and ``divisible_batch`` equal JAX's bit for
 bit; the sharded steps within ``parity.breaches`` of JAX's (as
@@ -30,11 +31,11 @@ from mdx.parallel import make_mesh
 from mdx.parallel.mesh import divisible_batch as jax_divisible_batch
 from mdx.pipeline import batch_runner as JR
 
-from mdx_torch import parity, tools
+from mdx_torch import parity, telemetry, tools
 from mdx_torch.core import qa
 from mdx_torch.io import write_dicom, write_synthetic_dicom
 from mdx_torch.parallel import batch as PB
-from mdx_torch.parallel import launch
+from mdx_torch.parallel import launch, pool
 from mdx_torch.parallel.launch import Block
 from mdx_torch.parallel.mesh import data_axis, divisible_batch
 from mdx_torch.pipeline import batch_runner as PR
@@ -271,27 +272,29 @@ def _strip(frames):
                                           ("mixed", True)])
 def test_runner_two_ranks_matches_one_and_jax(tmp_path, monkeypatch, inputs,
                                               which, window):
-    """One launch for every chunk and bucket (chunks of 2 frames, so the
-    series runs 3 chunks, the last padded; the directory two buckets);
-    the records equal n_data = 1's and JAX's on make_mesh(n_data=2); a
-    resumed run skips every frame without a launch."""
+    """The rank pool (this process rank 0, one spawned rank), started at
+    most once in this process, and no launch (chunks of 2 frames, so each
+    rank's share of the series runs 2 chunks or 1; the directory two
+    buckets); the records equal n_data = 1's and
+    JAX's on make_mesh(n_data=2); a resumed run skips every frame and
+    neither starts a rank nor calls one."""
     monkeypatch.setenv("MDX_DB_PATH", str(tmp_path / "runs.db"))
     monkeypatch.setattr(PR, "CHUNK", 2)
     path = inputs[which]
     one = PR.run_pipeline_batch(path, str(tmp_path / "one"), window=window,
                                 device="cpu", n_data=1,
                                 save_artifacts=False)
-    made = []
-    real = launch.run
 
-    def counted(*a, **kw):
-        made.append(kw["n_data"])
-        return real(*a, **kw)
+    def refuse(*a, **kw):
+        raise AssertionError("run_pipeline_batch must not launch ranks")
 
-    monkeypatch.setattr(launch, "run", counted)
+    monkeypatch.setattr(launch, "run", refuse)
+    up = pool._POOL is not None and pool._POOL.alive()
+    starts = telemetry.RANKS.get("starts", 0)
     two = PR.run_pipeline_batch(path, str(tmp_path / "two"), window=window,
                                 device="cpu", n_data=2)
-    assert made == [2]
+    made = telemetry.RANKS.get("starts", 0) - starts
+    assert made == two["launch"]["starts"] == (0 if up else 1)
     assert two["mesh"] == {"data": 2, "space": 1}
     assert two["launch"]["n_data"] == 2 and len(two["launch"]["rank_ms"]) == 2
     assert _strip(two["frames"]) == _strip(one["frames"])
@@ -310,7 +313,9 @@ def test_runner_two_ranks_matches_one_and_jax(tmp_path, monkeypatch, inputs,
                           parity.flatten_batch(want12), hw=64 * 64)
     assert not bad, bad
 
+    counts = dict(telemetry.RANKS)
     again = PR.run_pipeline_batch(path, str(tmp_path / "two"), resume=True,
                                   device="cpu", n_data=2)
-    assert made == [2] and again["frames"] == []
+    assert telemetry.RANKS == counts and again["launch"] is None
+    assert again["frames"] == []
     assert again["skipped"] == len(two["frames"])

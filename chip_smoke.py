@@ -14,7 +14,8 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    TF32 off.
 2. build   — nvcc builds the kernels from ``mdx_torch/csrc``.
 3. kernels — each CUDA kernel (box stats, unsharp, CLAHE, TV, bilateral,
-   wavelet denoise) against its plain PyTorch version on the card at
+   wavelet denoise, the select kernel of the metric percentiles) against
+   its plain PyTorch version on the card at
    [4,512,512], held to ``mdx_torch.parity.KERNEL_TOL``; TV's per-image
    iteration counts must be equal; the wavelet denoise soft, hard, with a
    mixed soft mask and with ``sigma=None`` through ``denoise_wavelet``;
@@ -47,7 +48,8 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    (``mdx_torch.tools.profile_pass``) and the traced idle share of one
    ``qa_plan``, and each kernel against its plain version at 32x512^2,
    whose outputs are compared too (TV: iterations a launch, ms per
-   iteration, host flag reads per solve).
+   iteration, host flag reads per solve), and the select kernel at a CT
+   chunk's rows, [64, 512^2].
 6. 2048^2  — BASELINE config 2 and the large-slice path:
    1. each kernel against its plain version at [1,2048,2048] (the wavelet
       cases of phase 3 at [2,2048,2048]);
@@ -65,7 +67,8 @@ PyTorch built for CUDA.  Phases, each reported on its own lines:
    5. times: config 2 at 64x2048^2 (ms per batch, img/s, peak memory),
       the pass's rows at 16x2048^2 as in phase 5, and each kernel against
       its plain version at 16x2048^2, the group the 2048^2 path hands
-      each kernel.
+      each kernel (the select kernel also on the group's finest db2 HH
+      band, whose median is the MAD sigma).
 7. tuning  — ``mdx_torch.core.tuning`` at full size:
    1. ``autotune`` on one 512^2 frame with issues noise and blur (27
       lanes), on one 2048^2 frame (27 lanes in 3 groups of 9) and
@@ -334,7 +337,9 @@ The second-last line is one JSON object with a row per kernel (times at
 the shard shape [1,512,2048], with [1,2048,2048] and the 2-D tile under
 ``by_size`` (kernel 12: a launch of s iterations, the rebuild and a whole
 solve at each), and the LUT stage's times under the CLAHE row's ``by_size``;
-the probe's summed over its 18 kernels, each under ``by_probe``;
+the probe's summed over its 18 kernels, each under ``by_probe``; the
+select kernel's at [64, 512^2] and on the HH band under ``by_size``, its
+``library_ms`` one ``torch.kthvalue`` call;
 ``bound_ms`` from this run's shapes, and for TV its iteration counts;
 launches per path of phases 5-18, summed over the ranks in phases 9, 10,
 13, 14, 15's ``--spatial`` runs and 18's ``prime_spatial``);
@@ -361,6 +366,7 @@ SOURCE = {"box_stats": "mdx_torch/csrc/box_stats.cu",
           "wavelet_denoise": "mdx_torch/csrc/wavelet.cu",
           "clahe_remap_ext": "mdx_torch/csrc/clahe.cu",
           "tv_shard_step": "mdx_torch/csrc/tv.cu",
+          "select": "mdx_torch/csrc/select.cu",
           "capability_probe": "mdx_torch/csrc/probes/"}
 _PK = "mdx/ops/pallas_kernels.py"
 REPLACES = {"box_stats": [f"{_PK}:792"],
@@ -371,17 +377,27 @@ REPLACES = {"box_stats": [f"{_PK}:792"],
             "wavelet_denoise": [f"{_PK}:1549"],
             "clahe_remap_ext": ["mdx/parallel/clahe_sp.py:112"],
             "tv_shard_step": ["mdx/parallel/tv_sp.py:92", f"{_PK}:906"],
+            # none: the JAX package's order statistics are a binary search
+            # in plain JAX (mdx/ops/quantile.py)
+            "select": [],
             "capability_probe": ["tools/probe_mosaic.py:60"]}
+# each counter's wrapper where the two names differ
+WRAPPER = {"select": "select_ranks"}
 # the sharded path's kernels (phases 9-10); the probe is phase 11's; the
-# others serve phases 3-8
+# others serve phases 3-8 (the select kernel serves every metric pass's
+# percentiles and medians)
 SPATIAL_KERNELS = ("clahe_remap_ext", "tv_shard_step")
 DENSE_KERNELS = tuple(k for k in SOURCE
                       if k not in SPATIAL_KERNELS + ("capability_probe",))
 SIZE_N = 32
 BIG, CONFIG2_N, QA_BIG_N = 2048, 64, 16
+CHUNK_N = 64            # a CT chunk's frames (the batch runner's)
 REPS = 7
 TUNE_ISSUES = ["noise", "blur"]
 TUNE_BATCH_N, INGEST_N = 4, 64
+# the metric pass's percentiles of an image (core/metrics.py image_stats),
+# the select kernel's ranks in the kernel rows
+METRIC_QS = (5.0, 25.0, 75.0, 95.0)
 # the tuning sweep's scores, card against CPU.  Each is a weighted sum of
 # validation fields whose float32 sums over the 512^2 pixels run in another
 # order on the card than on the CPU; that moves a score of about -10 by
@@ -462,6 +478,7 @@ def _plain_versions():
     from mdx_torch.ops import bilateral as B
     from mdx_torch.ops import clahe as C
     from mdx_torch.ops import filters as F
+    from mdx_torch.ops import quantile as Q
     from mdx_torch.ops import tv as T
     from mdx_torch.ops import wavelet as W
 
@@ -474,13 +491,24 @@ def _plain_versions():
             "clahe": C.clahe_plain,
             "tv_chambolle": T.tv_chambolle_plain,
             "bilateral": B.bilateral_plain,
-            "wavelet_denoise": wavelet_plain}
+            "wavelet_denoise": wavelet_plain,
+            "select": Q.select_ranks_plain}
+
+
+def _wrapper(kernels, name: str):
+    """The kernel wrapper counted as ``name``."""
+    return getattr(kernels, WRAPPER.get(name, name))
 
 
 def _bound(torch, name: str, args, result) -> tuple[float, str]:
     """(least ms the card could take for this call, "bytes" or
     "operations"): each input read once and each output written once over
-    the memory rate, against the operations over the float32 peak."""
+    the memory rate, against the operations over the float32 peak (the
+    select kernel: no float operations, its rows read once and its [N, T]
+    order statistics written)."""
+    if name == "select":
+        moved = 4 * (args[0].numel() + result.numel())
+        return moved / HBM_BYTES_PER_S * 1e3, "bytes"
     n, h, w = args[0].shape
     px = n * h * w
     moved = sum(a.numel() * a.element_size() for a in args
@@ -510,8 +538,8 @@ def _bound(torch, name: str, args, result) -> tuple[float, str]:
 def _recording(torch, kernels, calls: list, when=lambda: True):
     """Record (name, args, kwargs) of every kernel wrapper call made while
     ``when()`` is true, with the tensors cloned, while the wrappers run as
-    usual."""
-    originals = {k: getattr(kernels, k) for k in kernels.LAUNCHES}
+    usual; each call under its counter's name."""
+    originals = {k: _wrapper(kernels, k) for k in kernels.LAUNCHES}
 
     def recorder(name, fn):
         def call(*args, **kw):
@@ -522,12 +550,12 @@ def _recording(torch, kernels, calls: list, when=lambda: True):
         return call
 
     for k, fn in originals.items():
-        setattr(kernels, k, recorder(k, fn))
+        setattr(kernels, WRAPPER.get(k, k), recorder(k, fn))
     try:
         yield
     finally:
         for k, fn in originals.items():
-            setattr(kernels, k, fn)
+            setattr(kernels, WRAPPER.get(k, k), fn)
 
 
 class KernelCheck:
@@ -560,7 +588,7 @@ class KernelCheck:
 
     def run(self, label: str, name: str, args, kw=None) -> None:
         kw = kw or {}
-        self.compare(label, name, getattr(self.kernels, name)(*args, **kw),
+        self.compare(label, name, _wrapper(self.kernels, name)(*args, **kw),
                      self.plain[name](*args, **kw))
 
     def replay(self, label: str, calls: list) -> None:
@@ -577,9 +605,19 @@ class KernelCheck:
                  "kernel off its plain version: " + "; ".join(self.failed))
 
 
+def _select_args(flat, qs=METRIC_QS):
+    """The select kernel's arguments for the percentiles ``qs`` of each row
+    of [N, M] ``flat``: the rows and the ranks ``percentiles_exact`` reads."""
+    from mdx_torch.ops import quantile as Q
+
+    m = flat.shape[1]
+    return flat.contiguous(), Q.select_targets(Q._plan(qs, m)[0], m)
+
+
 def _args_for(torch, x, params):
     """Each kernel's arguments at the bench plan's parameters (the wavelet
-    denoise: sigma from the plain MAD estimate, soft on every image)."""
+    denoise: sigma from the plain MAD estimate, soft on every image; the
+    select kernel: the metric percentiles of each image)."""
     from mdx_torch.ops import wavelet as W
 
     full = lambda v: torch.full((x.shape[0],), float(v), device=x.device)  # noqa: E731
@@ -597,6 +635,7 @@ def _args_for(torch, x, params):
                             torch.ones(x.shape[0], dtype=torch.bool,
                                        device=x.device),
                             W.default_levels(x.shape[-2:])),
+        "select": _select_args(x.reshape(x.shape[0], -1)),
     }
 
 
@@ -882,17 +921,20 @@ def _require_finite(label: str, flat: dict, n: int, hw: int) -> None:
           f"{float(flat['score'].mean())!r}")
 
 
-def _time_kernels(torch, kernels, check, x, params, card: str) -> dict:
-    """Each kernel against its plain version on ``x`` (plain, kernel,
-    kernel, plain; CUDA events), outputs compared; per kernel: ms,
-    plain_ms, bound_ms, bound_by (and TV's iterations)."""
+def _time_kernels(torch, kernels, check, x, params, card: str,
+                  cases=None) -> dict:
+    """Each kernel (or only ``cases``, {kernel: arguments}) against its
+    plain version on ``x`` (plain, kernel, kernel, plain; CUDA events),
+    outputs compared; per kernel: ms, plain_ms, bound_ms, bound_by (and
+    TV's iterations; for the select kernel library_ms, one
+    ``torch.kthvalue`` call for the first of its ranks)."""
     label = "x".join(map(str, x.shape))
     out = {}
-    for k, args in _args_for(torch, x, params).items():
+    for k, args in (cases or _args_for(torch, x, params)).items():
         outs = {}
 
         def kern(k=k, args=args):
-            outs["kernel"] = getattr(kernels, k)(*args)
+            outs["kernel"] = _wrapper(kernels, k)(*args)
 
         def plain(k=k, args=args):
             outs["plain"] = check.plain[k](*args)
@@ -911,6 +953,13 @@ def _time_kernels(torch, kernels, check, x, params, card: str) -> dict:
                       outs["plain"])
         out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by}
+        if k == "select":
+            flat, ranks = args
+            lib_ms = _sync_ms(torch, lambda: torch.kthvalue(flat, ranks[0],
+                                                            dim=-1), 3)
+            out[k]["library_ms"] = lib_ms
+            print(f"  select [{label}]: {len(ranks)} ranks, torch.kthvalue "
+                  f"(one rank) {lib_ms!r} ms")
         if k == "tv_chambolle":
             iters = outs["kernel"][1].tolist()
             solve = kernels.TV_LAST_SOLVE
@@ -1908,7 +1957,7 @@ def _cli_checks_and_times(torch, kernels, parity, check, paths, card, dev,
         got = _check_cli_run(p, auto_out, rc, text)
         _require("GenAI Plan (JSON)" in text, f"autotune {p}: no plan")
         print(f"cli --autotune {os.path.basename(p)}: rc 0, {got}")
-    for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+    for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise", "select"):
         n = sum(paths[q][k] for q in ("cli_512", "cli_2048", "cli_autotune"))
         _require(n > 0, f"kernel {k} was not launched by the CLI runs")
     check.replay(f"cli {CLI_SIZE}^2 deterministic", calls)
@@ -1975,7 +2024,7 @@ def _cli_checks_and_times(torch, kernels, parity, check, paths, card, dev,
                 _require(v.dtype == bool or k.endswith("psnr")
                          or bool(np.isfinite(v).all()),
                          f"batch {label} run {i}: non-finite {k}")
-        for k in ("box_stats", "wavelet_denoise"):
+        for k in ("box_stats", "wavelet_denoise", "select"):
             _require(paths[f"batch_{label}"][k] > 0,
                      f"kernel {k} was not launched by batch {label}")
     shapes = sorted({tuple(fr["shape"]) for fr in res_mixed[0]["frames"]})
@@ -3424,7 +3473,8 @@ def _serve_in_process(torch, kernels, parity, check, paths, card, dev, tmp,
             (run_id, ms), paths["serve_512"] = _run_path(
                 torch, kernels, f"serve run [1,{CLI_SIZE},{CLI_SIZE}] "
                 "blurred", lambda: _serve_posted(port, up["file_id"]))
-        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise",
+                  "select"):
             _require(paths["serve_512"][k] > 0,
                      f"kernel {k} was not launched by the served run")
         check.replay(f"serve {CLI_SIZE}^2 blurred", calls)
@@ -3480,7 +3530,8 @@ def _serve_in_process(torch, kernels, parity, check, paths, card, dev, tmp,
         wall, paths["serve_concurrent"] = _run_path(
             torch, kernels, f"serve 4 concurrent runs [1,{CLI_SIZE},"
             f"{CLI_SIZE}]", four)
-        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise"):
+        for k in ("box_stats", "unsharp", "clahe", "wavelet_denoise",
+                  "select"):
             _require(paths["serve_concurrent"][k] > 0,
                      f"kernel {k} was not launched by the concurrent runs")
         torch.cuda.synchronize()
@@ -4049,6 +4100,7 @@ def main() -> int:
     from mdx_torch.core import qa
     from mdx_torch.core.batching import group_limit, map_subbatches
     from mdx_torch.kernels import _build
+    from mdx_torch.ops import wavelet as W
     from mdx_torch.tools import (PLAN_PARAMS, bench_config2, card_line,
                                  config2_plan, make_batch)
 
@@ -4148,6 +4200,12 @@ def main() -> int:
     _pass_rows(torch, x32, static, dyn, card, trace=True)
     times_512 = _time_kernels(torch, kernels, check, x32, PLAN_PARAMS, card)
     del x32
+    # the select kernel on a CT chunk's rows
+    chunk = torch.from_numpy(make_batch(CHUNK_N)).to(dev).reshape(CHUNK_N, -1)
+    times_select = {"x".join(map(str, chunk.shape)): _time_kernels(
+        torch, kernels, check, chunk, None, card,
+        cases={"select": _select_args(chunk)})["select"]}
+    del chunk
     print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. the 2048^2 path ------------------------------------------------
@@ -4239,7 +4297,12 @@ def main() -> int:
           f"memory {peak!r} GiB")
     _pass_rows(torch, x16, static, dyn, card, trace=False)
     times_big = _time_kernels(torch, kernels, check, x16, PLAN_PARAMS, card)
-    del x64, x1, x16
+    # ... and on the finest db2 HH band whose median is the MAD sigma
+    hh = W.dwt2(x16, "db2")[1][2].reshape(QA_BIG_N, -1).abs()
+    times_select["x".join(map(str, hh.shape)) + " HH"] = _time_kernels(
+        torch, kernels, check, hh, None, card,
+        cases={"select": _select_args(hh, (50.0,))})["select"]
+    del x64, x1, x16, hh
     print(f"phase 6: {time.perf_counter() - t6:.1f} s")
     torch.cuda.empty_cache()
 
@@ -4302,6 +4365,8 @@ def main() -> int:
         if k == "clahe":
             by_size.update({f"{s} clahe_luts": t["clahe_luts"]
                             for s, t in times_spatial.items()})
+        if k == "select":
+            by_size.update(times_select)
         rows.append({
             "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k],
@@ -4310,7 +4375,7 @@ def main() -> int:
             "max_abs_err": check.errs[k], "shape": shape_big,
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-            "library_ms": None,
+            "library_ms": big.get("library_ms"),
             "by_size": by_size})
     rows.append(probe_row)
     print(json.dumps({"kernels": rows}))

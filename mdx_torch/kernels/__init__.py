@@ -16,6 +16,7 @@ server's workers do).  The library is built and loaded on the first call
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
@@ -25,7 +26,7 @@ from mdx_torch import telemetry
 LAUNCHES: dict[str, int] = {"box_stats": 0, "unsharp": 0, "clahe": 0,
                             "tv_chambolle": 0, "bilateral": 0,
                             "wavelet_denoise": 0, "clahe_remap_ext": 0,
-                            "tv_shard_step": 0}
+                            "tv_shard_step": 0, "select": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -570,4 +571,40 @@ def wavelet_denoise(x: torch.Tensor, sigma: torch.Tensor | None,
                 out.data_ptr() if s == 0 else at(regions[s - 1]["den"]),
                 n, ch, cw, m, stream), "wavelet_denoise")
     _count("wavelet_denoise")
+    return out
+
+
+def select_ranks(flat: torch.Tensor, ranks) -> torch.Tensor:
+    """The order statistics of each row of [N, M]: the k-th smallest
+    element for each k of ``ranks`` (1 to 16 ints, 1-indexed, 1 <= k <= M)
+    → [N, len(ranks)], bit for bit ``torch.sort(flat).values[:, k - 1]``
+    (−0.0 comes back as +0.0) — see ``csrc/select.cu``; plain version
+    ``mdx_torch.ops.quantile.select_ranks_plain``.  Four launches; the
+    ranks go to the card as launch arguments (no upload, no sync)."""
+    if flat.ndim != 2:
+        raise ValueError(f"flat: expected [N, M], got shape "
+                         f"{tuple(flat.shape)}")
+    _check(flat, "flat", flat.shape)
+    n, m = flat.shape
+    if not (1 <= n <= 65535 and 1 <= m < 2 ** 31):
+        raise ValueError(f"select kernel: rows 1 to 65535 of 1 to 2^31 - 1 "
+                         f"elements, got shape {tuple(flat.shape)}")
+    ranks = [int(k) for k in ranks]
+    t = len(ranks)
+    lib = library()
+    most = lib.mdx_select_max_targets()
+    if not (1 <= t <= most and all(1 <= k <= m for k in ranks)):
+        raise ValueError(f"select kernel: 1 to {most} ranks of 1 to {m}, "
+                         f"got {ranks}")
+    # the workspace's layout is the library's: it gives the size
+    ws_ints = lib.mdx_select_workspace_ints(n, t)
+    dev = flat.device
+    with torch.cuda.device(dev):
+        ws = torch.empty(ws_ints, dtype=torch.int32, device=dev)
+        out = torch.empty((n, t), dtype=torch.float32, device=dev)
+        _ok(lib.mdx_select(flat.data_ptr(), (ctypes.c_int * t)(*ranks), t,
+                           ws.data_ptr(), ws_ints, out.data_ptr(), n, m,
+                           _stream()),
+            "select")
+    _count("select")
     return out

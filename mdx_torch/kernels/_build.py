@@ -36,8 +36,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 # argument types of every C entry point (all return cudaGetLastError(),
-# apart from mdx_tv_blocked_steps: kernel T's iterations a launch)
+# apart from mdx_tv_blocked_steps: kernel T's iterations a launch, and the
+# select kernel's sizes, RESTYPES)
 SIGNATURES = {
     "mdx_box_stats": (_P, _P, _P, _I, _I, _I, _P),
     "mdx_unsharp": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -55,7 +58,12 @@ SIGNATURES = {
     "mdx_wavelet_analysis": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _I, _P),
     "mdx_wavelet_synthesis": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdx_select": (_P, _IP, _I, _P, _LL, _P, _I, _I, _P),
+    "mdx_select_max_targets": (),
+    "mdx_select_workspace_ints": (_I, _I),
 }
+# return types other than int
+RESTYPES = {"mdx_select_workspace_ints": _LL}
 
 
 def _sources() -> list[Path]:
@@ -128,5 +136,5 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib

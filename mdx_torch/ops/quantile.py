@@ -1,9 +1,11 @@
 """Exact per-image order statistics and percentiles (PyTorch).
 
 Counterpart of ``mdx/ops/quantile.py``.  The TPU package finds order
-statistics by a bitwise binary search because a sort is slow there; on the
-GPU (and the CPU) ``torch.sort`` is the direct route for an array on one
-device and gives the same exact order statistics.  The interpolation plan
+statistics by a bitwise binary search because a sort is slow there.  On the
+card the select kernel (``kernels.select_ranks``, ``csrc/select.cu``) finds
+the few ranks a percentile needs by radix selection, three reads of each
+row; on the CPU ``torch.sort`` and a gather (:func:`select_ranks_plain`)
+give the same exact order statistics.  The interpolation plan
 (:func:`_plan`) and the NumPy 'linear' blend (:func:`_interpolate`) are
 ported as they are, so the results are bit-equal to the JAX package's.
 For an array split over ranks (:func:`percentiles_multi_sharded`) the
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from mdx_torch import telemetry
+from mdx_torch import kernels, telemetry
 
 
 def _plan(qs, m: int):
@@ -40,19 +42,38 @@ def _interpolate(os_: torch.Tensor, succ: torch.Tensor, plan) -> torch.Tensor:
     return torch.stack(out, 0)
 
 
+def select_ranks_plain(flat: torch.Tensor, ranks) -> torch.Tensor:
+    """The ``ranks``-th smallest elements (1-indexed) of each row of
+    [N, M] → [N, len(ranks)]: a sort and a gather, the plain version of
+    ``kernels.select_ranks``."""
+    srt = torch.sort(flat, dim=-1).values
+    # from pageable memory the upload waits for the device's queue
+    with telemetry.count_sync("quantile.ranks"):
+        idx = torch.tensor(ranks, device=flat.device) - 1      # 0-indexed
+    return srt[:, idx]
+
+
+def select_targets(ranks, m: int) -> tuple:
+    """The order statistics the blend of ``_plan``'s lower ``ranks`` reads:
+    those ranks, then each one's successor (clamped to ``m``)."""
+    return ranks + tuple(min(k + 1, m) for k in ranks)
+
+
 def percentiles_exact(x: torch.Tensor, qs) -> torch.Tensor:
-    """Per-image percentiles (NumPy 'linear' rule) of [N, ...] → [len(qs), N]."""
+    """Per-image percentiles (NumPy 'linear' rule) of [N, ...] → [len(qs),
+    N]; on the card at most 8 distinct ranks (the select kernel's 16
+    targets with their successors)."""
     n = x.shape[0]
     flat = x.reshape(n, -1)
     m = flat.shape[1]
     ranks, plan = _plan(qs, m)
-    srt = torch.sort(flat, dim=-1).values
-    # from pageable memory the upload waits for the device's queue
-    with telemetry.count_sync("quantile.ranks"):
-        lo = torch.tensor(ranks, device=x.device) - 1          # 0-indexed
-    os_ = srt[:, lo]
-    succ = srt[:, torch.clamp(lo + 1, max=m - 1)]
-    return _interpolate(os_, succ, plan)
+    targets = select_targets(ranks, m)
+    if kernels.use_kernel(flat):
+        stats = kernels.select_ranks(flat.contiguous(), targets)
+    else:
+        stats = select_ranks_plain(flat, targets)
+    r = len(ranks)
+    return _interpolate(stats[:, :r], stats[:, r:], plan)
 
 
 def median_rows(flat: torch.Tensor) -> torch.Tensor:

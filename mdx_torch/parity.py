@@ -403,7 +403,10 @@ def max_abs(got: dict[str, np.ndarray], want: dict[str, np.ndarray],
 # version's expressions in its order under --fmad=false (the remap's gathers
 # and blend; the step's divergence, differences, norm and update), so their
 # pixels are expected to be exact; kernel 12's energy sums differ only in
-# float64 summation order, about 1e-12 of sums below 1e5.
+# float64 summation order, about 1e-12 of sums below 1e5.  The select
+# kernel counts integers and returns elements of its input, so it is held
+# to torch.sort's order statistics exactly (an input with -0.0 may give the
+# other zero, which compares equal).
 KERNEL_TOL = {
     "box_stats": (1e-6, 1e-9),
     "unsharp": (0.0, 1e-5),
@@ -413,6 +416,7 @@ KERNEL_TOL = {
     "wavelet_denoise": (0.0, 2e-6),
     "clahe_remap_ext": (0.0, 2e-5),
     "tv_shard_step": (0.0, 1e-5),
+    "select": (0.0, 0.0),
 }
 
 # The sharded CLAHE (mdx_torch.parallel.clahe_sp) against the dense one on

@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from mdx_torch import kernels, parity
+from mdx_torch import kernels, parity, telemetry
 from mdx_torch.core import metrics as M
 from mdx_torch.core import qa
 from mdx_torch.ops import bilateral as B
 from mdx_torch.ops import clahe as C
 from mdx_torch.ops import filters as F
+from mdx_torch.ops import quantile as Q
 from mdx_torch.ops import tv as T
 from mdx_torch.ops import wavelet as W
 from mdx_torch.parallel import clahe_sp, launch, tv_sp
@@ -410,6 +411,7 @@ def test_launch_counters_count_wrapper_launches(dev):
     p = torch.zeros((2, 2, 64, 64), device=dev)
     kernels.tv_shard_step(x, p, torch.empty_like(p), one.int(), one * 0.05,
                           None, None, (64, 64, 0, 0, 4), 4)
+    kernels.select_ranks(x.reshape(2, -1), (1, 2, 4096))
     kernels.LAUNCHES["clahe"] -= 1      # _lut_ext's LUT stage
     assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
     F.unsharp_mask_plain(x, one, one)
@@ -1056,3 +1058,130 @@ def test_run_pipeline_jpeg_dct_equals_its_twin_on_the_card(
         assert a.keys() == b.keys()
         for k in a:
             assert np.array_equal(a[k], b[k], equal_nan=True), (name, k)
+
+
+# ------------------------------------------------- the select kernel
+
+def _rows(kind, n, m, device, seed=0):
+    """[n, m] rows made on the card: "clipped", a smooth scene plus noise
+    quantised to 12 bits, a third of each row at 0 (background) and a
+    tenth at 1 (saturation); "skewed", gradient-like magnitudes, half of
+    them exactly 0 and the rest spread over decades; "signed", normal
+    values with denormals and negatives."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    u = torch.rand((n, m), generator=g, device=device)
+    if kind == "clipped":
+        t = torch.arange(m, device=device, dtype=torch.float32)
+        x = 0.5 + 0.3 * torch.sin(t / 97.0) + 0.2 * (u - 0.5)
+        x = torch.round(torch.clamp(x, 0.0, 1.0) * 4095) / 4095
+        v = torch.rand((n, m), generator=g, device=device)
+        x = torch.where(v < 0.33, 0.0, torch.where(v > 0.9, 1.0, x))
+    elif kind == "skewed":
+        x = torch.where(u < 0.5, 0.0, torch.exp(-20.0 * u))
+    else:
+        x = torch.randn((n, m), generator=g, device=device) * 3.0
+        x = torch.where(u < 0.05, x * 1e-39, x)
+        x = torch.where(x == 0, 0.0, x)             # no -0.0
+    return x.contiguous()
+
+
+def _assert_select(flat, ranks):
+    got = kernels.select_ranks(flat, ranks)
+    want = torch.sort(flat, dim=-1).values[:, [k - 1 for k in ranks]]
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        (got - want).abs().max()
+    return got
+
+
+def _metric_targets(m):
+    out = []
+    for qs in ([5.0, 25.0, 75.0, 95.0], [90.0], [50.0]):
+        ranks, _ = Q._plan(qs, m)
+        out += list(ranks) + [min(k + 1, m) for k in ranks]
+    return tuple(out) + (1, m)
+
+
+@pytest.mark.parametrize("kind", ["clipped", "skewed", "signed"])
+@pytest.mark.parametrize("shape", [(1, 262144), (27, 262144), (64, 262144),
+                                   (16, 2048 * 2048), (16, 1025 * 1025)])
+def test_select_kernel_against_sort(dev, shape, kind):
+    """The order statistics of the metric pass's shapes (a file, the
+    autotune lanes, a CT chunk, a 2048^2 group and its HH band) on
+    clipped and skewed rows, equal to torch.sort's bit for bit, and one
+    count a call."""
+    n, m = shape
+    flat = _rows(kind, n, m, dev, seed=n)
+    kernels.reset_launches()
+    got = _assert_select(flat, _metric_targets(m))
+    assert kernels.LAUNCHES["select"] == 1
+    again = kernels.select_ranks(flat, _metric_targets(m))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,m,offset", [(1, 1, 0), (2, 2, 0), (5, 7, 1),
+                                        (3, 10001, 1), (2, 10001, 3),
+                                        (70, 4099, 2)])
+def test_select_kernel_odd_rows(dev, n, m, offset):
+    """Rows of one and two elements, lengths that are not a multiple of 4
+    and rows that start off 16-byte alignment (the scalar head and tail),
+    every rank from 1 to M where M is small, else 16 ranks from 1 to M."""
+    buf = _rows("signed", 1, n * m + offset, dev, seed=m)
+    flat = buf.reshape(-1)[offset:].view(n, m)
+    ranks = tuple(range(1, m + 1)) if m <= 16 else tuple(
+        np.linspace(1, m, 16).astype(int).tolist())
+    _assert_select(flat, ranks)
+
+
+def test_select_kernel_ties_and_signed_zeros(dev):
+    """All-equal rows, four values, and ±0.0 (the other zero may come
+    back: compared with ==)."""
+    m = 300007
+    flat = torch.stack([torch.full((m,), 0.3125, device=dev),
+                        (torch.arange(m, device=dev) % 4).float() / 4])
+    _assert_select(flat, (1, 2, m // 2, m - 1, m))
+    z = torch.tensor([-0.0, 0.0, 1.0, -1.0] * 5000, device=dev)
+    z = torch.stack([z, z.flip(0)])
+    ranks = (1, 5000, 5001, 7500, 10000, 10001, 15000, 20000)
+    got = kernels.select_ranks(z, ranks)
+    want = torch.sort(z, dim=-1).values[:, [k - 1 for k in ranks]]
+    assert bool((got == want).all())
+
+
+def test_image_stats_with_and_without_the_select_kernel(dev, monkeypatch):
+    """The metric pass with its percentiles from the select kernel and
+    from torch.sort (the plain version on the card) gives equal fields,
+    and the kernel route makes no ``quantile.ranks`` sync."""
+    x = torch.cat([_batch(30, 3, 512, 512, dev),
+                   torch.clamp(_batch(31, 1, 512, 512, dev) * 1.6 - 0.3,
+                               0.0, 1.0)])
+    before = telemetry.SYNCS.get("quantile.ranks", 0)
+    kernels.reset_launches()
+    got = M.image_stats(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["select"] == 3
+    assert telemetry.SYNCS.get("quantile.ranks", 0) == before
+    monkeypatch.setattr(kernels, "select_ranks", Q.select_ranks_plain)
+    want = M.image_stats(x)
+    assert telemetry.SYNCS.get("quantile.ranks", 0) == before + 3
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_select_calls_of_a_2048_group(dev):
+    """A 16 x 2048^2 ``qa_deterministic`` group calls the select kernel 10
+    times (the metric pass 3, kernel 10's sigma, the light denoise, the
+    noise guard 2, validation 3), 11 where the noise guard denoises again,
+    and never syncs for its ranks."""
+    x = torch.cat([_batch(40, 8, 2048, 2048, dev),
+                   torch.clamp(_batch(41, 8, 2048, 2048, dev) * 0.4 + 0.3,
+                               0.0, 1.0)])
+    before = telemetry.SYNCS.get("quantile.ranks", 0)
+    kernels.reset_launches()
+    _, _, _, flags, _, _ = qa.qa_deterministic(x)
+    fix = bool(flags["noise_amp"].any())
+    print(f"select calls of a 16 x 2048^2 group: "
+          f"{kernels.LAUNCHES['select']} (noise guard denoised: {fix})")
+    assert kernels.LAUNCHES["select"] == 10 + int(fix)
+    assert telemetry.SYNCS.get("quantile.ranks", 0) == before

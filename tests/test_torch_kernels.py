@@ -220,13 +220,14 @@ def test_build_flags_and_library_name():
     assert _build.library_path() == _build.library_path()
     assert {s.name for s in _build._sources()} >= {
         "box_stats.cu", "unsharp.cu", "clahe.cu", "tv.cu", "bilateral.cu",
-        "wavelet.cu", "common.cuh"}
+        "wavelet.cu", "select.cu", "common.cuh"}
     assert set(_build.SIGNATURES) == {
         "mdx_box_stats", "mdx_unsharp", "mdx_clahe", "mdx_tv_blocked_steps",
         "mdx_tv_blocked_step", "mdx_tv_blocked_rebuild", "mdx_bilateral",
         "mdx_wavelet_analysis", "mdx_wavelet_synthesis", "mdx_clahe_luts", "mdx_clahe_remap_ext",
         "mdx_tv_shard_blocked_step", "mdx_tv_shard_blocked_finalize",
-        "mdx_tv_shard_blocked_rebuild"}
+        "mdx_tv_shard_blocked_rebuild", "mdx_select", "mdx_select_max_targets",
+        "mdx_select_workspace_ints"}
 
 
 # ------------------------------------------- several threads at once

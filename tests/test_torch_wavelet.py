@@ -22,6 +22,7 @@ from mdx.ops import wavelet as JW
 from mdx.ops.pallas_kernels import wavelet_denoise_tpu
 
 from mdx_torch import kernels
+from mdx_torch.ops import quantile as Q
 from mdx_torch.ops import wavelet as TW
 
 torch.set_num_threads(1)
@@ -125,7 +126,8 @@ def test_cpu_tensor_runs_the_plain_version_and_builds_nothing():
 @pytest.fixture()
 def seam(monkeypatch):
     """Every tensor counts as a CUDA tensor, and the kernel wrapper records
-    its arguments instead of launching."""
+    its arguments instead of launching; the MAD sigma's order statistics
+    come from the select kernel's plain version."""
     calls = []
 
     def fake(x, sigma, soft, levels):
@@ -134,6 +136,7 @@ def seam(monkeypatch):
 
     monkeypatch.setattr(kernels, "use_kernel", lambda x: True)
     monkeypatch.setattr(kernels, "wavelet_denoise", fake)
+    monkeypatch.setattr(kernels, "select_ranks", Q.select_ranks_plain)
     return calls
 
 

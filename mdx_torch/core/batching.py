@@ -8,9 +8,9 @@ outputs are concatenated back along N.  Every QA step is per image, so
 grouping is the identity on results.
 
 On the TPU the groups keep XLA's fusion at its batch-32 operating point.
-The card has its own knee, measured with ``python -m
-mdx_torch.tools.sweep_knee`` (``qa_plan`` with the bench plan, median of 5
-synchronised reps; NVIDIA H100 80GB HBM3, 700.00 W):
+The card has its own knee, measured by a tool since deleted (``git show
+24f5dc4:mdx_torch/tools/sweep_knee.py``: ``qa_plan`` with the bench plan,
+median of 5 synchronised reps; NVIDIA H100 80GB HBM3, 700.00 W):
 
     size     batch  group  ms/batch  ms/image  peak GiB
     512^2       32     32      74.8     2.338      0.47

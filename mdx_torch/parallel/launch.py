@@ -160,7 +160,7 @@ def call_each(*blocks, calls, mesh) -> list:
 
 
 def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
-               timeout_s, host_blocks, fn, blocks, args, kwargs, out_queue):
+               timeout_s, fn, blocks, args, kwargs, out_queue):
     import torch.distributed as dist
 
     from mdx_torch.parallel.mesh import make_mesh2d
@@ -175,8 +175,7 @@ def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
                                 world_size=world,
                                 timeout=timedelta(seconds=timeout_s))
         mesh = make_mesh2d(rank, n_data, *grid(n_space), dev, backend)
-        xs = [torch.from_numpy(b) if host_blocks
-              else torch.from_numpy(b).to(dev) for b in blocks]
+        xs = [torch.from_numpy(b).to(dev) for b in blocks]
         out = fn(*xs, *_to_device(args, dev), mesh=mesh,
                  **_to_device(kwargs, dev))
         if dev.type == "cuda":
@@ -191,17 +190,14 @@ def _rank_main(rank, world, n_data, n_space, device, backend, store_path,
 
 def run(fn, inputs, *args, n_space, n_data: int = 1,
         device: str = "cuda", backend: str | None = None,
-        timeout_s: float = 600.0, host_blocks: bool = False,
-        **kwargs) -> Launched:
+        timeout_s: float = 600.0, **kwargs) -> Launched:
     """Run ``fn`` on ``n_data × n_space`` ranks (see the module doc).
 
     ``n_space``: an int (row blocks) or a pair ``(sy, sx)`` (a grid of
     tiles).  ``inputs``: one ``[N, H, W]`` numpy array or a tuple of them,
     each split by :func:`split`.  ``device``: "cuda" (rank r on card
     ``r % device_count``) or "cpu".  ``backend``: None for the rule of
-    :func:`~mdx_torch.parallel.mesh.choose_backend`, or "gloo"/"nccl".
-    ``host_blocks``: hand ``fn`` its blocks as host tensors (a rank body
-    that uploads them a chunk at a time) instead of on its device."""
+    :func:`~mdx_torch.parallel.mesh.choose_backend`, or "gloo"/"nccl"."""
     import torch.multiprocessing as mp
 
     inputs = (inputs,) if isinstance(inputs, np.ndarray) else tuple(inputs)
@@ -238,7 +234,7 @@ def run(fn, inputs, *args, n_space, n_data: int = 1,
     procs = [ctx.Process(
         target=_rank_main, daemon=True,
         args=(r, world, n_data, n_space, devices[r], backend,
-              str(tmp / "store"), timeout_s, host_blocks, fn,
+              str(tmp / "store"), timeout_s, fn,
               [split(x, r, n_data, n_space) for x in inputs], args, kwargs,
               out_queue)) for r in range(world)]
     got: dict[int, tuple] = {}

@@ -6,8 +6,9 @@ Counterpart of ``mdx/pipeline/batch_runner.py``:
 * a multi-frame DICOM becomes an ``[F, H, W]`` stack, a directory of DICOMs
   (decoded on 8 host threads) one frame per file;
 * frames are bucketed by shape (and stored dtype) and run in chunks of
-  ``ceil(64 / d)·d`` frames on a data axis of ``d`` ranks (JAX's
-  ``chunk_n``);
+  :data:`CHUNK` frames, on each rank of a data axis of ``d`` ranks; the
+  autotune path, on one card, runs chunks of ``ceil(64 / d)·d`` frames
+  (JAX's ``chunk_n``);
 * the deterministic path puts each frame's stored integers in its slot of
   its chunk's pinned host buffer, read there straight from the file where
   they are stored plain (:func:`_collect_inputs_raw`), uploads that buffer
@@ -34,9 +35,7 @@ back its packed results and each frame's label and metadata.  This
 process then writes the records, the report and the DB rows in the
 one-card order.  The ranks exchange nothing: every op is per image.  With
 ``d = 1`` everything runs in this process.  ``autotune=True`` runs on one
-card at every ``d``, as JAX's unsharded ``_autotune_chunk`` does.  Priming
-at ``d > 1`` runs its chunks in one ``launch.run`` (:func:`_run_sharded`,
-:func:`batch_block`).
+card at every ``d``, as JAX's unsharded ``_autotune_chunk`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -55,7 +55,6 @@ from mdx_torch.io import load_dicom, load_series, normalize_image
 from mdx_torch.io.dicom import (_metadata, load_frames_raw, plain_frame_dtype,
                                 raw_ingest_descriptor, read_dataset,
                                 read_frame_into)
-from mdx_torch.parallel import launch
 from mdx_torch.parallel.mesh import data_axis, divisible_batch
 from mdx_torch.pipeline import storage
 from mdx_torch.pipeline.profiler import traced_run
@@ -556,82 +555,30 @@ def _submit_raw(item, dev, window: bool, side):
     return (h, w, chunk), _Fetch(_device_qa(x, params, dev, window), side)
 
 
-def _chunks(n: int, chunk_n: int, d: int) -> list[tuple[int, int, int]]:
-    """(start, frames, lanes a rank) of each chunk of n frames: chunks of
-    ``chunk_n``, each padded to a multiple of ``d``."""
-    sizes = [(s, min(chunk_n, n - s)) for s in range(0, n, chunk_n)]
-    return [(s, m, divisible_batch(m, d) // d) for s, m in sizes]
+def _submit_autotune(item, dev, window: bool, side, *, tv_mode):
+    """One chunk ``(h, w, entries, None)`` of the autotune path: its
+    host-normalised frames (``window`` was applied as they were read)
+    stacked and swept by :func:`_autotune_chunk` → ((h, w, entries), its
+    :class:`_Fetch`)."""
+    h, w, chunk, _ = item
+    with telemetry.span("stage", frames=len(chunk)):
+        x = np.stack([f[2] for f in chunk]).astype(np.float32)
+    with telemetry.span("launch", frames=len(chunk)):
+        packed = _pack_outputs(_autotune_chunk(x, dev, tv_mode))
+    return (h, w, chunk), _Fetch(packed, side)
 
 
-def batch_block(*blocks: torch.Tensor, mesh, buckets: list[dict],
-                window: bool) -> dict:
-    """Rank body of :func:`run_pipeline_batch` at d > 1: for each bucket
-    (``{"frames": input index, "params": input index or None, "lanes":
-    [lanes of each chunk]}``), this rank's lanes of each chunk of it
-    (``blocks`` are host tensors) through :func:`_device_qa`, chunk t + 1
-    uploaded and launched before chunk t's results are read → ``packed``
-    (one [28, lanes] array a bucket) and this rank's compute in ms."""
-    dev = mesh.device
+def _walk(todo, dev, window: bool, drain, submit=_submit_raw) -> None:
+    """The chunk walk of the one-card loop: every chunk of ``todo`` (the
+    buckets ``[(h, w, [(entries, x)])]`` of :func:`_collect_inputs_raw`)
+    through ``submit`` (:func:`_submit_raw`, or :func:`_submit_autotune`)
+    on ``dev``, its results fetched over a side stream on the card, and
+    ``drain(((h, w, entries), fetch))`` for each, chunk t + 1 submitted
+    before chunk t is drained (:func:`_pipelined`)."""
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    t0 = time.perf_counter()
-    packed = []
-    for b in buckets:
-        x = blocks[b["frames"]].numpy()
-        p = (None if b["params"] is None
-             else blocks[b["params"]].numpy()[:, :, 0])
-        starts = np.cumsum([0] + b["lanes"][:-1]).tolist()
-        parts: list[np.ndarray] = []
-        _pipelined(
-            zip(starts, b["lanes"]),
-            lambda c: _Fetch(_device_qa(
-                x[c[0]:c[0] + c[1]],
-                None if p is None else p[c[0]:c[0] + c[1]].T.copy(),
-                dev, window), side),
-            lambda f: parts.append(f.result().copy()))
-        packed.append(np.concatenate(parts, axis=1))
-    return {"packed": packed, "rank_ms": (time.perf_counter() - t0) * 1e3}
-
-
-def _run_sharded(buckets: list, d: int, chunk_n: int, dev, window: bool
-                 ) -> tuple[list, dict]:
-    """The deterministic QA of every chunk of every bucket on ``d`` ranks
-    in one launch (module doc) → ([(h, w, chunk's frames, packed [28, n]
-    numpy)] in the order of the one-card loop, the launch's info with its
-    wall and each rank's compute)."""
-    inputs: list[np.ndarray] = []
-    specs, plan = [], []
-    for h, w, frames in buckets:
-        chunks = _chunks(len(frames), chunk_n, d)
-        # rank r's block: lanes r·l … (r + 1)·l − 1 of each padded chunk,
-        # chunk after chunk; a lane past a chunk's last frame copies it
-        order = [s + min(r * lanes + j, n - 1)
-                 for r in range(d) for s, n, lanes in chunks
-                 for j in range(lanes)]
-        spec = {"frames": len(inputs), "params": None,
-                "lanes": [lanes for _, _, lanes in chunks]}
-        inputs.append(np.stack([frames[i][2] for i in order]))
-        if frames[0][4] is not None:
-            spec["params"] = len(inputs)
-            inputs.append(_ingest_params([frames[i][4] for i in order],
-                                         window).T[:, :, None].copy())
-        specs.append(spec)
-        plan.append((h, w, frames, chunks))
-    t0 = time.perf_counter()
-    launched = launch.run(batch_block, tuple(inputs), n_space=1, n_data=d,
-                          device=dev.type, host_blocks=True, buckets=specs,
-                          window=window)
-    info = dict(launched.info(), wall_ms=(time.perf_counter() - t0) * 1e3,
-                rank_ms=[r["rank_ms"] for r in launched.results])
-    out = []
-    for b, (h, w, frames, chunks) in enumerate(plan):
-        ranks = [r["packed"][b] for r in launched.results]
-        at = 0
-        for s, n, lanes in chunks:
-            whole = np.concatenate([p[:, at:at + lanes] for p in ranks],
-                                   axis=1)
-            out.append((h, w, frames[s:s + n], whole[:, :n]))
-            at += lanes
-    return out, info
+    _pipelined(((h, w, chunk, x) for h, w, staged in todo
+                for chunk, x in staged),
+               lambda item: submit(item, dev, window, side), drain)
 
 
 def stage_block(share: dict, *, mesh, input_path: str, window: bool,
@@ -668,7 +615,6 @@ def stage_block(share: dict, *, mesh, input_path: str, window: bool,
                 names=share.get("names"), frames=share.get("frames"),
                 threads=threads)
             t1 = time.perf_counter()
-            side = torch.cuda.Stream(dev) if cuda else None
 
             def drain(entry):
                 (h, w, chunk), fetch = entry
@@ -677,10 +623,7 @@ def stage_block(share: dict, *, mesh, input_path: str, window: bool,
                     (label, fidx, meta) for label, fidx, _, meta, _ in chunk],
                     packed.copy()))
 
-            _pipelined(((h, w, chunk, x) for h, w, staged in todo
-                        for chunk, x in staged),
-                       lambda item: _submit_raw(item, dev, window, side),
-                       drain)
+            _walk(todo, dev, window, drain)
             if cuda:
                 torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
@@ -827,7 +770,6 @@ def run_pipeline_batch(
     with traced_run("batch", f"batch_{storage.generate_run_id()}"):
         storage.init_db()
         done = _completed_frames() if resume else set()
-        chunk_n = divisible_batch(CHUNK, d)
 
         if autotune:
             # the sweep runs from host-normalised frames
@@ -835,7 +777,7 @@ def run_pipeline_batch(
                 items = _collect_inputs(input_path, window=window)
             with telemetry.span("bucket"):
                 plan, skipped = _chunk_plan(_buckets(items, window=window),
-                                            done, chunk_n)
+                                            done, divisible_batch(CHUNK, d))
             n_files = len(items)
             todo = [(h, w, [(chunk, None) for chunk in chunks])
                     for (h, w), chunks in plan]
@@ -846,8 +788,8 @@ def run_pipeline_batch(
         else:
             with telemetry.span("decode"):
                 todo, n_files, skipped = _collect_inputs_raw(
-                    input_path, window=window, done=done, chunk_n=chunk_n,
-                    pin=dev.type == "cuda" and d == 1)
+                    input_path, window=window, done=done, chunk_n=CHUNK,
+                    pin=dev.type == "cuda")
         if not n_files:
             raise RuntimeError(f"No DICOM inputs found at {input_path}")
 
@@ -868,27 +810,15 @@ def run_pipeline_batch(
                         _collect(frames, packed, h, w, results,
                                  save_artifacts)
         else:
-            side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-
-            def submit(item):
-                h, w, chunk, x = item
-                if autotune:
-                    with telemetry.span("stage", frames=len(chunk)):
-                        x = np.stack([f[2] for f in chunk]).astype(np.float32)
-                    with telemetry.span("launch", frames=len(chunk)):
-                        packed = _pack_outputs(_autotune_chunk(x, dev, tv_mode))
-                else:
-                    return _submit_raw(item, dev, window, side)
-                return (h, w, chunk), _Fetch(packed, side)
-
             def drain(entry):
                 (h, w, chunk), fetch = entry
                 packed = fetch.result()
                 with telemetry.span("collect", frames=len(chunk)):
                     _collect(chunk, packed, h, w, results, save_artifacts)
 
-            _pipelined(((h, w, chunk, x) for h, w, staged in todo
-                        for chunk, x in staged), submit, drain)
+            _walk(todo, dev, window, drain,
+                  partial(_submit_autotune, tv_mode=tv_mode) if autotune
+                  else _submit_raw)
 
         with telemetry.span("report"):
             report_md = _batch_report(results, output_dir, save_artifacts)

@@ -23,9 +23,11 @@ count (one a program JAX would compile; builds are not counted):
   single-image runner), then one chunk per stored dtype and windowing
   mode through the batch runner's own path (``_ingest_params``,
   ``_device_qa``: the pinned upload, ``normalize_ingest``,
-  ``qa_deterministic`` and ``_pack_outputs``; ``_Fetch``).  On a data axis
-  of d > 1 ranks the chunks of one windowing mode run in one
-  ``batch_runner._run_sharded`` launch, as ``--batch`` runs them;
+  ``qa_deterministic`` and ``_pack_outputs``; ``_Fetch``), in the rank
+  body :func:`prime_chunks`.  On a data axis of d > 1 ranks that body
+  runs in one call on this process's rank pool
+  (``mdx_torch.parallel.pool``), which ``--batch`` in this process then
+  runs on, every rank running every chunk at ``--batch``'s chunk size;
 * :func:`prime_tuning`: ``core.tuning.autotune`` once per distinct
   candidate count K, and the GenAI tools' three functions at ``[1, H, W]``
   (``image_stats``, ``qa.enhance_only`` on the default op chain,
@@ -284,6 +286,30 @@ def prime_spatial(
     return count
 
 
+def prime_chunks(chunks: Sequence[tuple[int, int, str, bool]], *, n: int,
+                 mesh) -> list[tuple[int, float]]:
+    """Rank body of :func:`prime`: each ``(h, w, dtype, window)`` of
+    ``chunks`` as one chunk of ``n`` synthetic frames through the batch
+    runner's chunk path on ``mesh.device`` (``_ingest_params``,
+    ``_device_qa``: the pinned upload, ``normalize_ingest``,
+    ``qa_deterministic`` and ``_pack_outputs``; ``_Fetch``) → each chunk's
+    (frames in its results, seconds)."""
+    from mdx_torch.pipeline import batch_runner as BR
+
+    dev = mesh.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    out = []
+    for h, w, dtype, window in chunks:
+        frames = _synthetic_frames(h, w, n, dtype)
+        descs = None if dtype == "float32" else _synthetic_descs(dtype, n)
+        t0 = _now(dev)
+        params = None if descs is None else BR._ingest_params(descs, window)
+        packed = BR._Fetch(BR._device_qa(frames, params, dev, window),
+                           side).result()
+        out.append((packed.shape[1], _now(dev) - t0))
+    return out
+
+
 def prime(
     shapes: Sequence[tuple[int, int]] = ((512, 512),),
     *,
@@ -296,75 +322,52 @@ def prime(
     log: Callable[[str], None] = logger.info,
 ) -> int:
     """Build both libraries, then warm the product's standard device path:
-    the single-image QA pass and one batch chunk per (stored dtype,
-    windowing mode) at each shape, chunks of ``chunk`` rounded up to a
-    multiple of the data axis ``d`` (``n_data``; None: every visible
-    card, as ``--batch``).  Returns JAX's count (builds not counted)."""
+    the single-image QA pass at each shape in this process, and one batch
+    chunk of ``chunk`` frames per (shape, stored dtype, windowing mode) on
+    every rank of the data axis ``d`` (``n_data``; None: every visible
+    card, as ``--batch``) by :func:`prime_chunks`.  At d = 1 that runs in
+    this process; at d > 1 it is one call on this process's rank pool, the
+    one ``--batch`` then runs on, each rank running every chunk at the size
+    of one of ``--batch``'s.  Each chunk is logged with the slowest rank's
+    seconds, each shape's lines in JAX's order.  Returns JAX's count
+    (builds not counted)."""
     from mdx_torch.core import qa
-    from mdx_torch.parallel.mesh import data_axis, divisible_batch
-    from mdx_torch.pipeline import batch_runner as BR
+    from mdx_torch.parallel.mesh import SpatialMesh, data_axis
 
     dev = resolve_device(device)
     build_libraries(dev, log)
     d = data_axis(n_data, dev)
-    chunk_n = max(divisible_batch(chunk, d), d)
     dtypes, window_modes = tuple(dtypes), tuple(window_modes)
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    sharded: dict[bool, list] = {window: [] for window in window_modes}
-    starts = {}
-
-    count = 0
-    for h, w in shapes:
-        starts[h, w] = time.perf_counter()
-        if single:
+    todo = [(i, h, w, dtype, window) for i, (h, w) in enumerate(shapes)
+            for dtype in dtypes for window in window_modes
+            # float32 fallback frames are pre-windowed
+            if not (dtype == "float32" and window)]
+    steps = []    # (shape index, step, seconds), each shape's in JAX's order
+    if single:
+        for i, (h, w) in enumerate(shapes):
             # the single-image runner: qa_deterministic on [1, H, W]
             t0 = _now(dev)
             qa.qa_deterministic(torch.from_numpy(
                 _synthetic_frames(h, w, 1, "float32")).to(dev))
-            count += 1
-            log(f"  [{h}x{w}] single-image QA pass in "
-                f"{_now(dev) - t0:.2f} s")
-        for dtype in dtypes:
-            for window in window_modes:
-                if dtype == "float32" and window:
-                    continue  # float32 fallback frames are pre-windowed
-                frames = _synthetic_frames(h, w, chunk_n, dtype)
-                descs = (None if dtype == "float32"
-                         else _synthetic_descs(dtype, chunk_n))
-                label = (f"  [{h}x{w}] chunk={chunk_n} dtype={dtype}"
-                         f" window={window}")
-                if d > 1:
-                    sharded[window].append((h, w, label, [
-                        (f"prime_{dtype}", i, frames[i], {},
-                         None if descs is None else descs[i])
-                        for i in range(chunk_n)]))
-                    continue
-                t0 = _now(dev)
-                params = (None if descs is None
-                          else BR._ingest_params(descs, window))
-                BR._Fetch(BR._device_qa(frames, params, dev, window),
-                          side).result()
-                count += 1
-                log(f"{label} in {_now(dev) - t0:.2f} s")
-        if d == 1:
-            log(f"[{h}x{w}] done in "
-                f"{time.perf_counter() - starts[h, w]:.1f} s")
-    if d > 1:
-        # one launch of d ranks per windowing mode, every chunk of it
-        for window, buckets in sharded.items():
-            if not buckets:
-                continue
-            _out, info = BR._run_sharded(
-                [(h, w, frames) for h, w, _, frames in buckets], d, chunk_n,
-                dev, window)
-            count += len(buckets)
-            for _, _, label, _ in buckets:
-                log(f"{label} in one launch of {d} ranks "
-                    f"({info['wall_ms'] / 1e3:.2f} s for {len(buckets)} "
-                    "chunks)")
-        for (h, w), t0 in starts.items():
-            log(f"[{h}x{w}] done in {time.perf_counter() - t0:.1f} s")
-    return count
+            steps.append((i, "single-image QA pass", _now(dev) - t0))
+    chunks = [c[1:] for c in todo]
+    if d == 1:
+        # one rank and no process group: prime_chunks reads the device
+        ran = [prime_chunks(chunks, n=chunk,
+                            mesh=SpatialMesh(0, 1, 1, dev, "gloo"))]
+    else:
+        from mdx_torch.parallel import pool
+
+        ran = pool.get(d, dev).call(prime_chunks, [(chunks,)] * d, n=chunk)
+    slowest = np.max([[s for _, s in r] for r in ran], axis=0)
+    steps += [(i, f"chunk={chunk} dtype={dtype} window={window}", s)
+              for (i, _, _, dtype, window), s in zip(todo, slowest)]
+    for i, (h, w) in enumerate(shapes):
+        mine = [(step, s) for j, step, s in steps if j == i]
+        for step, s in mine:
+            log(f"  [{h}x{w}] {step} in {s:.2f} s")
+        log(f"[{h}x{w}] done in {sum(s for _, s in mine):.1f} s")
+    return len(steps)
 
 
 def _parse_shapes(s: str) -> list[tuple[int, int]]:
@@ -435,8 +438,9 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
 
 
 if __name__ == "__main__":
-    # run the importable module's main, so that the rank body a launch
-    # pickles is mdx_torch.pipeline.prime's and not __main__'s
+    # run the importable module's main, so that the rank bodies a launch
+    # or the rank pool pickles are mdx_torch.pipeline.prime's and not
+    # __main__'s
     from mdx_torch.pipeline.prime import main as _main
 
     raise SystemExit(_main())

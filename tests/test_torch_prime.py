@@ -217,55 +217,6 @@ def test_prime_full_matrix_counts_eight():
     assert all("chunk=64 " in m for m in chunks)
 
 
-def _in_process_run(calls: list):
-    """``launch.run`` without processes: each rank's body in turn in this
-    process, on a mesh that only carries the device (the batch runner's
-    rank body reads nothing else)."""
-    from mdx_torch.parallel.mesh import SpatialMesh, grid
-
-    def run(fn, inputs, *args, n_space, n_data=1, device="cuda",
-            host_blocks=False, **kwargs):
-        calls.append((fn, n_space, n_data, device, host_blocks, kwargs))
-        inputs = ((inputs,) if isinstance(inputs, np.ndarray)
-                  else tuple(inputs))
-        sy, sx = grid(n_space)
-        results = []
-        for r in range(n_data * sy * sx):
-            mesh = SpatialMesh(r, n_data, sy * sx, torch.device(device),
-                               "gloo", n_sx=sx)
-            blocks = [torch.from_numpy(launch.split(x, r, n_data, n_space))
-                      for x in inputs]
-            results.append(launch.to_numpy(fn(*blocks, *args, mesh=mesh,
-                                              **kwargs)))
-        world = len(results)
-        return launch.Launched(results, "gloo", [device] * world,
-                               [0] * world, n_space, n_data)
-
-    return run
-
-
-def test_prime_on_a_data_axis_launches_once_per_window_mode(monkeypatch):
-    calls, sharded = [], []
-    monkeypatch.setattr(launch, "run", _in_process_run(calls))
-    _spy(monkeypatch, PB, "_run_sharded", sharded)
-    msgs = []
-    n = PP.prime([(32, 32)], chunk=3, dtypes=("uint16", "float32"),
-                 n_data=2, device="cpu", log=msgs.append)
-    # single + uint16 × 2 windows + float32 unwindowed; chunk 3 → 4 frames
-    assert n == 4
-    assert [(c[0], c[2], c[4]) for c in calls] == [(PB.batch_block, 2,
-                                                    True)] * 2
-    assert [c[5]["window"] for c in calls] == [False, True]
-    assert [len(c[5]["buckets"]) for c in calls] == [2, 1]
-    for (args, _, (out, _info)) in sharded:
-        buckets, d, chunk_n = args[:3]
-        assert (d, chunk_n) == (2, 4)
-        assert [len(frames) for _, _, frames in buckets] == [4] * len(out)
-        for h, w, frames, packed in out:
-            assert packed.shape == (PACKED_ROWS, 4) and np.isfinite(packed).all()
-    assert sum("in one launch of 2 ranks" in m for m in msgs) == 3
-
-
 # ---------------------------------------------------------------------------
 # prime_tuning
 

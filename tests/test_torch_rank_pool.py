@@ -11,7 +11,9 @@ reads, starts and calls nothing; a rank that raises gives the caller its
 traceback and the pool serves the next run, as after a rank function that
 cannot be pickled, which raises at once; a killed rank is replaced on the
 next run; the rank's spans come back tagged with its rank while
-tracing is on; ``close`` leaves no rank alive.
+tracing is on; the primer at n_data = 2 runs every chunk on both ranks
+of the pool in one call and leaves the pool to the next run; ``close``
+leaves no rank alive.
 """
 
 import multiprocessing
@@ -238,6 +240,38 @@ def test_rank_spans_come_back_tagged(ranks, inputs, tmp_path):
     trace = telemetry.chrome_trace(snap)
     assert {e["pid"] for e in trace["traceEvents"]} == set(
         pool._POOL.pids)
+
+
+def test_prime_warms_the_pool_batch_runs_on(ranks, inputs, tmp_path,
+                                            monkeypatch):
+    from mdx_torch.pipeline import prime as PP
+
+    p = pool.get(2, "cpu")
+    starts = telemetry.RANKS.get("starts", 0)
+    calls, real = [], pool.RankPool.call
+
+    def spy(self, fn, args, **kw):
+        out = real(self, fn, args, **kw)
+        calls.append((fn, args, kw, out))
+        return out
+
+    monkeypatch.setattr(pool.RankPool, "call", spy)
+    monkeypatch.setattr(launch, "run", None)
+    n = PP.prime([(32, 32)], chunk=3, dtypes=("uint16", "float32"),
+                 n_data=2, device="cpu")
+    # the single pass + uint16 × 2 window modes + float32 unwindowed
+    assert n == 4
+    ((fn, args, kw, ran),) = calls
+    assert fn is PP.prime_chunks and kw == {"n": 3}
+    assert args == [([(32, 32, "uint16", False), (32, 32, "uint16", True),
+                      (32, 32, "float32", False)],)] * 2
+    # both ranks ran all three chunks at 3 frames each
+    assert [[frames for frames, _ in r] for r in ran] == [[3, 3, 3]] * 2
+    assert telemetry.RANKS.get("starts", 0) == starts
+    res = PR.run_pipeline_batch(inputs["series"], str(tmp_path / "o"),
+                                device="cpu", n_data=2)
+    assert pool._POOL is p and res["launch"]["starts"] == 0
+    assert len(res["frames"]) == 5
 
 
 def test_close_leaves_no_rank(ranks):
